@@ -5,18 +5,33 @@
 Phases, one or more lines each:
 
 1. the card and toolchain;
-2. the kernel build (nvcc, from psxavenc_tpu_torch/csrc);
-3. each CUDA kernel against its plain PyTorch version at the main path's
-   shapes (BS 320x240, 128 frames, 18,144-byte budgets), v2 and v3dc:
-   exact equality, kernel and plain times (CUDA events, median);
-4. the main path: BsFrameEncoder on the card over 256 frames for v2, v3
-   and v3dc, byte-equal to the native C++ tier, every kernel launched;
-5. the CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI;
+2. the kernel build (nvcc, one process per source in
+   psxavenc_tpu_torch/csrc, started together);
+3. each BS kernel (K1-K4) against its plain PyTorch version at the video
+   path's shapes (BS 320x240, 128 frames, 18,144-byte budgets), v2 and
+   v3dc: exact equality, kernel and plain times (CUDA events, median);
+4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
+   and v3dc, each codec's bytes equal to its committed digest, K1-K4
+   launched;
+5. the video CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI,
+   equal to the digests;
 6. frames/s: device, end to end, and the plain path on the card, with a
-   torch.profiler breakdown of the device step.
+   torch.profiler breakdown of the device step;
+7. K5 against its plain version on 4,096 streams x 64 units for
+   (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8);
+8. the batch API at full width: api.spu_encode_batch on 4,096 x 1,000
+   SPU units, Msamples/s on the device, the kernel's share of its bound,
+   peak device memory;
+9. the audio and A/V path: the CLI (-t xa, xacd, spu, vag, vagi, and the
+   flagship -t strcd / -t str: 320x240 15 fps BS v2 with 37,800 Hz stereo
+   XA) run in this process on the card, every output equal to its
+   digest, K5 (and K1, K3, K4 for str/strcd) launched; seconds per file
+   and, from torch.profiler, K5's device time on the 60 s track.
 
-The ptxas report and the profiler tables are written under ``--out``
-(default ``smoke_out/``).
+The digests (psxavenc_tpu_torch/data/smoke_digests.json) are the JAX
+package's outputs for the same inputs; tests/test_torch_smoke_refs.py
+recomputes them on the CPU from the recipes below. The ptxas report and
+the profiler tables are written under ``--out`` (default ``smoke_out/``).
 
 Any failure ends the run with a nonzero exit and no result; so does a
 machine without a CUDA device. The last three lines are the kernel table
@@ -24,6 +39,7 @@ as JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -32,11 +48,21 @@ import sys
 import tempfile
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DIGESTS = os.path.join(ROOT, "psxavenc_tpu_torch", "data",
+                       "smoke_digests.json")
+
 W, H = 320, 240
 B = 128
 BUDGET = 18144                       # 9 sectors x 2,016 bytes
 CAP_WORDS = (BUDGET - 8 + 1) // 2
 MAIN_FRAMES = 256
+CLI_FRAMES = 40
+FLAGSHIP_FRAMES = 60                 # 4 s at 15 fps
+ADPCM_STREAMS = 4096                 # the batch shape of bench.py:149
+ADPCM_UNITS = 1000
+ADPCM_CHECK_UNITS = 64
+ADPCM_VARIANTS = ((5, 12), (4, 12), (4, 8))
 
 # (wrapper name, source, TPU kernel it replaces)
 KERNELS = [
@@ -48,19 +74,104 @@ KERNELS = [
      "psxavenc_tpu/ops/bs_pallas.py:891"),
     ("place_vals", "psxavenc_tpu_torch/csrc/bitpack_place.cu",
      "psxavenc_tpu/ops/bitpack_pallas.py:315"),
+    ("adpcm_encode_units", "psxavenc_tpu_torch/csrc/adpcm_units.cu",
+     "psxavenc_tpu/ops/adpcm_pallas.py:194"),
 ]
 
+# ---------------------------------------------------------------- bounds
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over HBM3's
+# 3.35 TB/s and its integer operations over the SMs' int32 rate. NVIDIA's
+# data sheet gives no int32 rate outside the tensor cores; the Hopper
+# white paper gives 64 INT32 lanes per SM, so 132 SMs x 64 x the 1.98 GHz
+# boost clock. Operations per element, counted from the kernels' code:
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_FDCT_BLOCK = 900      # K1: two 8x8 islow passes + descale + zigzag
+OPS_SCALE_EVAL = 20       # K1: quantize, run, closed-form bits, per coef
+OPS_DC_BLOCK = 12         # K2: difference, wrap, size, code
+OPS_EMIT_COEF = 24        # K3: quantize, run, code, window placement
+OPS_PLACE_WORD = 4        # K4: test, offset, bound check, OR
+OPS_ADPCM_STEP = 20       # K5: predict, quantize, clip, decode, error,
+                          #     pack, per candidate and sample
+OPS_ADPCM_RESID = 8       # K5: residual and extrema, per filter, sample
 
-def say(msg):
-    print(msg, flush=True)
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    return out[0].strip()
+def bound(n_bytes, ops):
+    """(bound ms, what bounds it)."""
+    ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = ops / INT32_OPS_PER_S * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
+                                                            "operations")
+
+
+def adpcm_ops(n_units, filter_count):
+    return n_units * 28 * (3 * filter_count * OPS_ADPCM_STEP
+                           + filter_count * OPS_ADPCM_RESID)
+
+
+# ------------------------------------------------- inputs, from seeds
+# Shared with tests/test_torch_smoke_refs.py, which computes the digests
+# of these inputs with the JAX package. ``synth`` is
+# psxavenc_tpu_torch.utils.synth (or, in that test, the JAX package's).
+# Audio is written at the output's own rate and channel count, so no
+# resampler runs.
+
+# (digest key, CLI arguments, input file)
+VIDEO_CLI_CASES = [
+    ("cli_sbs_v3dc", ["-t", "sbs", "-v", "v3dc"], "in.avi"),
+    ("cli_strv", ["-t", "strv"], "in.avi"),
+]
+AV_CLI_CASES = [
+    ("xa_37800_stereo_4bit", ["-t", "xa", "-f", "37800", "-c", "2",
+                              "-b", "4"], "track.wav"),
+    ("xacd_18900_mono_8bit", ["-t", "xacd", "-f", "18900", "-c", "1",
+                              "-b", "8"], "mono18900.wav"),
+    ("spu", ["-t", "spu", "-f", "44100"], "mono44100.wav"),
+    ("vag_loop", ["-t", "vag", "-f", "44100"], "loop44100.wav"),
+    ("vagi_stereo", ["-t", "vagi", "-f", "44100", "-c", "2"],
+     "stereo44100.wav"),
+    ("strcd_flagship", ["-t", "strcd", "-x", "2", "-v", "v2", "-f",
+                        "37800", "-c", "2"], "flagship.avi"),
+    ("str_flagship", ["-t", "str", "-x", "2", "-v", "v2", "-f", "37800",
+                      "-c", "2"], "flagship.avi"),
+]
+PHASE4_CODECS = ((0, "v2"), (1, "v3"), (2, "v3dc"))
+
+
+def out_name(key):
+    """The output file name of a CLI case (.vag headers embed it)."""
+    return f"{key}.out"
+
+
+def write_inputs(synth, d):
+    """Every input file of the CLI phases, written into directory d."""
+    j = os.path.join
+    synth.write_avi_sized(j(d, "in.avi"), W, H,
+                          synth.rand_frames(W, H, CLI_FRAMES, seed=12), 15)
+    # As tests/test_golden_bs.py:137-147 builds the flagship input.
+    n_audio = int(37800 * (FLAGSHIP_FRAMES / 15) * 1.4) + 4000
+    synth.write_avi_sized(
+        j(d, "flagship.avi"), W, H,
+        synth.rand_frames(W, H, FLAGSHIP_FRAMES, seed=99), 15,
+        audio=synth.rand_pcm(n_audio, channels=2, seed=98),
+        audio_rate=37800)
+    synth.write_wav(j(d, "track.wav"),
+                    synth.rand_pcm(37800 * 60, channels=2, seed=21), 37800,
+                    channels=2)
+    synth.write_wav(j(d, "mono18900.wav"),
+                    synth.rand_pcm(18900 * 3 // 2, seed=22), 18900)
+    synth.write_wav(j(d, "mono44100.wav"), synth.rand_pcm(88200, seed=23),
+                    44100)
+    synth.write_wav(j(d, "loop44100.wav"), synth.rand_pcm(88200, seed=24),
+                    44100, loop_start=30000)
+    synth.write_wav(j(d, "stereo44100.wav"),
+                    synth.rand_pcm(88200, channels=2, seed=25), 44100,
+                    channels=2)
 
 
 def nv21(np, planes):
@@ -84,6 +195,50 @@ def smoke_frames(np, synth, n, seed, noise_every=8):
     return np.stack(out)
 
 
+def phase4_frames(np, synth):
+    return smoke_frames(np, synth, MAIN_FRAMES, seed=9)
+
+
+def adpcm_units(np, synth, streams, units, seed=41):
+    """(streams, units, 28) int32 SPU units from synth.rand_pcm, limits
+    with a partial unit, a limit of 0, a negative limit and a masked tail,
+    and nonzero prev states."""
+    groups = []
+    for g in range(0, streams, 512):
+        n = min(512, streams - g)
+        pcm = synth.rand_pcm(units * 28, channels=n, seed=seed + g)
+        groups.append(pcm.reshape(units * 28, n).T)
+    pcm = np.ascontiguousarray(np.concatenate(groups), dtype=np.int32)
+    lim = np.full((streams, units), 28, np.int32)
+    lim[0, 3] = 17
+    lim[1, 5] = 0
+    lim[2, 7] = -3
+    lim[3, units - 10:] = 0
+    lim[4, 1] = 1
+    rng = np.random.default_rng(seed)
+    p1 = rng.integers(-0x8000, 0x8000, streams).astype(np.int32)
+    p2 = rng.integers(-0x8000, 0x8000, streams).astype(np.int32)
+    return pcm.reshape(streams, units, 28), lim, p1, p2
+
+
+def sha256(data):
+    return hashlib.sha256(data).hexdigest()
+
+
+# ----------------------------------------------------------------- phases
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
 def time_ms(torch, fn, reps=10):
     """Median milliseconds of fn on the card (CUDA events), after one
     warm-up call."""
@@ -100,19 +255,22 @@ def time_ms(torch, fn, reps=10):
     return statistics.median(times)
 
 
-def native_buffers(np, native, enc, frames, budgets, codec):
-    """The native C++ tier's frame buffers, headers added by ``enc``."""
-    cap = (max(budgets) - 8 + 1) // 2
-    out = native.bs_encode_frames(frames, np.array(budgets, np.int32),
-                                  codec=codec, width=W, height=H,
-                                  capacity_words=cap)
-    return [enc._assemble(int(out["scale"][j]), out["words"][j],
-                          int(out["total_bits"][j]), int(out["nz_count"][j]),
-                          budgets[j])[0] for j in range(len(frames))]
+def max_abs_err(torch, got, want, name):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max()))
+    return err
 
 
 def check_kernels(torch, np, synth, card):
-    """Phase 3: each kernel == its plain version; returns the timings."""
+    """Phase 3: each BS kernel == its plain version; returns the timings
+    and bounds of the first check of each."""
     from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
     from psxavenc_tpu_torch.ops import bs as bs_ops
 
@@ -124,30 +282,33 @@ def check_kernels(torch, np, synth, card):
     dc_q = bs_ops.dc_quant_from_pixrows(pix)
     results = {}
 
-    def compare(name, label, kernel_fn, plain_fn):
+    def compare(name, label, kernel_fn, plain_fn, inputs, ops_fn):
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = 0
-        for g, w in zip(got, want):
-            if g.shape != w.shape:
-                raise AssertionError(f"{name}: shape {tuple(g.shape)} != "
-                                     f"{tuple(w.shape)}")
-            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
-                               .abs().max()))
+        err = max_abs_err(torch, got, want, name)
         ms = time_ms(torch, kernel_fn)
         plain_ms = time_ms(torch, plain_fn, reps=3)
+        outs = got if isinstance(got, tuple) else (got,)
+        bound_ms, bound_by = bound(nbytes(*inputs, *outs), ops_fn(got))
         say(f"[3] {name} {label}: max |kernel - plain| = {err}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (B={B}, {W}x{H}) on "
-            f"{card}")
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}) (B={B}, {W}x{H}) on {card}")
         if err:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  "version")
         results.setdefault(name, {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms})
+                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "bound_by": bound_by, "library_ms": None})
         return got
+
+    def select_ops(out):
+        scale = out[0]
+        # The data needs the exact total at the chosen scale and at the
+        # scale below it (1 for scale 1 and for unfittable frames).
+        evals = torch.where((scale > 1) & (scale <= 63), 2, 1)
+        return nb * (B * OPS_FDCT_BLOCK
+                     + 63 * OPS_SCALE_EVAL * int(evals.sum()))
 
     for codec, label in ((bs_ops.BS_V2, "v2"), (bs_ops.BS_V3DC, "v3dc")):
         if codec == bs_ops.BS_V2:
@@ -155,112 +316,102 @@ def check_kernels(torch, np, synth, card):
         else:
             dc_bits, dc_code = compare(
                 "dc_stage", label, lambda: bs_cuda.dc_stage(dc_q, codec),
-                lambda: bs_cuda.dc_stage_plain(dc_q, codec))
+                lambda: bs_cuda.dc_stage_plain(dc_q, codec), (dc_q,),
+                lambda out: B * nb * OPS_DC_BLOCK)
         thr = bs_ops.ac_threshold(
             budgets, dc_bits.sum(dim=1, dtype=torch.int32), nb)
         scale, _, _, coefs = compare(
             "select_scale_pix", label,
             lambda: bs_cuda.select_scale_pix(pix, thr),
-            lambda: bs_cuda.select_scale_pix_plain(pix, thr))
+            lambda: bs_cuda.select_scale_pix_plain(pix, thr), (pix, thr),
+            select_ops)
         sidx = torch.where(scale <= 63, scale, 1)
         eof = 0x1FF if codec == bs_ops.BS_V2 else 0x3FF
         vals32, e0, _, _ = compare(
             "emit_prep", label,
             lambda: bs_cuda.emit_prep(coefs, sidx, dc_code, dc_bits, eof=eof),
             lambda: bs_cuda.emit_prep_plain(coefs, sidx, dc_code, dc_bits,
-                                            eof=eof))
+                                            eof=eof),
+            (coefs, sidx, dc_code, dc_bits),
+            lambda out: B * nb * 63 * OPS_EMIT_COEF)
         compare("place_vals", label,
                 lambda: bitpack_cuda.place_vals(vals32, e0,
                                                 capacity_words=CAP_WORDS),
                 lambda: bitpack_cuda.place_vals_plain(
-                    vals32, e0, capacity_words=CAP_WORDS))
+                    vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
+                lambda out: vals32.numel() * OPS_PLACE_WORD)
     return results
 
 
-def main_path(torch, np, synth, native, card):
-    """Phase 4: the encoder on the card == the native tier; returns the
+def reset(counters):
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def main_path(torch, np, synth, digests):
+    """Phase 4: the video path on the card == the digests; returns the
     launch counts of this phase."""
     from psxavenc_tpu_torch import api
     from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
     from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
 
-    frames = smoke_frames(np, synth, MAIN_FRAMES, seed=9)
+    frames = phase4_frames(np, synth)
     budgets = [BUDGET] * MAIN_FRAMES
-    for counts in (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, api.COUNTERS):
-        for k in counts:
-            counts[k] = 0
-    for codec, label in ((0, "v2"), (1, "v3"), (2, "v3dc")):
+    reset((bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, api.COUNTERS))
+    for codec, label in PHASE4_CODECS:
         enc = BsFrameEncoder(codec, W, H, "cuda")
         got = enc.encode_frames(list(frames), budgets)
-        want = native_buffers(np, native, BsFrameEncoder(codec, W, H, "cpu"),
-                              frames, budgets, codec)
-        bad = [j for j in range(MAIN_FRAMES)
-               if got[j][0].tobytes() != want[j].tobytes()]
-        if bad:
-            raise AssertionError(f"{label}: {len(bad)} frames differ from "
-                                 f"the native tier (first {bad[0]})")
-        say(f"[4] {label}: {MAIN_FRAMES} frames {W}x{H} byte-equal to the "
-            f"native tier; mean quant scale "
+        digest = sha256(b"".join(buf.tobytes() for buf, _ in got))
+        if digest != digests[f"phase4_{label}"]:
+            raise AssertionError(f"{label}: {MAIN_FRAMES} frames differ "
+                                 "from the JAX package's digest")
+        say(f"[4] {label}: {MAIN_FRAMES} frames {W}x{H} equal the JAX "
+            f"package's digest; mean quant scale "
             f"{enc.quant_scale_sum / MAIN_FRAMES:.2f}")
     launches = dict(bs_cuda.LAUNCHES, **bitpack_cuda.LAUNCHES)
-    say(f"[4] launches in the main path: {launches}; frames on the "
+    say(f"[4] launches in the video path: {launches}; frames on the "
         f"overflow path: {api.COUNTERS['overflow_frames']} of "
         f"{3 * MAIN_FRAMES}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+                                 "video path")
     return launches
 
 
-def cli_phase(np, synth, native, tmp):
-    """Phase 5: the port's CLI as a user runs it."""
-    from psxavenc_tpu import cli_args as ca
-    from psxavenc_tpu.io import ingest
-    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+def file_digest(path):
+    with open(path, "rb") as f:
+        return sha256(f.read())
 
-    n = 40
-    avi = os.path.join(tmp, "in.avi")
-    synth.write_avi_sized(avi, W, H, synth.rand_frames(W, H, n, seed=12),
-                          15)
 
-    def run(argv, platform):
+def cli_phase(digests, tmp):
+    """Phase 5: the port's video CLI as a user runs it."""
+
+    def run(argv, out, platform):
         env = dict(os.environ, PSXAVENC_PLATFORM=platform)
         t0 = time.time()
         proc = subprocess.run(
-            [sys.executable, "-m", "psxavenc_tpu_torch.cli", "-q", *argv],
+            [sys.executable, "-m", "psxavenc_tpu_torch.cli", "-q", *argv,
+             os.path.join(tmp, "in.avi"), out],
             env=env, capture_output=True, text=True, timeout=600)
         if proc.returncode:
             raise AssertionError(f"cli {argv} ({platform}) exited "
                                  f"{proc.returncode}: {proc.stderr}")
         return time.time() - t0
 
-    sbs = os.path.join(tmp, "out.sbs")
-    secs = run(["-t", "sbs", "-v", "v3dc", avi, sbs], "cuda")
-    args = ca.Args()
-    assert ca.parse_args(args, ["-t", "sbs", "-v", "v3dc", avi, sbs])
-    dec = ingest.open_av_data(
-        args, ingest.DECODER_USE_VIDEO | ingest.DECODER_VIDEO_REQUIRED)
-    n = dec.video_frame_count
-    frames = np.stack(ingest.source_for(dec).take_frames(n))
-    want = b"".join(b.tobytes() for b in native_buffers(
-        np, native, BsFrameEncoder(2, W, H, "cpu"), frames,
-        [args.alignment] * n, 2))
-    with open(sbs, "rb") as f:
-        if f.read() != want:
-            raise AssertionError("cli -t sbs differs from the native tier")
-    say(f"[5] cli -t sbs -v v3dc: {n} frames byte-equal to the native tier "
-        f"({secs:.1f} s incl. start-up)")
-
-    outs = {}
-    for platform in ("cuda", "cpu"):
-        outs[platform] = os.path.join(tmp, f"{platform}.str")
-        secs = run(["-t", "strv", avi, outs[platform]], platform)
-        say(f"[5] cli -t strv on {platform}: {secs:.1f} s incl. start-up")
-    with open(outs["cuda"], "rb") as a, open(outs["cpu"], "rb") as b:
-        if a.read() != b.read():
-            raise AssertionError("cli -t strv: card and cpu bytes differ")
-    say("[5] cli -t strv: card bytes == cpu bytes")
+    for key, argv, _ in VIDEO_CLI_CASES:
+        for platform in (("cuda", "cpu") if key == "cli_strv"
+                         else ("cuda",)):
+            out = os.path.join(tmp, platform, out_name(key))
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            secs = run(argv, out, platform)
+            if file_digest(out) != digests[key]:
+                raise AssertionError(f"cli {' '.join(argv)} on {platform} "
+                                     "differs from the JAX package")
+            say(f"[5] cli {' '.join(argv)} on {platform}: {CLI_FRAMES} "
+                f"frames equal the JAX package's digest ({secs:.1f} s incl. "
+                "start-up)")
 
 
 def profile_step(torch, step, label, step_ms, card, out_dir, reps=5):
@@ -330,6 +481,145 @@ def throughput(torch, np, synth, card, out_dir):
             f"{card}")
 
 
+def adpcm_kernel(torch, np, synth, card):
+    """Phase 7: K5 == its plain version for the three variants at 4,096
+    streams x 64 units. Returns (the inputs on the card, the (5, 12)
+    kernel outputs, the (5, 12) row of the kernel table)."""
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    dev = torch.device("cuda", 0)
+    units, lim, p1, p2 = adpcm_units(np, synth, ADPCM_STREAMS, ADPCM_UNITS)
+    full = [torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)]
+    head = [full[0][:, :ADPCM_CHECK_UNITS].contiguous(),
+            full[1][:, :ADPCM_CHECK_UNITS].contiguous(), full[2], full[3]]
+    row = ref = None
+    for fc, sr in ADPCM_VARIANTS:
+        def kernel_fn():
+            return adpcm_cuda.encode_units(*head, filter_count=fc,
+                                           shift_range=sr)
+
+        def plain_fn():
+            return adpcm_cuda.encode_units_plain(*head, filter_count=fc,
+                                                 shift_range=sr)
+
+        got = kernel_fn()
+        want = plain_fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want, "adpcm_encode_units")
+        ms = time_ms(torch, kernel_fn)
+        plain_ms = time_ms(torch, plain_fn, reps=1)
+        n_units = ADPCM_STREAMS * ADPCM_CHECK_UNITS
+        bound_ms, bound_by = bound(nbytes(*head, *got), adpcm_ops(n_units, fc))
+        say(f"[7] adpcm_encode_units ({fc}, {sr}): headers, words, s1, s2 "
+            f"max |kernel - plain| = {err}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"({ADPCM_STREAMS} streams x {ADPCM_CHECK_UNITS} units) on {card}")
+        if err:
+            raise AssertionError(f"K5 ({fc}, {sr}) disagrees with its plain "
+                                 "version")
+        if row is None:
+            ref = got
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    return full, ref, row
+
+
+def adpcm_batch(torch, full, ref, card):
+    """Phase 8: api.spu_encode_batch at 4,096 x 1,000 units."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    h, values, s1, s2 = api.spu_encode_batch(*full)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n = ADPCM_CHECK_UNITS
+    want = (ref[0], adpcm_cuda.unpack_words(ref[1], 12), ref[2], ref[3])
+    err = max_abs_err(torch, (h[:, :n], values[:, :n], s1[:, :n],
+                              s2[:, :n]), want, "spu_encode_batch")
+    if err:
+        raise AssertionError("spu_encode_batch's first units differ from "
+                             "the checked kernel run")
+    for t in (h, values, s1, s2):
+        if t.shape[:2] != (ADPCM_STREAMS, ADPCM_UNITS):
+            raise AssertionError("spu_encode_batch: wrong output shape")
+    ms = time_ms(torch, lambda: adpcm_cuda.encode_units(
+        *full, filter_count=5, shift_range=12), reps=5)
+    out = adpcm_cuda.encode_units(*full, filter_count=5, shift_range=12)
+    n_units = ADPCM_STREAMS * ADPCM_UNITS
+    bound_ms, bound_by = bound(nbytes(*full, *out), adpcm_ops(n_units, 5))
+    api_ms = time_ms(torch, lambda: api.spu_encode_batch(*full), reps=3)
+    say(f"[8] spu_encode_batch {ADPCM_STREAMS} x {ADPCM_UNITS} units "
+        f"({n_units * 28 / 1e6:.1f} M samples, "
+        f"{full[0].numel() * 4 / 1e6:.0f} MB of int32 units on the card): "
+        f"first {n} units equal the checked kernel run; K5 {ms:.3f} ms = "
+        f"{n_units * 28 / ms / 1e3:.1f} Msamples/s on the device, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the "
+        f"bound; whole API call {api_ms:.3f} ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB; on {card}")
+
+
+def av_path(torch, digests, tmp, card, out_dir):
+    """Phase 9: the audio formats and str/strcd through the CLI in this
+    process on the card; returns the launch counts of this phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psxavenc_tpu_torch import cli
+    from psxavenc_tpu_torch.ops import adpcm_cuda, bitpack_cuda, bs_cuda
+
+    os.environ["PSXAVENC_PLATFORM"] = "cuda"
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, adpcm_cuda.LAUNCHES)
+    total = {}
+    reset(counters)
+    for key, argv, src in AV_CLI_CASES:
+        before = {k: v for c in counters for k, v in c.items()}
+        out = os.path.join(tmp, "cuda", out_name(key))
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        track = key == "xa_37800_stereo_4bit"
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) if track else None
+        t0 = time.perf_counter()
+        if prof:
+            prof.start()
+        rc = cli.main(["-q", *argv, os.path.join(tmp, src), out])
+        torch.cuda.synchronize()
+        if prof:
+            prof.stop()
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+        if file_digest(out) != digests[key]:
+            raise AssertionError(f"cli {' '.join(argv)} differs from the JAX "
+                                 "package")
+        ran = {k: v - before[k] for c in counters for k, v in c.items()
+               if v - before[k]}
+        extra = ""
+        if prof:
+            rows = prof.key_averages()
+            with open(os.path.join(out_dir, "profile_xa_track.txt"),
+                      "w") as f:
+                f.write(rows.table(sort_by="self_device_time_total",
+                                   row_limit=30))
+            k5 = sum(e.self_device_time_total for e in rows
+                     if "adpcm_units_kernel" in e.key) / 1000
+            extra = f"; K5 device time {k5:.1f} ms (profiler)"
+        say(f"[9] cli {' '.join(argv)} {src}: equals the JAX package's "
+            f"digest; {secs:.2f} s in process{extra}; launches {ran} on "
+            f"{card}")
+        if not ran.get("adpcm_encode_units"):
+            raise AssertionError(f"cli {' '.join(argv)} never launched K5")
+        if key.startswith("str") and not all(
+                ran.get(k) for k in ("select_scale_pix", "emit_prep",
+                                     "place_vals")):
+            raise AssertionError(f"cli {' '.join(argv)} did not launch "
+                                 "K1, K3 and K4")
+    for c in counters:
+        total.update(c)
+    return total
+
+
 def main():
     import argparse
 
@@ -345,10 +635,11 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
-    from psxavenc_tpu import native
-    from psxavenc_tpu.utils import synth
     from psxavenc_tpu_torch.ops import _build
+    from psxavenc_tpu_torch.utils import synth
 
+    with open(DIGESTS) as f:
+        digests = json.load(f)
     card = card_line()
     nvcc = _build.find_nvcc()
     nvcc_ver = subprocess.run([nvcc, "--version"], capture_output=True,
@@ -369,16 +660,26 @@ def main():
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         f.write(_build.build_log)
 
-    timings = check_kernels(torch, np, synth, card)
-    launches = main_path(torch, np, synth, native, card)
+    rows = check_kernels(torch, np, synth, card)
+    video = main_path(torch, np, synth, digests)
     with tempfile.TemporaryDirectory() as tmp:
-        cli_phase(np, synth, native, tmp)
-    throughput(torch, np, synth, card, out_dir)
+        write_inputs(synth, tmp)
+        cli_phase(digests, tmp)
+        throughput(torch, np, synth, card, out_dir)
+        full, ref, rows["adpcm_encode_units"] = adpcm_kernel(torch, np,
+                                                             synth, card)
+        adpcm_batch(torch, full, ref, card)
+        del full, ref
+        av = av_path(torch, digests, tmp, card, out_dir)
 
-    kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                **timings[name]}
-               for name, source, replaces in KERNELS]
+    kernels = []
+    for name, source, replaces in KERNELS:
+        launches = video.get(name, 0) + av.get(name, 0)
+        if launches <= 0:
+            raise AssertionError(f"kernel {name} launched on no path")
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches,
+                        **rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

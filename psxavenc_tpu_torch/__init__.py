@@ -1,26 +1,33 @@
-"""psxavenc_tpu_torch — the BS video encoder on PyTorch and CUDA.
+"""psxavenc_tpu_torch — the PlayStation A/V encoder on PyTorch and CUDA.
 
-A second implementation of ``psxavenc_tpu``'s main path, BS v2/v3/v3dc
-frame encode (NV21 frames + per-frame byte budgets -> packed MDEC
-bitstream), for one NVIDIA Hopper card. The module names mirror the JAX
-package so each piece has an obvious counterpart:
+A second implementation of ``psxavenc_tpu`` for one NVIDIA Hopper card:
+XA-ADPCM and SPU-ADPCM audio, BS v2/v3/v3dc video and every container of
+the argv-compatible CLI. The module names mirror the JAX package so each
+piece has an obvious counterpart:
 
 - ``ops/``        — plain-torch ops (FDCT, Huffman closed forms, bit
-                    packing) and the wrappers of the hand-written CUDA
-                    kernels (``ops/bs_cuda.py``, ``ops/bitpack_cuda.py``,
-                    sources in ``csrc/``, built by ``ops/_build.py``).
-- ``api.py``      — ``bs_encode_frames_packed``: pixels in, packed words
-                    out.
-- ``models/``     — ``BsFrameEncoder``: chunked batches + frame headers.
-- ``containers/`` — the ``.sbs`` and ``.str`` (``-t strv``) muxers.
+                    packing, the ADPCM unit search) and the wrappers of the
+                    hand-written CUDA kernels (``ops/bs_cuda.py``,
+                    ``ops/bitpack_cuda.py``, ``ops/adpcm_cuda.py``, sources
+                    in ``csrc/``, built by ``ops/_build.py``).
+- ``api.py``      — the batch tensor API: ADPCM unit streams and
+                    ``bs_encode_frames_packed``.
+- ``models/``     — ``BsFrameEncoder`` (chunked frame batches + headers)
+                    and the ADPCM stream layer.
+- ``containers/`` — the .xa/.xacd, .spu/.vag/.spui/.vagi, .str and .sbs
+                    muxers.
 - ``cli.py``      — ``python -m psxavenc_tpu_torch.cli``, argv-compatible
-                    with ``psxavenc_tpu.cli`` for the ported formats.
+                    with ``psxavenc_tpu.cli``.
+- ``cli_args.py``, ``io/``, ``utils/``, ``native/``, ``data/`` — the
+                    argument parser, the ingest (with its FFmpeg extension),
+                    progress lines, synthetic media and the host CD-sector
+                    code, the package's own copies of the JAX package's
+                    framework-free modules; the C++ builds with g++ into
+                    ``build/``.
 
 Every function takes its device from its tensors or an explicit
 ``device`` argument; there is no global device state. The package imports
-``torch`` and never ``jax``; of the JAX package it reuses only the
-framework-free modules (``cli_args``, ``io``, ``native``,
-``utils.progress``, ``utils.synth``).
+``torch`` and never ``jax``, and nothing of ``psxavenc_tpu``.
 """
 
 __version__ = "0.1.0"

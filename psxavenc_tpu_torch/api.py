@@ -1,24 +1,79 @@
-"""Batch tensor API: BS frames in, packed bitstream words out.
+"""Batch tensor API: ADPCM unit streams and BS frames on one device.
 
-Counterpart of ``psxavenc_tpu.api.bs_encode_frames_packed`` with the
-``fused_mxu`` packer, the path psxavenc_tpu runs on its accelerator:
+Counterpart of ``psxavenc_tpu.api``:
 
-  NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
-  -> AC fit threshold -> FDCT + scale search (K1) -> emission +
-  placement prep (K3) -> placement (K4) -> the overflow path.
+- ``spu_encode_batch``, ``spu_encode_blocks``, ``xa_encode_batch``: B
+  independent ADPCM unit streams, one K5 launch over all of them;
+- ``bs_encode_frames_packed`` with the ``fused_mxu`` packer, the path
+  psxavenc_tpu runs on its accelerator:
 
-The device is the frames tensor's device; on the CPU every kernel runs
+    NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
+    -> AC fit threshold -> FDCT + scale search (K1) -> emission +
+    placement prep (K3) -> placement (K4) -> the overflow path.
+
+The device is the input tensors' device; on the CPU every kernel runs
 its plain version.
 """
 
 import torch
 
+from .ops import adpcm as adpcm_ops
+from .ops import adpcm_cuda
 from .ops import bitpack as bitpack_ops
 from .ops import bitpack_cuda
 from .ops import bs as bs_ops
 from .ops import bs_cuda
 
 COUNTERS = {"overflow_frames": 0}
+
+
+def _adpcm_words(units, limits, prev1, prev2, filter_count, shift_range):
+    """K5 on int32 contiguous copies (where needed) of the inputs."""
+    args = [t.to(torch.int32).contiguous()
+            for t in (units, limits, prev1, prev2)]
+    return adpcm_cuda.encode_units(*args, filter_count=filter_count,
+                                   shift_range=shift_range)
+
+
+def _adpcm_batch(units, limits, prev1, prev2, filter_count, shift_range):
+    h, words, s1, s2 = _adpcm_words(units, limits, prev1, prev2,
+                                    filter_count, shift_range)
+    return h, adpcm_cuda.unpack_words(words, shift_range), s1, s2
+
+
+def spu_encode_batch(units, limits, prev1, prev2):
+    """SPU-ADPCM: (B, T, 28) int32 units, (B, T) int32 limits, (B,) int32
+    prev1/prev2 -> headers (B, T), sample values (B, T, 28) and the
+    decoder state after each unit, s1 and s2 (B, T); int32 tensors."""
+    return _adpcm_batch(units, limits, prev1, prev2,
+                        adpcm_ops.SPU_FILTER_COUNT,
+                        adpcm_ops.SHIFT_RANGE_4BPS)
+
+
+def spu_encode_blocks(units, limits, prev1, prev2):
+    """SPU-ADPCM straight to 16-byte blocks on the device: -> ((B, T, 16)
+    uint8 blocks with the loop-flag byte 0 for the muxer to fill
+    (adpcm.c:356-376), s1, s2 (B, T))."""
+    h, words, s1, s2 = _adpcm_words(units, limits, prev1, prev2,
+                                    adpcm_ops.SPU_FILTER_COUNT,
+                                    adpcm_ops.SHIFT_RANGE_4BPS)
+    B, T = h.shape
+    # Nibble m of word k sits at bit 4m: the words' little-endian bytes
+    # are the block's sample bytes.
+    shifts = 8 * torch.arange(4, dtype=torch.int32, device=words.device)
+    payload = ((words[..., None] >> shifts) & 0xFF).reshape(B, T, 16)
+    blocks = torch.cat([h[..., None] & 0xFF, torch.zeros_like(h)[..., None],
+                        payload[..., :14]], dim=2)
+    return blocks.to(torch.uint8), s1, s2
+
+
+def xa_encode_batch(units, limits, prev1, prev2, *, bits8=False):
+    """XA-ADPCM unit batch (4 filters; 4- or 8-bit): outputs as
+    :func:`spu_encode_batch`."""
+    return _adpcm_batch(units, limits, prev1, prev2,
+                        adpcm_ops.XA_FILTER_COUNT,
+                        adpcm_ops.SHIFT_RANGE_8BPS if bits8
+                        else adpcm_ops.SHIFT_RANGE_4BPS)
 
 
 class _Stages:

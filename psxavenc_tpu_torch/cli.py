@@ -1,22 +1,36 @@
 """Command-line front end of the torch backend, argv-compatible with
-``psxavenc_tpu.cli`` (psxavenc/main.c:51-212) for the ported formats:
-``-t sbs`` and ``-t strv``. Every other format exits 1.
+``psxavenc_tpu.cli`` and the reference encoder (psxavenc/main.c:51-212):
+the same formats, flags, defaults and stderr banners.
 
 The device comes from PSXAVENC_PLATFORM: ``cuda`` (the default) or
 ``cpu``. Without a CUDA device the default exits 1; it does not carry on
 on the CPU.
 
-    python -m psxavenc_tpu_torch.cli -t sbs -v v3dc in.avi out.sbs
+    python -m psxavenc_tpu_torch.cli -t strcd -x 2 in.avi out.str
 """
 
 import os
 import sys
 
-from psxavenc_tpu import cli_args as ca
-from psxavenc_tpu.io import ingest
+from . import cli_args as ca
+from .io import ingest
 
+# main.c:37-49
 _DECODER_FLAGS = {
-    ca.FORMAT_STRV: ingest.DECODER_USE_VIDEO | ingest.DECODER_VIDEO_REQUIRED,
+    ca.FORMAT_XA: ingest.DECODER_USE_AUDIO | ingest.DECODER_AUDIO_REQUIRED,
+    ca.FORMAT_XACD: ingest.DECODER_USE_AUDIO | ingest.DECODER_AUDIO_REQUIRED,
+    ca.FORMAT_SPU: ingest.DECODER_USE_AUDIO | ingest.DECODER_AUDIO_REQUIRED,
+    ca.FORMAT_VAG: ingest.DECODER_USE_AUDIO | ingest.DECODER_AUDIO_REQUIRED,
+    ca.FORMAT_SPUI: ingest.DECODER_USE_AUDIO | ingest.DECODER_AUDIO_REQUIRED,
+    ca.FORMAT_VAGI: ingest.DECODER_USE_AUDIO | ingest.DECODER_AUDIO_REQUIRED,
+    ca.FORMAT_STR: ingest.DECODER_USE_AUDIO | ingest.DECODER_USE_VIDEO
+    | ingest.DECODER_VIDEO_REQUIRED,
+    ca.FORMAT_STRCD: ingest.DECODER_USE_AUDIO | ingest.DECODER_USE_VIDEO
+    | ingest.DECODER_VIDEO_REQUIRED,
+    ca.FORMAT_STRSPU: ingest.DECODER_USE_AUDIO | ingest.DECODER_USE_VIDEO
+    | ingest.DECODER_VIDEO_REQUIRED,
+    ca.FORMAT_STRV: ingest.DECODER_USE_VIDEO
+    | ingest.DECODER_VIDEO_REQUIRED,
     ca.FORMAT_SBS: ingest.DECODER_USE_VIDEO | ingest.DECODER_VIDEO_REQUIRED,
 }
 
@@ -26,6 +40,13 @@ _BS_CODEC_BANNER = ["BS v2", "BS v3", "BS v3 (with DC wrapping)"]
 def _info(args, msg):
     if not (args.flags & ca.FLAG_QUIET):
         print(msg, file=sys.stderr)
+
+
+def _audio_banner_xa(args):
+    st = "stereo" if args.audio_channels == 2 else "mono"
+    return (f"Audio format: XA-ADPCM, {args.audio_frequency} Hz "
+            f"{args.audio_bit_depth}-bit {st}, F={args.audio_xa_file} "
+            f"C={args.audio_xa_channel}")
 
 
 def _video_banner(args):
@@ -64,11 +85,6 @@ def main(argv=None):
     except ca.ArgError:
         return 1
 
-    if args.format not in _DECODER_FLAGS:
-        print(f"Error: format {ca.FORMAT_NAMES[args.format]} is not yet "
-              "ported to the torch backend (ported: sbs, strv)",
-              file=sys.stderr)
-        return 1
     device = _device()
     if device is None:
         return 1
@@ -76,6 +92,8 @@ def main(argv=None):
     try:
         dec = ingest.open_av_data(args, _DECODER_FLAGS[args.format])
     except ingest.OpenError:
+        # Detail already printed by the ingest layer (decoding.c prints
+        # its own message before main.c:66-68 adds this line).
         print(f"Failed to open input file: {args.input_file}",
               file=sys.stderr)
         return 1
@@ -102,11 +120,48 @@ def main(argv=None):
 
 
 def _dispatch(args, dec, output, device):
-    if args.format == ca.FORMAT_STRV:
+    """Route to the container muxer (psxavenc_tpu/cli.py:114-171)."""
+    fmt = args.format
+    if fmt in (ca.FORMAT_XA, ca.FORMAT_XACD):
+        from .containers import xa as xamod
+        _info(args, _audio_banner_xa(args))
+        xamod.encode_file_xa(args, dec, output, device)
+    elif fmt in (ca.FORMAT_SPU, ca.FORMAT_VAG):
+        if not (args.flags & ca.FLAG_OVERRIDE_LOOP_POINT):
+            args.audio_loop_point = ingest.get_av_loop_point(dec, args)
+            if args.audio_loop_point >= 0:
+                args.flags |= ca.FLAG_SPU_ENABLE_LOOP
+        from .containers import vag as vagmod
+        _info(args, f"Audio format: SPU-ADPCM, {args.audio_frequency} "
+                    "Hz mono")
+        vagmod.encode_file_spu(args, dec, output, device)
+    elif fmt in (ca.FORMAT_SPUI, ca.FORMAT_VAGI):
+        if not (args.flags & ca.FLAG_OVERRIDE_LOOP_POINT):
+            args.audio_loop_point = ingest.get_av_loop_point(dec, args)
+        from .containers import vag as vagmod
+        _info(args, f"Audio format: SPU-ADPCM, {args.audio_frequency} "
+                    f"Hz {args.audio_channels} channels, "
+                    f"interleave={args.audio_interleave}")
+        vagmod.encode_file_spui(args, dec, output, device)
+    elif fmt in (ca.FORMAT_STR, ca.FORMAT_STRCD):
         from .containers import strf
+        if dec.has_audio:
+            _info(args, _audio_banner_xa(args))
+        _info(args, _video_banner(args))
+        strf.encode_file_str(args, dec, output, device)
+    elif fmt == ca.FORMAT_STRSPU:
+        # The reference prints this and still exits 0 (main.c:159-162).
+        print("This format is not currently supported", file=sys.stderr)
+    elif fmt == ca.FORMAT_STRV:
+        from .containers import strf
+        if dec.has_audio:
+            _info(args, f"Audio format: SPU-ADPCM, "
+                        f"{args.audio_frequency} Hz "
+                        f"{args.audio_channels} channels, "
+                        f"interleave={args.audio_interleave}")
         _info(args, _video_banner(args))
         strf.encode_file_strspu(args, dec, output, device)
-    else:
+    elif fmt == ca.FORMAT_SBS:
         from .containers import sbs
         _info(args, _video_banner(args))
         sbs.encode_file_sbs(args, dec, output, device)

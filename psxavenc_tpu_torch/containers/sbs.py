@@ -6,10 +6,9 @@ written as they are produced; every frame gets the -a alignment as its
 budget.
 """
 
-from psxavenc_tpu.io.ingest import source_for
-from psxavenc_tpu.utils.progress import Progress
-
+from ..io.ingest import source_for
 from ..models.bs_video import BsFrameEncoder
+from ..utils.progress import Progress
 from . import strf
 
 

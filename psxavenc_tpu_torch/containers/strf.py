@@ -1,14 +1,16 @@
-""".str video muxer for ``-t strv``: 2048-byte video-only sectors with
-STR chunk headers and the reference's rational frame pacing.
+""".str muxers: the str/strcd A/V sector interleave and strv's
+2048-byte video-only sectors, with STR chunk headers and the reference's
+rational frame pacing.
 
-Counterpart of the strv part of ``psxavenc_tpu/containers/strf.py``
-(encode_file_strspu, filefmt.c:522-631, and encode_sector_str,
-mdec.c:757-836). A dry run of the muxing loop derives the sector schedule
-and the frame budgets from the frame count alone; the writer then walks
-the schedule, with frames encoded in look-ahead device batches and
-evicted once written. The sector buffer is never cleared between
-sectors, as in the reference. The str/strcd A/V interleave needs the
-audio encoder and is not here.
+Counterpart of ``psxavenc_tpu/containers/strf.py`` (encode_file_str,
+filefmt.c:391-520; encode_file_strspu, filefmt.c:522-631; and
+encode_sector_str, mdec.c:757-836). A dry run of the muxing loop derives
+the sector schedule, the audio sector lengths and the frame budgets from
+the A/V totals alone; the writer then walks the schedule, with frames
+encoded in look-ahead device batches and audio sectors in chunked device
+calls (ADPCM state threads across chunks), both evicted once written.
+The sector buffer is never cleared between sectors, as in the reference,
+so bytes a sector does not write keep the previous sector's values.
 """
 
 import math
@@ -16,11 +18,12 @@ import sys
 
 import numpy as np
 
-from psxavenc_tpu import cli_args as ca
-from psxavenc_tpu.io.ingest import source_for
-from psxavenc_tpu.utils.progress import Progress
-
+from .. import cli_args as ca
+from ..io.ingest import source_for
 from ..models.bs_video import BsFrameEncoder
+from ..native import host
+from ..utils.progress import Progress
+from . import xa as xamod
 
 STR_MAGIC = 0x0160
 
@@ -163,8 +166,26 @@ class _FrameFeed:
 
 
 def _write_video_sector(args, buffer, desc, fb, info, enc):
-    """encode_sector_str header + payload placement for strv sectors
-    (mdec.c:782-835): no subheader, payload at offset 0."""
+    """init_sector_buffer_video (filefmt.c:73-91) + encode_sector_str
+    header/payload placement (mdec.c:782-835)."""
+    fmt = args.format
+    if fmt == ca.FORMAT_STRCD:
+        host.sector_init(buffer, desc["lba"], host.SECTOR_MODE2_FORM1)
+        sub = 16
+        payload = 0x18
+    elif fmt == ca.FORMAT_STR:
+        sub = 0
+        payload = 0x008
+    else:  # strv: no subheader, payload at 0
+        sub = None
+        payload = 0x000
+    if sub is not None:
+        buffer[sub + 0] = args.audio_xa_file
+        buffer[sub + 1] = args.audio_xa_channel & 0x1F
+        buffer[sub + 2] = 0x48  # DATA | RT
+        buffer[sub + 3] = 0
+        buffer[sub + 4:sub + 8] = buffer[sub:sub + 4]
+
     header = np.zeros(32, dtype=np.uint8)
     header[0x00] = STR_MAGIC & 0xFF
     header[0x01] = STR_MAGIC >> 8
@@ -185,31 +206,69 @@ def _write_video_sector(args, buffer, desc, fb, info, enc):
     header[0x13] = (enc.height >> 8) & 0xFF
     header[0x14:0x1C] = fb[:8]
 
-    buffer[0:32] = header
-    buffer[32:32 + 2016] = fb[desc["offset"]:desc["offset"] + 2016]
+    buffer[payload:payload + 32] = header
+    buffer[payload + 32:payload + 32 + 2016] = \
+        fb[desc["offset"]:desc["offset"] + 2016]
+
+    if fmt in (ca.FORMAT_STR, ca.FORMAT_STRCD):
+        # The reference always computes Form1 checksums here, even for the
+        # 2336-byte layout where the buffer is not framed as a full
+        # sector (filefmt.c:474).
+        host.calc_checksums(buffer[:2352], host.SECTOR_MODE2_FORM1)
 
 
-def _mux(args, dec, output, sectors, frame_budgets, sector_size, device):
-    """Incremental schedule writer for video-only sectors."""
+def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
+         sector_size, buffer_size, device):
+    """Incremental schedule writer shared by str/strcd and strv."""
     enc = BsFrameEncoder(args.video_codec, dec.video_width,
                          dec.video_height, device)
-    frames = _FrameFeed(enc, source_for(dec), frame_budgets,
-                        dec.video_frame_count)
-    buffer = np.zeros(sector_size, dtype=np.uint8)
+    source = source_for(dec)
+    frames = _FrameFeed(enc, source, frame_budgets, dec.video_frame_count)
+    audio = xamod.AudioSectorFeed(args, source, audio_lengths, device)
+    buffer = np.zeros(buffer_size, dtype=np.uint8)
     progress = Progress(args)
     frame_count = 0
     for desc in sectors:
-        frame_count = desc["frame"]
-        fb, info = frames.frame(frame_count)
-        _write_video_sector(args, buffer, desc, fb, info, enc)
-        if desc["chunk_index"] == desc["chunk_count"] - 1:
-            frames.evict_below(frame_count + 1)
-        output.write(buffer.tobytes())
+        if desc["video"]:
+            frame_count = desc["frame"]
+            fb, info = frames.frame(frame_count)
+            _write_video_sector(args, buffer, desc, fb, info, enc)
+            if desc["chunk_index"] == desc["chunk_count"] - 1:
+                frames.evict_below(frame_count + 1)
+        elif desc["length"] > 0:
+            xs, i = audio.sector(desc["audio_index"])
+            xs.write_sector(buffer, i, desc["lba"], desc["eoi"])
+            audio.evict(desc["audio_index"])
+        # length == 0: the reference writes the untouched buffer
+        # (filefmt.c:482-494 with an empty encode), i.e. previous bytes.
+        output.write(buffer[:sector_size].tobytes())
         progress.print_str(frame_count, desc["lba"],
                            frames.quant_scale_sum(frame_count),
                            args.str_fps_num, args.str_fps_den)
     if hasattr(dec, "close"):
         dec.close()
+
+
+def str_schedule(args, dec, quiet=False):
+    """Full str/strcd schedule from the A/V totals (the banner prints
+    unless ``quiet``)."""
+    if dec.has_audio:
+        interleave = xamod.xa_sector_interleave(args) * args.str_cd_speed
+        asps = xamod.xa_samples_per_sector(args)
+        vspb = interleave - 1
+    else:
+        interleave = 1
+        asps = 0
+        vspb = 1
+
+    base_overflow = (75 * args.str_cd_speed) * vspb * args.str_fps_den
+    overflow_den = interleave * args.str_fps_num
+    frame_size = base_overflow / overflow_den
+    if not quiet:
+        _video_banner(args, interleave, vspb, frame_size)
+    frames_needed = max(2, math.ceil(vspb / frame_size))
+    return _schedule(args, dec, asps, interleave, vspb, base_overflow,
+                     overflow_den, frames_needed)
 
 
 def strspu_schedule(args, dec, quiet=False):
@@ -225,6 +284,14 @@ def strspu_schedule(args, dec, quiet=False):
                      overflow_den, frames_needed)
 
 
+def encode_file_str(args, dec, output, device):
+    """str/strcd (filefmt.c:391-520)."""
+    sector_size = xamod.xa_sector_size(args)
+    sectors, audio_lengths, frame_budgets = str_schedule(args, dec)
+    _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
+         sector_size, 2352, device)
+
+
 def encode_file_strspu(args, dec, output, device):
     """strv: 2048-byte sectors, video only (filefmt.c:522-631; the
     reference's audio branch is unimplemented)."""
@@ -233,4 +300,4 @@ def encode_file_strspu(args, dec, output, device):
             "strspu audio is unimplemented in the reference "
             "(filefmt.c:528)")
     sectors, _, frame_budgets = strspu_schedule(args, dec)
-    _mux(args, dec, output, sectors, frame_budgets, 2048, device)
+    _mux(args, dec, output, sectors, [], frame_budgets, 2048, 2048, device)

@@ -21,7 +21,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bs_select.cu", "bs_dc.cu", "bs_emit.cu", "bitpack_place.cu")
+SOURCES = ("bs_select.cu", "bs_dc.cu", "bs_emit.cu", "bitpack_place.cu",
+           "adpcm_units.cu")
 HEADERS = ("bs_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,6 +34,8 @@ _SIGNATURES = {
     "psx_dc_stage": [_P, _I, _I, _I, _P, _P, _P],
     "psx_emit_prep": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "psx_place_vals": [_P, _P, _I, _I, _I, _P, _P],
+    "psx_adpcm_encode_units": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                               _P, _P],
 }
 
 _lib = None
@@ -50,7 +53,10 @@ def find_nvcc():
 
 
 def build():
-    """Compile the kernels (if not built yet); returns the library path."""
+    """Compile the kernels (if not built yet); returns the library path.
+
+    Each source compiles in its own nvcc process, all started together;
+    one more nvcc links the objects."""
     global build_log
     nvcc = find_nvcc()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -61,14 +67,25 @@ def build():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
+        objs = [pathlib.Path(td) / f"{s}.o" for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [f"== {s}\n{p.communicate()[0]}"
+                for s, p in zip(SOURCES, procs)]
+        build_log = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               f"{build_log}")
         tmp = pathlib.Path(td) / out.name
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-             *(str(CSRC / s) for s in SOURCES)],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
             capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{build_log}")
         os.replace(tmp, out)
     return out

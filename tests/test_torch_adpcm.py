@@ -1,0 +1,213 @@
+"""The port's ADPCM path equals psxavenc_tpu's on the CPU, exactly.
+
+- ``ops.adpcm.encode_units_scan`` (the plain version of K5) against the
+  JAX scan for the three production variants;
+- ``ops.adpcm_cuda``'s packed-word layout against the layout of
+  ``psxavenc_tpu/ops/adpcm_pallas.py`` (decoded as its own tests decode
+  it); the Pallas kernel itself is not run here, its interpret mode takes
+  minutes (tests/test_adpcm_pallas.py);
+- the stream layer (``models/adpcm_stream.py``) and the batch API.
+
+The native tier of the JAX stream layer runs on the CPU; the JAX package's
+own tests hold it to the JAX scan.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from psxavenc_tpu import api as japi
+from psxavenc_tpu.models import adpcm_stream as jstreams
+from psxavenc_tpu.ops import adpcm as jops
+from psxavenc_tpu.utils.synth import rand_pcm
+from psxavenc_tpu_torch import api as tapi
+from psxavenc_tpu_torch.models import adpcm_stream as tstreams
+from psxavenc_tpu_torch.ops import adpcm as tops
+from psxavenc_tpu_torch.ops import adpcm_cuda
+
+from test_torch_parity import assert_same
+
+VARIANTS = [(5, 12), (4, 12), (4, 8)]
+
+
+def _units(B, T, seed):
+    """Seeded (B, T, 28) units, limits (full, partial, 0, negative, > 28
+    and a masked tail) and nonzero prev states."""
+    rng = np.random.default_rng(seed)
+    units = rand_pcm(B * T * 28, seed=seed).astype(np.int32).reshape(
+        B, T, 28)
+    units[1] = np.clip(units[1] * 6, -32768, 32767)     # shift-range edges
+    units[2, :, ::3] = 0
+    lim = np.full((B, T), 28, np.int32)
+    lim[0, 3] = 17
+    lim[1, 5] = 0
+    lim[2, 6] = -9
+    lim[3, 2] = 40
+    lim[3, -3:] = 0
+    p1 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    p2 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    return units, lim, p1, p2
+
+
+@pytest.mark.parametrize("filter_count,shift_range", VARIANTS)
+def test_plain_scan_matches_jax(filter_count, shift_range):
+    units, lim, p1, p2 = _units(5, 14, seed=21)
+    want = jops.encode_units_scan(
+        jnp.asarray(units), jnp.asarray(lim), jnp.asarray(p1),
+        jnp.asarray(p2), filter_count=filter_count, shift_range=shift_range)
+    got = tops.encode_units_scan(
+        torch.from_numpy(units), torch.from_numpy(lim), torch.from_numpy(p1),
+        torch.from_numpy(p2), filter_count=filter_count,
+        shift_range=shift_range)
+    for name, w, g in zip(("headers", "values", "s1", "s2"), want, got):
+        assert_same(w, g, name)
+
+
+@pytest.mark.parametrize("filter_count", [1, 2, 3])
+def test_plain_scan_other_filter_counts(filter_count):
+    """Any filter_count from 1 to 5 works, as in the JAX scan."""
+    units, lim, p1, p2 = _units(4, 8, seed=filter_count)
+    want = jops.encode_units_scan(
+        jnp.asarray(units), jnp.asarray(lim), jnp.asarray(p1),
+        jnp.asarray(p2), filter_count=filter_count, shift_range=12)
+    got = tops.encode_units_scan(
+        torch.from_numpy(units), torch.from_numpy(lim), torch.from_numpy(p1),
+        torch.from_numpy(p2), filter_count=filter_count, shift_range=12)
+    for w, g in zip(want, got):
+        assert_same(w, g)
+
+
+def _pallas_unpack(words, shift_range):
+    """The sample values of Pallas-layout words, decoded as
+    tests/test_adpcm_pallas.py decodes them."""
+    w = np.asarray(words).astype(np.uint32)
+    vbits = 4 if shift_range == 12 else 8
+    per_word = 32 // vbits
+    vals = np.zeros(w.shape[:2] + (28,), np.uint32)
+    for k in range(w.shape[2]):
+        for m in range(per_word):
+            if per_word * k + m < 28:
+                vals[:, :, per_word * k + m] = (w[:, :, k] >> (vbits * m)) \
+                    & ((1 << vbits) - 1)
+    return vals
+
+
+@pytest.mark.parametrize("filter_count,shift_range", VARIANTS)
+def test_wrapper_layout_matches_pallas(filter_count, shift_range):
+    """On CPU tensors the K5 wrapper gives the Pallas kernel's outputs:
+    headers and states of the JAX scan, and its values packed W = 4 or 7
+    words per unit."""
+    units, lim, p1, p2 = _units(4, 8, seed=5)
+    h_ref, v_ref, s1_ref, s2_ref = jops.encode_units_scan(
+        jnp.asarray(units), jnp.asarray(np.clip(lim, -(1 << 30), 28)),
+        jnp.asarray(p1), jnp.asarray(p2), filter_count=filter_count,
+        shift_range=shift_range)
+    h, words, s1, s2 = adpcm_cuda.encode_units(
+        *(torch.from_numpy(a) for a in (units, lim, p1, p2)),
+        filter_count=filter_count, shift_range=shift_range)
+    assert words.dtype == torch.int32
+    assert words.shape == (4, 8, 4 if shift_range == 12 else 7)
+    assert_same(h_ref, h)
+    assert_same(s1_ref, s1)
+    assert_same(s2_ref, s2)
+    mask = 0xFFFF >> shift_range
+    assert_same(np.asarray(v_ref) & mask,
+                _pallas_unpack(words.numpy(), shift_range))
+    assert_same(adpcm_cuda.unpack_words(words, shift_range),
+                np.asarray(v_ref) & mask)
+
+
+def test_spu_words_are_block_bytes():
+    """4-bit words in little-endian byte order are bytes 2..15 of the SPU
+    block (adpcm_pallas.py:14-16)."""
+    units, lim, p1, p2 = _units(4, 8, seed=8)
+    blocks, _, _ = tapi.spu_encode_blocks(
+        *(torch.from_numpy(a) for a in (units, lim, p1, p2)))
+    h, v, _, _ = tapi.spu_encode_batch(
+        *(torch.from_numpy(a) for a in (units, lim, p1, p2)))
+    for b in range(4):
+        want = tstreams.pack_spu_blocks(h[b].numpy().astype(np.uint8),
+                                        v[b].numpy().astype(np.uint8))
+        assert_same(want, blocks[b])
+
+
+def test_api_matches_jax():
+    units, lim, p1, p2 = _units(4, 9, seed=13)
+    jargs = [jnp.asarray(a) for a in (units, lim, p1, p2)]
+    targs = [torch.from_numpy(a) for a in (units, lim, p1, p2)]
+    for w, g in zip(japi.spu_encode_batch(*jargs),
+                    tapi.spu_encode_batch(*targs)):
+        assert_same(w, g)
+    for w, g in zip(japi.spu_encode_blocks(*jargs),
+                    tapi.spu_encode_blocks(*targs)):
+        assert_same(w, g)
+    for bits8 in (False, True):
+        for w, g in zip(japi.xa_encode_batch(*jargs, bits8=bits8),
+                        tapi.xa_encode_batch(*targs, bits8=bits8)):
+            assert_same(w, g)
+
+
+def test_layouts_match_jax():
+    lens = [28, 0, 13, 57, 84, 1, 30]
+    for w, g in zip(jstreams.chunk_unit_layout(lens),
+                    tstreams.chunk_unit_layout(lens)):
+        assert_same(w, g)
+    for w, g in zip(jstreams.uniform_unit_layout(9, 200),
+                    tstreams.uniform_unit_layout(9, 200)):
+        assert_same(w, g)
+
+
+def test_gather_units_matches_jax():
+    pcm = rand_pcm(300 * 2, channels=2, seed=4).T.copy()
+    offs, lims = jstreams.chunk_unit_layout([50, 3, 90, 0, 100, 57])
+    offs = np.stack([offs, offs])
+    lims = np.stack([lims, lims - 5])
+    want = jstreams.gather_units(pcm, offs, lims)
+    got = tstreams.gather_units(torch.from_numpy(pcm),
+                                torch.from_numpy(offs),
+                                torch.from_numpy(lims))
+    for w, g in zip(want, got):
+        assert_same(w, g)
+
+
+@pytest.mark.parametrize("filter_count,shift_range", [(5, 12), (4, 8)])
+def test_encode_unit_streams_matches_jax(filter_count, shift_range):
+    """Non-uniform chunk offsets, partial units, carried-in state."""
+    pcm = rand_pcm(420 * 2, channels=2, seed=9).T.copy()
+    offs, lims = jstreams.chunk_unit_layout([60, 29, 112, 5, 140, 74])
+    B = 2
+    offs = np.broadcast_to(offs, (B, len(offs)))
+    lims = np.broadcast_to(lims, (B, len(lims)))
+    p1 = np.array([1200, -700], np.int32)
+    p2 = np.array([-30, 9000], np.int32)
+    want = jstreams.encode_unit_streams(pcm, offs, lims, filter_count,
+                                        shift_range, prev1=p1, prev2=p2)
+    got = tstreams.encode_unit_streams(pcm, offs, lims, filter_count,
+                                       shift_range, prev1=p1, prev2=p2,
+                                       device="cpu")
+    for name, w, g in zip(("headers", "values", "prev1", "prev2"), want,
+                          got):
+        assert np.asarray(w).dtype == np.asarray(g).dtype, name
+        assert_same(w, g, name)
+
+
+def test_encode_prepared_units_state_t_matches_jax():
+    units, lim, p1, p2 = _units(4, 10, seed=17)
+    state_t = np.array([9, 3, 0, 6])
+    want = jstreams.encode_prepared_units(units, lim, 5, 12, prev1=p1,
+                                          prev2=p2, state_t=state_t)
+    got = tstreams.encode_prepared_units(units, lim, 5, 12, prev1=p1,
+                                         prev2=p2, state_t=state_t,
+                                         device="cpu")
+    for w, g in zip(want, got):
+        assert_same(w, g)
+
+
+def test_negative_offsets_rejected():
+    with pytest.raises(ValueError, match="non-negative"):
+        tstreams.encode_unit_streams(np.zeros((1, 56), np.int16),
+                                     np.array([[-1, 27]]),
+                                     np.array([[28, 28]]), 5, 12,
+                                     device="cpu")

@@ -1,6 +1,7 @@
 """``python -m psxavenc_tpu_torch.cli`` (PSXAVENC_PLATFORM=cpu) writes the
 same -t sbs and -t strv bytes as psxavenc_tpu.cli, without importing
-JAX; unported formats and a missing card exit 1."""
+JAX; -t strspu prints the JAX CLI's message, and a missing card exits 1.
+The audio formats and str/strcd are in tests/test_torch_audio.py."""
 
 import os
 import pathlib
@@ -46,11 +47,17 @@ def test_cli_matches_jax_cli(avi, tmp_path, argv):
     assert len(want.read_bytes()) > 0
 
 
-def test_unported_format_exits_1(avi, tmp_path, capsys):
-    out = tmp_path / "x.xa"
-    assert tcli.main(["-t", "xa", str(avi), str(out)]) == 1
-    assert "not yet ported to the torch backend" in capsys.readouterr().err
-    assert not out.exists()
+def test_strspu_unsupported_exits_0(avi, tmp_path, monkeypatch, capsys):
+    """-t strspu prints the JAX CLI's message and exits 0, as the
+    reference does (main.c:159-162)."""
+    monkeypatch.setenv("PSXAVENC_PLATFORM", "cpu")
+    out = tmp_path / "x.str"
+    assert jcli.main(["-t", "strspu", str(avi), str(out)]) == 0
+    want = capsys.readouterr().err
+    assert tcli.main(["-t", "strspu", str(avi), str(out)]) == 0
+    got = capsys.readouterr().err
+    assert "This format is not currently supported" in got
+    assert got == want
 
 
 def test_no_card_exits_1(avi, tmp_path, monkeypatch, capsys):

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on a card: each equals its plain version at the
-main path's shapes, and the encoder's bytes equal the native C++ tier.
+"""The port's CUDA kernels on a card: each equals its plain version (the
+BS kernels at the video path's shapes, K5 on a ragged stream batch), and
+the encoder's bytes equal the native C++ tier.
 
 Skipped without a CUDA device. This file imports no JAX, so it runs on a
 machine that has none:
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from psxavenc_tpu_torch.ops import adpcm_cuda
 from psxavenc_tpu_torch.ops import bitpack_cuda
 from psxavenc_tpu_torch.ops import bs as tbs
 from psxavenc_tpu_torch.ops import bs_cuda
@@ -73,6 +75,41 @@ def test_kernel_matches_plain(dev, name):
     for g, w in zip(got, want):
         assert g.is_cuda and g.shape == w.shape
         assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+
+
+@pytest.mark.parametrize("filter_count,shift_range",
+                         adpcm_cuda.KERNEL_VARIANTS)
+def test_adpcm_kernel_matches_plain(dev, filter_count, shift_range):
+    """K5 on 37 streams (a ragged last warp) x 40 units, with partial,
+    zero and negative limits, a masked tail, full-scale spikes and
+    nonzero prev states."""
+    from psxavenc_tpu_torch.utils.synth import rand_pcm
+
+    rng = np.random.default_rng(filter_count + shift_range)
+    Bs, T = 37, 40
+    units = rand_pcm(Bs * T * 28, seed=shift_range).astype(
+        np.int32).reshape(Bs, T, 28)
+    units[1] = np.clip(units[1] * 8, -32768, 32767)
+    units[2, :, 5::7] = 0
+    lim = np.full((Bs, T), 28, np.int32)
+    lim[0, 3] = 17
+    lim[1, 5] = 0
+    lim[2, 6] = -4
+    lim[3, T - 6:] = 0
+    lim[4, 9] = 99
+    p1 = rng.integers(-0x8000, 0x8000, Bs).astype(np.int32)
+    p2 = rng.integers(-0x8000, 0x8000, Bs).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)]
+    before = adpcm_cuda.LAUNCHES["adpcm_encode_units"]
+    got = adpcm_cuda.encode_units(*args, filter_count=filter_count,
+                                  shift_range=shift_range)
+    want = adpcm_cuda.encode_units_plain(*args, filter_count=filter_count,
+                                         shift_range=shift_range)
+    torch.cuda.synchronize()
+    assert adpcm_cuda.LAUNCHES["adpcm_encode_units"] == before + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("codec", [tbs.BS_V2, tbs.BS_V3, tbs.BS_V3DC])
