@@ -9,7 +9,10 @@ Phases, one or more lines each:
    psxavenc_tpu_torch/csrc, started together);
 3. each BS kernel (K1-K4) against its plain PyTorch version at the video
    path's shapes (BS 320x240, 128 frames, 18,144-byte budgets), v2 and
-   v3dc: exact equality, kernel and plain times (CUDA events, median);
+   v3dc: exact equality; the kernel's device time (one wrapper call
+   captured as a CUDA graph and replayed back to back, so without the
+   host's work), one wrapper call's and the plain version's times (CUDA
+   events, median);
 4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
    and v3dc, each codec's bytes equal to its committed digest, K1-K4
    launched;
@@ -18,7 +21,8 @@ Phases, one or more lines each:
 6. frames/s: device, end to end, and the plain path on the card, with a
    torch.profiler breakdown of the device step;
 7. K5 against its plain version on 4,096 streams x 64 units for
-   (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8);
+   (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8), timed as
+   in phase 3;
 8. the batch API at full width: api.spu_encode_batch on 4,096 x 1,000
    SPU units, Msamples/s on the device, the kernel's share of its bound,
    peak device memory;
@@ -26,7 +30,16 @@ Phases, one or more lines each:
    flagship -t strcd / -t str: 320x240 15 fps BS v2 with 37,800 Hz stereo
    XA) run in this process on the card, every output equal to its
    digest, K5 (and K1, K3, K4 for str/strcd) launched; seconds per file
-   and, from torch.profiler, K5's device time on the 60 s track.
+   and, from torch.profiler, K5's device time on the 60 s track;
+10. the symbols API and the per-block-stream packers at the video path's
+   width: K6, K7 (both coefficient forms), K9 and K10 against their plain
+   versions on phase 4's first 128 frames (video+noise, one frame's
+   budget cut to 200 bytes: unfittable), timed as in phase 3; every
+   packer of
+   api.bs_encode_frames_packed with the kernel sweep and without on
+   phase 4's 256 frames, each equal to fused_mxu; api.bs_encode_frames on
+   128 frames, flat-packed equal to fused_mxu and its first frames equal
+   to the JAX package's symbols digest; K6, K7, K9 and K10 launched.
 
 The digests (psxavenc_tpu_torch/data/smoke_digests.json) are the JAX
 package's outputs for the same inputs; tests/test_torch_smoke_refs.py
@@ -63,6 +76,10 @@ ADPCM_STREAMS = 4096                 # the batch shape of bench.py:149
 ADPCM_UNITS = 1000
 ADPCM_CHECK_UNITS = 64
 ADPCM_VARIANTS = ((5, 12), (4, 12), (4, 8))
+SYMBOLS_FRAMES = 8                   # frames of the symbols_v2 digest
+UNFIT_FRAME, UNFIT_BUDGET = 5, 200   # phase 10's unfittable frame
+PACKERS = ("fused_mxu", "fused", "fused_pallas", "blocks", "blocks_pallas",
+           "flat")
 
 # (wrapper name, source, TPU kernel it replaces)
 KERNELS = [
@@ -76,6 +93,14 @@ KERNELS = [
      "psxavenc_tpu/ops/bitpack_pallas.py:315"),
     ("adpcm_encode_units", "psxavenc_tpu_torch/csrc/adpcm_units.cu",
      "psxavenc_tpu/ops/adpcm_pallas.py:194"),
+    ("select_scale", "psxavenc_tpu_torch/csrc/bs_select.cu",
+     "psxavenc_tpu/ops/bs_pallas.py:328"),
+    ("emit_pack", "psxavenc_tpu_torch/csrc/bs_emit.cu",
+     "psxavenc_tpu/ops/bs_pallas.py:711"),
+    ("place_streams", "psxavenc_tpu_torch/csrc/bitpack_streams.cu",
+     "psxavenc_tpu/ops/bitpack_pallas.py:453"),
+    ("pack_block_streams", "psxavenc_tpu_torch/csrc/bitpack_streams.cu",
+     "psxavenc_tpu/ops/bitpack_pallas.py:64"),
 ]
 
 # ---------------------------------------------------------------- bounds
@@ -91,7 +116,10 @@ OPS_FDCT_BLOCK = 900      # K1: two 8x8 islow passes + descale + zigzag
 OPS_SCALE_EVAL = 20       # K1: quantize, run, closed-form bits, per coef
 OPS_DC_BLOCK = 12         # K2: difference, wrap, size, code
 OPS_EMIT_COEF = 24        # K3: quantize, run, code, window placement
-OPS_PLACE_WORD = 4        # K4: test, offset, bound check, OR
+OPS_PLACE_WORD = 4        # K4, K9: test, offset, bound check, OR
+OPS_FUNNEL_WORD = 6       # K9: shift, carry shift, mask, OR, LE pairing
+OPS_PACK_SYMBOL = 24      # K10: length mask, window index and shifts,
+                          #     two-window OR, per symbol slot
 OPS_ADPCM_STEP = 20       # K5: predict, quantize, clip, decode, error,
                           #     pack, per candidate and sample
 OPS_ADPCM_RESID = 8       # K5: residual and extrema, per filter, sample
@@ -225,6 +253,20 @@ def sha256(data):
     return hashlib.sha256(data).hexdigest()
 
 
+def symbols_frames(np, synth):
+    return phase4_frames(np, synth)[:SYMBOLS_FRAMES]
+
+
+def symbols_digest(np, out):
+    """sha256 of a bs_encode_frames dict of numpy arrays: scale, nz_count
+    and total_bits as int32, codes as uint32, bits as int32."""
+    parts = [np.asarray(out[k]).astype("<i4")
+             for k in ("scale", "nz_count", "total_bits")]
+    parts += [np.asarray(out["codes"]).astype("<u4"),
+              np.asarray(out["bits"]).astype("<i4")]
+    return sha256(b"".join(p.tobytes() for p in parts))
+
+
 # ----------------------------------------------------------------- phases
 
 def say(msg):
@@ -255,6 +297,32 @@ def time_ms(torch, fn, reps=10):
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, reps=20):
+    """Mean device milliseconds of fn's work: one call captured as a CUDA
+    graph, replayed ``reps`` times back to back between CUDA events, so
+    the host's work per call (argument checks, allocation, the launch
+    itself) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def max_abs_err(torch, got, want, name):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -266,6 +334,49 @@ def max_abs_err(torch, got, want, name):
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                            .abs().max()))
     return err
+
+
+def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
+            ops_fn, card, library_fn=None):
+    """The kernel == its plain version, exactly; prints and keeps (the
+    first time per name) the wrapper's device time (``graph_ms``), the
+    wrapper call's and the plain version's times (CUDA events, median)
+    and the bound computed from ``inputs``, the outputs and
+    ``ops_fn(out)``. ``library_fn`` is one PyTorch call computing the same
+    function, timed as the wrapper is."""
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, want, name)
+    ms = graph_ms(torch, kernel_fn)
+    call_ms = time_ms(torch, kernel_fn)
+    plain_ms = time_ms(torch, plain_fn, reps=3)
+    library_ms = graph_ms(torch, library_fn) if library_fn else None
+    outs = got if isinstance(got, tuple) else (got,)
+    bound_ms, bound_by = bound(nbytes(*inputs, *outs), ops_fn(got))
+    lib = f", one PyTorch call {library_ms:.4f} ms" if library_fn else ""
+    say(f"[{tag}] {name} {label}: max |kernel - plain| = {err}; kernel "
+        f"{ms:.4f} ms on the device (graph replay; one wrapper call "
+        f"{call_ms:.4f} ms with its host work), plain {plain_ms:.4f} ms{lib}, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) (B={B}, {W}x{H}) on {card}")
+    if err:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             "version")
+    results.setdefault(name, {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": library_ms})
+    return got
+
+
+def select_ops(torch, nb, fdct):
+    """The operations of K1 (with ``fdct``) and K6 on their output: the
+    data needs the exact total at the chosen scale and at the scale below
+    it (one evaluation for scale 1 and for unfittable frames)."""
+    def ops(out):
+        evals = torch.where((out[0] > 1) & (out[0] <= 63), 2, 1)
+        return nb * (B * OPS_FDCT_BLOCK * fdct
+                     + 63 * OPS_SCALE_EVAL * int(evals.sum()))
+    return ops
 
 
 def check_kernels(torch, np, synth, card):
@@ -282,64 +393,39 @@ def check_kernels(torch, np, synth, card):
     dc_q = bs_ops.dc_quant_from_pixrows(pix)
     results = {}
 
-    def compare(name, label, kernel_fn, plain_fn, inputs, ops_fn):
-        got = kernel_fn()
-        want = plain_fn()
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want, name)
-        ms = time_ms(torch, kernel_fn)
-        plain_ms = time_ms(torch, plain_fn, reps=3)
-        outs = got if isinstance(got, tuple) else (got,)
-        bound_ms, bound_by = bound(nbytes(*inputs, *outs), ops_fn(got))
-        say(f"[3] {name} {label}: max |kernel - plain| = {err}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}) (B={B}, {W}x{H}) on {card}")
-        if err:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 "version")
-        results.setdefault(name, {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                  "bound_by": bound_by, "library_ms": None})
-        return got
-
-    def select_ops(out):
-        scale = out[0]
-        # The data needs the exact total at the chosen scale and at the
-        # scale below it (1 for scale 1 and for unfittable frames).
-        evals = torch.where((scale > 1) & (scale <= 63), 2, 1)
-        return nb * (B * OPS_FDCT_BLOCK
-                     + 63 * OPS_SCALE_EVAL * int(evals.sum()))
+    def check(*args):
+        return compare(torch, results, 3, *args, card)
 
     for codec, label in ((bs_ops.BS_V2, "v2"), (bs_ops.BS_V3DC, "v3dc")):
         if codec == bs_ops.BS_V2:
             dc_bits, dc_code = bs_ops._dc_stage(dc_q, codec)
         else:
-            dc_bits, dc_code = compare(
+            dc_bits, dc_code = check(
                 "dc_stage", label, lambda: bs_cuda.dc_stage(dc_q, codec),
                 lambda: bs_cuda.dc_stage_plain(dc_q, codec), (dc_q,),
                 lambda out: B * nb * OPS_DC_BLOCK)
         thr = bs_ops.ac_threshold(
             budgets, dc_bits.sum(dim=1, dtype=torch.int32), nb)
-        scale, _, _, coefs = compare(
+        scale, _, _, coefs = check(
             "select_scale_pix", label,
             lambda: bs_cuda.select_scale_pix(pix, thr),
             lambda: bs_cuda.select_scale_pix_plain(pix, thr), (pix, thr),
-            select_ops)
+            select_ops(torch, nb, 1))
         sidx = torch.where(scale <= 63, scale, 1)
         eof = 0x1FF if codec == bs_ops.BS_V2 else 0x3FF
-        vals32, e0, _, _ = compare(
+        vals32, e0, _, _ = check(
             "emit_prep", label,
             lambda: bs_cuda.emit_prep(coefs, sidx, dc_code, dc_bits, eof=eof),
             lambda: bs_cuda.emit_prep_plain(coefs, sidx, dc_code, dc_bits,
                                             eof=eof),
             (coefs, sidx, dc_code, dc_bits),
             lambda out: B * nb * 63 * OPS_EMIT_COEF)
-        compare("place_vals", label,
-                lambda: bitpack_cuda.place_vals(vals32, e0,
-                                                capacity_words=CAP_WORDS),
-                lambda: bitpack_cuda.place_vals_plain(
-                    vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-                lambda out: vals32.numel() * OPS_PLACE_WORD)
+        check("place_vals", label,
+              lambda: bitpack_cuda.place_vals(vals32, e0,
+                                              capacity_words=CAP_WORDS),
+              lambda: bitpack_cuda.place_vals_plain(
+                  vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
+              lambda out: vals32.numel() * OPS_PLACE_WORD)
     return results
 
 
@@ -373,8 +459,8 @@ def main_path(torch, np, synth, digests):
     say(f"[4] launches in the video path: {launches}; frames on the "
         f"overflow path: {api.COUNTERS['overflow_frames']} of "
         f"{3 * MAIN_FRAMES}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("select_scale_pix", "dc_stage", "emit_prep", "place_vals"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "video path")
     return launches
@@ -506,13 +592,16 @@ def adpcm_kernel(torch, np, synth, card):
         want = plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want, "adpcm_encode_units")
-        ms = time_ms(torch, kernel_fn)
+        ms = graph_ms(torch, kernel_fn)
+        call_ms = time_ms(torch, kernel_fn)
         plain_ms = time_ms(torch, plain_fn, reps=1)
         n_units = ADPCM_STREAMS * ADPCM_CHECK_UNITS
         bound_ms, bound_by = bound(nbytes(*head, *got), adpcm_ops(n_units, fc))
         say(f"[7] adpcm_encode_units ({fc}, {sr}): headers, words, s1, s2 "
-            f"max |kernel - plain| = {err}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"max |kernel - plain| = {err}; kernel {ms:.4f} ms on the device "
+            f"(graph replay; one wrapper call {call_ms:.4f} ms with its host "
+            f"work), "
+            f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
             f"({ADPCM_STREAMS} streams x {ADPCM_CHECK_UNITS} units) on {card}")
         if err:
             raise AssertionError(f"K5 ({fc}, {sr}) disagrees with its plain "
@@ -620,6 +709,175 @@ def av_path(torch, digests, tmp, card, out_dir):
     return total
 
 
+def block_stream_kernels(torch, np, synth, card):
+    """Phase 10, kernels: K6, K7 (both coefficient forms), K9 and K10 ==
+    their plain versions on phase 4's first 128 frames, one of them
+    unfittable. Returns the rows of the kernel table."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    dev = torch.device("cuda", 0)
+    frames = torch.from_numpy(phase4_frames(np, synth)[:B]).to(dev)
+    budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
+    budgets[UNFIT_FRAME] = UNFIT_BUDGET
+    sel = bs_ops.encode_frames_symbols(api._frames_to_coefs(frames, W, H),
+                                       budgets, codec=0, kernel_sweep=False,
+                                       emit=False)
+    c, dc_bits, dc_code = sel["c"], sel["dc_bits"], sel["dc_code"]
+    nb = c.shape[2]
+    thr = bs_ops.ac_threshold(budgets, dc_bits.sum(dim=1, dtype=torch.int32),
+                              nb)
+    results = {}
+
+    def check(*args, **kw):
+        return compare(torch, results, 10, *args, card, **kw)
+
+    scale, _, _ = check(
+        "select_scale", "(63, NB) int32",
+        lambda: bs_cuda.select_scale(c, thr),
+        lambda: bs_cuda.select_scale_plain(c, thr), (c, thr),
+        select_ops(torch, nb, 0))
+    if int(scale[UNFIT_FRAME]) != 64 or not (scale[:UNFIT_FRAME] <= 63).all():
+        raise AssertionError("phase 10: the unfittable frame was not found")
+    sidx = torch.where(scale <= 63, scale, 1)
+    emit_ops = B * nb * 63 * OPS_EMIT_COEF
+    emit_args = (sidx, dc_code, dc_bits)
+    streams, block_bits = check(
+        "emit_pack", "(63, NB) int32",
+        lambda: bs_cuda.emit_pack(c, *emit_args),
+        lambda: bs_cuda.emit_pack_plain(c, *emit_args), (c, *emit_args),
+        lambda out: emit_ops)
+    c64 = bs_cuda.select_scale_pix(bs_ops.rearrange_nv21_rows(frames, W, H),
+                                   thr)[3]
+    check("emit_pack", "(64, nb_pad) int16",
+          lambda: bs_cuda.emit_pack(c64, *emit_args),
+          lambda: bs_cuda.emit_pack_plain(c64, *emit_args),
+          (c64, *emit_args), lambda out: emit_ops)
+
+    streams, bb = bitpack_ops.with_eof_block(streams, block_bits, 0x1FF)
+    goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+    total = goff[:, -1] + bb[:, -1]
+    nbe = nb + 1
+    # One scatter_add_ on the placed u32 words and their prepared indices
+    # (a spare column takes the dropped words) computes K9's words: the
+    # contributions are bit-disjoint, so add == or.
+    cap32 = (CAP_WORDS + 1) // 2
+    vals32, e0 = bitpack_ops.streams_to_u32(streams, goff)
+    vals = bitpack_ops.u32_to_i32(vals32).reshape(B, -1)
+    idx = (e0[..., None] + torch.arange(9, device=dev)).clamp(
+        max=cap32).reshape(B, -1)
+    lib_out = torch.zeros((B, cap32 + 1), dtype=torch.int32, device=dev)
+    lib_out.scatter_add_(1, idx, vals)
+    same = torch.equal(
+        bitpack_ops.u16_values(lib_out[:, :cap32].contiguous(), CAP_WORDS),
+        bitpack_cuda.place_streams(streams, goff, total,
+                                   capacity_words=CAP_WORDS))
+    say(f"[10] place_streams: one scatter_add_ on the prepared (words, "
+        f"indices) gives K9's words: {same}")
+    check("place_streams", "", lambda: bitpack_cuda.place_streams(
+              streams, goff, total, capacity_words=CAP_WORDS),
+          lambda: bitpack_cuda.place_streams_plain(
+              streams, goff, total, capacity_words=CAP_WORDS),
+          (streams, goff),
+          lambda out: B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD),
+          library_fn=(lambda: lib_out.scatter_add_(1, idx, vals)) if same
+          else None)
+
+    codes, bits = bs_ops.emit_symbols_at(c, sidx - 1, dc_bits, dc_code)
+    codes, bits = api._with_eof_symbols(codes, bits, 0x1FF)
+    codes = bitpack_ops.u32_to_i32(codes)
+    bits = bits.to(torch.int32)
+    check("pack_block_streams", "(B, NB + 1, 65)",
+          lambda: bitpack_cuda.pack_block_streams(codes, bits),
+          lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
+          (codes, bits), lambda out: codes.numel() * OPS_PACK_SYMBOL)
+    return results
+
+
+def words_equal(torch, got, ref, total_bits):
+    """The words of two packers up to each frame's bits."""
+    n = (total_bits.to(torch.int64) + 15) // 16
+    live = torch.arange(ref.shape[1], device=ref.device)[None, :] < n[:, None]
+    return torch.equal(torch.where(live, got, 0), torch.where(live, ref, 0))
+
+
+def symbols_and_packers(torch, np, synth, digests, card):
+    """Phase 10, paths: every packer x sweep on phase 4's 256 frames ==
+    fused_mxu, and the symbols API. Returns the launch counts of this run;
+    then times each packer (device ms per batch, an observation)."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+
+    dev = torch.device("cuda", 0)
+    host = phase4_frames(np, synth)
+    batches = [torch.from_numpy(host[i:i + B]).to(dev)
+               for i in range(0, MAIN_FRAMES, B)]
+    budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
+    kw = dict(codec=0, width=W, height=H, capacity_words=CAP_WORDS)
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES)
+    reset(counters)
+    refs = []
+    for frames in batches:
+        ref = api.bs_encode_frames_packed(frames, budgets, **kw)
+        refs.append(ref)
+        for packer in PACKERS:
+            for sweep in (True, False):
+                out = api.bs_encode_frames_packed(
+                    frames, budgets, kernel_sweep=sweep, packer=packer, **kw)
+                bad = [k for k in ("scale", "total_bits", "nz_count")
+                       if not torch.equal(out[k], ref[k])]
+                if not words_equal(torch, out["words"], ref["words"],
+                                   ref["total_bits"]):
+                    bad.append("words")
+                if bad:
+                    raise AssertionError(f"packer {packer} (kernel_sweep="
+                                         f"{sweep}) differs from fused_mxu "
+                                         f"in {bad}")
+    say(f"[10] every packer x kernel_sweep equals fused_mxu on "
+        f"{MAIN_FRAMES} frames {W}x{H} (scale, total_bits, nz_count, words "
+        f"up to each frame's bits): {', '.join(PACKERS)}")
+
+    sym = api.bs_encode_frames(batches[0], budgets, codec=0, width=W,
+                               height=H)
+    codes, bits = api._with_eof_symbols(sym["codes"], sym["bits"], 0x1FF)
+    words, total = bitpack_ops.pack_bits(codes.reshape(B, -1),
+                                         bits.reshape(B, -1),
+                                         capacity_words=CAP_WORDS)
+    ref = refs[0]
+    if not (torch.equal(sym["scale"], ref["scale"])
+            and torch.equal(sym["nz_count"], ref["nz_count"])
+            and torch.equal(total.to(torch.int32), ref["total_bits"])
+            and words_equal(torch, bitpack_ops.u16_to_i16(words),
+                            ref["words"], ref["total_bits"])):
+        raise AssertionError("bs_encode_frames, flat-packed, differs from "
+                             "fused_mxu")
+    head = {k: v[:SYMBOLS_FRAMES].cpu().numpy() for k, v in sym.items()}
+    if symbols_digest(np, head) != digests["symbols_v2"]:
+        raise AssertionError("bs_encode_frames differs from the JAX "
+                             "package's symbols digest")
+    launches = {k: v for c in counters for k, v in c.items()}
+    say(f"[10] bs_encode_frames on {B} frames: flat-packed equal to "
+        f"fused_mxu; the first {SYMBOLS_FRAMES} frames equal the JAX "
+        f"package's digest; launches in phase 10's paths: {launches}")
+    for name in ("select_scale", "emit_pack", "place_streams",
+                 "pack_block_streams"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in phase 10")
+
+    for packer in PACKERS:
+        for sweep in (True, False):
+            ms = time_ms(torch, lambda: api.bs_encode_frames_packed(
+                batches[0], budgets, kernel_sweep=sweep, packer=packer,
+                **kw), reps=3)
+            say(f"[10] packer {packer}, kernel_sweep={sweep}: {ms:.3f} ms "
+                f"per {B}-frame batch on the device (CUDA events; "
+                f"kernels + glue) on {card}")
+    return launches
+
+
 def main():
     import argparse
 
@@ -671,10 +929,12 @@ def main():
         adpcm_batch(torch, full, ref, card)
         del full, ref
         av = av_path(torch, digests, tmp, card, out_dir)
+    rows.update(block_stream_kernels(torch, np, synth, card))
+    blocks = symbols_and_packers(torch, np, synth, digests, card)
 
     kernels = []
     for name, source, replaces in KERNELS:
-        launches = video.get(name, 0) + av.get(name, 0)
+        launches = sum(path.get(name, 0) for path in (video, av, blocks))
         if launches <= 0:
             raise AssertionError(f"kernel {name} launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -4,8 +4,13 @@ Counterpart of ``psxavenc_tpu.api``:
 
 - ``spu_encode_batch``, ``spu_encode_blocks``, ``xa_encode_batch``: B
   independent ADPCM unit streams, one K5 launch over all of them;
-- ``bs_encode_frames_packed`` with the ``fused_mxu`` packer, the path
-  psxavenc_tpu runs on its accelerator:
+- ``bs_encode_frames``: the symbols API, NV21 frames -> FDCT
+  coefficients (glue) -> scale selection (K6, or the plain sweep) ->
+  (B, NB, 65) symbol tensors;
+- ``bs_encode_frames_packed``: pixels in, packed bitstream words out,
+  through any of psxavenc_tpu's packers but ``fused_gather`` (see its
+  docstring for the kernels each runs). The default, ``fused_mxu`` with
+  the kernel sweep, is the path psxavenc_tpu runs on its accelerator:
 
     NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
     -> AC fit threshold -> FDCT + scale search (K1) -> emission +
@@ -15,6 +20,8 @@ The device is the input tensors' device; on the CPU every kernel runs
 its plain version.
 """
 
+import functools
+
 import torch
 
 from .ops import adpcm as adpcm_ops
@@ -23,6 +30,7 @@ from .ops import bitpack as bitpack_ops
 from .ops import bitpack_cuda
 from .ops import bs as bs_ops
 from .ops import bs_cuda
+from .ops import fdct as fdct_ops
 
 COUNTERS = {"overflow_frames": 0}
 
@@ -77,67 +85,89 @@ def xa_encode_batch(units, limits, prev1, prev2, *, bits8=False):
 
 
 class _Stages:
-    """The four kernel stages: the wrappers, or the plain versions (which
-    run on any device, for measuring the plain path on the card)."""
+    """The kernel stages: the wrappers, or the plain versions (which run on
+    any device, for measuring the plain path on the card)."""
 
     def __init__(self, use_kernels):
         if use_kernels:
             self.dc_stage = bs_cuda.dc_stage
             self.select = bs_cuda.select_scale_pix
             self.emit_prep = bs_cuda.emit_prep
+            self.emit_pack = bs_cuda.emit_pack
             self.place = bitpack_cuda.place_vals
+            self.place_streams = bitpack_cuda.place_streams
         else:
             self.dc_stage = bs_cuda.dc_stage_plain
             self.select = bs_cuda.select_scale_pix_plain
             self.emit_prep = bs_cuda.emit_prep_plain
+            self.emit_pack = bs_cuda.emit_pack_plain
             self.place = bitpack_cuda.place_vals_plain
+            self.place_streams = bitpack_cuda.place_streams_plain
 
 
 _KERNELS = _Stages(True)
 _PLAIN = _Stages(False)
 
+PACKERS = ("fused_mxu", "fused", "fused_pallas", "fused_gather", "blocks",
+           "blocks_pallas", "flat")
+
+
+def _eof(codec):
+    return 0x1FF if codec == bs_ops.BS_V2 else 0x3FF
+
+
+def _with_eof_symbols(codes, bits, eof):
+    """Append the end-of-frame block (a lone 10-bit code) to (B, NB, S)
+    symbol tensors."""
+    B, _, S = codes.shape
+    eof_codes = torch.zeros((B, 1, S), dtype=codes.dtype, device=codes.device)
+    eof_bits = torch.zeros((B, 1, S), dtype=bits.dtype, device=bits.device)
+    eof_codes[:, 0, 0] = eof
+    eof_bits[:, 0, 0] = 10
+    return torch.cat([codes, eof_codes], dim=1), \
+        torch.cat([bits, eof_bits], dim=1)
+
 
 def _overflow_words(coefs, scale_idx, dc_bits, dc_code, eof,
-                    capacity_words, cap32):
+                    capacity_words):
     """Exact flat path for frames with a block stream over 256 bits
     (api.py:212-235 of psxavenc_tpu): emit the symbols at the selected
-    scale and pack them with ``pack_bits``. Returns (n, cap32) int32
-    placed u32 words."""
+    scale and pack them with ``pack_bits``. ``coefs`` is either emission
+    input form. Returns (n, capacity_words) int16 words."""
     n, nb = dc_code.shape
     c = coefs[:, :63, :nb].to(torch.int32)
     codes, bits = bs_ops.emit_symbols_at(c, scale_idx, dc_bits, dc_code)
-    eof_codes = torch.zeros((n, 1, 65), dtype=torch.int64,
-                            device=codes.device)
-    eof_bits = torch.zeros_like(eof_codes)
-    eof_codes[:, 0, 0] = eof
-    eof_bits[:, 0, 0] = 10
-    codes = torch.cat([codes, eof_codes], dim=1).reshape(n, -1)
-    bits = torch.cat([bits, eof_bits], dim=1).reshape(n, -1)
-    words, _ = bitpack_ops.pack_bits(codes, bits,
+    codes, bits = _with_eof_symbols(codes, bits, eof)
+    words, _ = bitpack_ops.pack_bits(codes.reshape(n, -1),
+                                     bits.reshape(n, -1),
                                      capacity_words=capacity_words)
-    words = torch.nn.functional.pad(words, (0, 2 * cap32 - capacity_words))
-    pairs = words.reshape(n, cap32, 2)
-    return bitpack_ops.u32_to_i32(pairs[..., 0] | (pairs[..., 1] << 16))
+    return bitpack_ops.u16_to_i16(words)
 
 
-def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
-                            capacity_words, use_kernels=True):
-    """Fused BS frame batch: (B, w*h*3/2) uint8 NV21 frames and (B,) int32
-    byte budgets on one device -> dict of device tensors:
+def _frames_to_coefs(frames, width, height):
+    """(B, w*h*3/2) NV21 -> (B, NB, 64) int32 FDCT coefficients in encode
+    order."""
+    blocks = bs_ops.rearrange_nv21_frame(frames, width, height)
+    return fdct_ops.fdct_islow(blocks).reshape(frames.shape[0], -1, 64)
 
-    - ``scale`` (B,) int32: chosen quant scales, 64 = unfittable (the
-      caller raises, mdec.c:723);
-    - ``words`` (B, capacity_words) int16: the packed payload, the bit
-      patterns of little-endian u16 words (view as uint16 on the host);
-    - ``total_bits`` (B,) int32: bitstream bits including the EOF code;
-    - ``nz_count`` (B,) int32: nonzero AC count at the chosen scale.
 
-    ``capacity_words`` must cover the largest budget: (max - 8) // 2.
-    ``use_kernels=False`` runs the plain versions on any device (for
-    measuring the plain path; it is never chosen automatically).
-    """
-    st = _KERNELS if use_kernels else _PLAIN
-    eof = 0x1FF if codec == bs_ops.BS_V2 else 0x3FF
+def bs_encode_frames(frames, budgets, *, codec, width, height,
+                     kernel_sweep=True):
+    """BS frame batch: (B, w*h*3/2) uint8 NV21 frames and (B,) int32 byte
+    budgets on one device -> per-frame symbol streams, the dict of
+    ``ops.bs.encode_frames_symbols``: ``scale`` (B,), ``codes`` and
+    ``bits`` (B, NB, 65) int64, ``nz_count`` (B,), ``total_bits`` (B,)
+    (without the 10-bit EOF). ``kernel_sweep`` is the counterpart of
+    psxavenc_tpu's ``pallas_sweep``: True selects scales with K6, False
+    with the plain chunked sweep."""
+    coefs = _frames_to_coefs(frames, width, height)
+    return bs_ops.encode_frames_symbols(coefs, budgets, codec=codec,
+                                        kernel_sweep=kernel_sweep)
+
+
+def _select_pixels(frames, budgets, codec, width, height, st):
+    """The fused select stage (psxavenc_tpu's ``select_frames_pixels``):
+    pixel rows, DC stage, AC threshold and FDCT + scale search (K1)."""
     pix = bs_ops.rearrange_nv21_rows(frames, width, height)   # (B, 64, NB)
     nb = pix.shape[2]
     dc_q = bs_ops.dc_quant_from_pixrows(pix)
@@ -147,14 +177,37 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
         dc_bits, dc_code = st.dc_stage(dc_q, codec)
     dc_total = dc_bits.sum(dim=1, dtype=torch.int32)
     thr_ac = bs_ops.ac_threshold(budgets, dc_total, nb)
-
     scale, ac_bits, nz, coefs = st.select(pix, thr_ac)
     # Unfittable frames emit at scale 1 (the caller raises for them).
-    scale_idx = torch.where(scale <= 63, scale - 1, 0)
-    total_bits = ac_bits + dc_total + 2 * nb + 10
-    vals32, e0, block_bits, _ = st.emit_prep(coefs, scale_idx + 1, dc_code,
-                                             dc_bits, eof=eof)
-    out32 = st.place(vals32, e0, capacity_words=capacity_words)
+    return {"scale": scale, "scale_idx": torch.where(scale <= 63, scale - 1, 0),
+            "nz_count": nz, "total_bits": ac_bits + dc_total + 2 * nb + 10,
+            "dc_bits": dc_bits, "dc_code": dc_code, "c": coefs}
+
+
+def _fused_words(sel, packer, prep, eof, capacity_words, st):
+    """The fused packers after selection: emission and placement (with
+    ``prep``, K3's placement prep and K4; else per-block streams), then
+    the overflow path for frames with a block over the 256-bit window.
+    Returns (B, capacity_words) int16 words."""
+    args = (sel["c"], sel["scale_idx"] + 1, sel["dc_code"], sel["dc_bits"])
+    if prep:
+        vals32, e0, block_bits, _ = st.emit_prep(*args, eof=eof)
+        out32 = st.place(vals32, e0, capacity_words=capacity_words)
+        words = bitpack_ops.words_u16(out32, capacity_words)
+    else:
+        streams, block_bits = st.emit_pack(*args)
+        streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
+        goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+        total = goff[:, -1] + bb[:, -1]
+        if packer == "fused":
+            place = bitpack_cuda.place_streams_plain    # the XLA stage
+        elif packer == "fused_pallas":
+            place = st.place_streams
+        else:
+            place = functools.partial(bitpack_cuda.place_streams_mxu,
+                                      place=st.place)
+        words = bitpack_ops.u16_to_i16(
+            place(streams, goff, total, capacity_words=capacity_words))
 
     # Frames with a block over the 256-bit window take the exact path;
     # for every other frame both paths give the same words.
@@ -162,10 +215,93 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     idx = torch.nonzero(ovf)[:, 0]
     if idx.numel():
         COUNTERS["overflow_frames"] += int(idx.numel())
-        out32[idx] = _overflow_words(
-            coefs[idx], scale_idx[idx], dc_bits[idx], dc_code[idx], eof,
-            capacity_words, out32.shape[1])
-    return {"scale": scale,
-            "words": bitpack_ops.words_u16(out32, capacity_words),
-            "total_bits": total_bits,
-            "nz_count": nz}
+        words[idx] = _overflow_words(
+            sel["c"][idx], sel["scale_idx"][idx], sel["dc_bits"][idx],
+            sel["dc_code"][idx], eof, capacity_words)
+    return words
+
+
+def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
+                            capacity_words, kernel_sweep=True, packer=None,
+                            use_kernels=True):
+    """BS frame batch, pixels in, packed bitstream out: (B, w*h*3/2) uint8
+    NV21 frames and (B,) int32 byte budgets on one device -> dict of
+    device tensors:
+
+    - ``scale`` (B,) int32: chosen quant scales, 64 = unfittable (the
+      caller raises, mdec.c:723);
+    - ``words`` (B, capacity_words) int16: the packed payload, the bit
+      patterns of little-endian u16 words (view as uint16 on the host);
+    - ``total_bits`` (B,) int32: bitstream bits including the EOF code;
+    - ``nz_count`` (B,) int32: nonzero AC count at the chosen scale.
+
+    ``capacity_words`` must cover the largest budget: (max - 8) // 2.
+    ``kernel_sweep`` (psxavenc_tpu's ``pallas_sweep``) selects scales with
+    K1 from the pixels (True) or with the plain chunked sweep from FDCT
+    coefficients (False). ``packer`` takes psxavenc_tpu's names (all give
+    the same bytes); default ``fused_mxu`` with the kernel sweep,
+    ``blocks`` without it:
+
+    - ``fused_mxu``: K3 emission + placement prep, then K4 placement; with
+      ``kernel_sweep=False``, K7 emission, then ``streams_to_u32`` + K4;
+    - ``fused``: K7 emission, then the plain stream placement
+      (psxavenc_tpu's XLA ``_place_streams``);
+    - ``fused_pallas``: K7 emission, then K9 placement;
+    - ``blocks``: K6 (or the sweep), plain symbol emission, then the
+      plain per-block packer (``_pack_block_streams`` + ``_place_streams``);
+    - ``blocks_pallas``: as ``blocks`` with K10 packing and K9 placement;
+    - ``flat``: K6 (or the sweep), plain symbol emission, ``pack_bits``;
+    - ``fused_gather`` is not ported yet (its placement kernel K8 is queued
+      in ROADMAP.md) and raises NotImplementedError.
+
+    The ``fused*`` packers with the kernel sweep run K1 (and K2 for
+    v3/v3dc) first. Frames with a block over 256 bits are packed by the
+    exact flat path, frame by frame (psxavenc_tpu sends the whole batch;
+    the bytes are the same). ``total_bits`` is the selection's for the
+    fused packers and the packer's for the others; they differ only on an
+    unfittable frame. ``use_kernels=False`` runs the plain versions on
+    any device (for measuring the plain path; never chosen
+    automatically).
+    """
+    if packer is None:
+        packer = "fused_mxu" if kernel_sweep else "blocks"
+    if packer == "fused_gather":
+        raise NotImplementedError(
+            "packer 'fused_gather' needs K8 (place_vals_gather_pallas), "
+            "which is not ported yet (ROADMAP.md, the next queue item)")
+    if packer not in PACKERS:
+        raise ValueError(f"unknown packer {packer!r}; one of {PACKERS}")
+    st = _KERNELS if use_kernels else _PLAIN
+    eof = _eof(codec)
+
+    if packer.startswith("fused"):
+        if kernel_sweep:
+            sel = _select_pixels(frames, budgets, codec, width, height, st)
+        else:
+            sel = bs_ops.encode_frames_symbols(
+                _frames_to_coefs(frames, width, height), budgets,
+                codec=codec, kernel_sweep=False, emit=False)
+        return {"scale": sel["scale"],
+                "words": _fused_words(sel, packer,
+                                      kernel_sweep and packer == "fused_mxu",
+                                      eof, capacity_words, st),
+                "total_bits": sel["total_bits"],
+                "nz_count": sel["nz_count"]}
+
+    out = bs_ops.encode_frames_symbols(
+        _frames_to_coefs(frames, width, height), budgets, codec=codec,
+        kernel_sweep=kernel_sweep, use_kernels=use_kernels)
+    codes, bits = _with_eof_symbols(out["codes"], out["bits"], eof)
+    if packer == "flat":
+        B = codes.shape[0]
+        words, total_bits = bitpack_ops.pack_bits(
+            codes.reshape(B, -1), bits.reshape(B, -1),
+            capacity_words=capacity_words)
+    else:
+        kern = use_kernels and packer == "blocks_pallas"
+        words, total_bits = bitpack_ops.pack_frames_blocks(
+            codes, bits, capacity_words=capacity_words, kernel_place=kern,
+            kernel_pack=kern)
+    return {"scale": out["scale"], "words": bitpack_ops.u16_to_i16(words),
+            "total_bits": total_bits.to(torch.int32),
+            "nz_count": out["nz_count"]}

@@ -1,5 +1,6 @@
-// Shared device code of the BS kernels: the islow FDCT, the quantizer
-// divide, and the closed-form MDEC Huffman tables.
+// Shared device code of the BS and block-stream kernels: the islow FDCT,
+// the quantizer divide, the closed-form MDEC Huffman tables, and the
+// block-stream window packing and placement.
 //
 // Every function computes the same integers as its namesake in
 // psxavenc_tpu_torch/ops/bs.py and ops/fdct.py (the plain versions the
@@ -240,6 +241,54 @@ __device__ __forceinline__ void dc_bits_code(bool is_y, int key, int& bits,
   const int mask = (1 << (db + 1)) - 1;
   const int suffix = sd > 0 ? (sd & mask) : ((sd - 1) & mask);
   code = (pv << (db + 1)) | suffix;
+}
+
+// ------------------------------------------------------- block streams
+
+// OR a ``b``-bit code (1 <= b <= 32, no bits above b) into eight MSB-first
+// u32 windows at in-block bit offset ``o`` (bs_pallas.py:
+// _emit_chunk_windows place(), with its shift clips). Bits past the 256th
+// are dropped, as ops/bitpack.py:_pack_block_streams cuts them. Every
+// window index is a compile-time constant, so ``acc`` stays in registers.
+__device__ __forceinline__ void place_code(uint32_t (&acc)[8], int o, int b,
+                                           uint32_t code) {
+  const int q = o >> 5;
+  const int sbits = 64 - (o & 31) - b;
+  const int sh = min(max(sbits - 32, 0), 31);
+  const int sl = min(max(32 - sbits, 0), 31);
+  const uint32_t hi = sbits >= 32 ? code << sh : code >> sl;
+  const uint32_t lo = sbits < 32 ? code << min(max(sbits, 0), 31) : 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k == q) acc[k] |= hi;
+    if (k == q + 1) acc[k] |= lo;
+  }
+}
+
+// One block's placed u32 words (ops/bitpack.py:streams_to_u32): its 16
+// MSB-first u16 stream words ``w`` shifted to the sub-word part of global
+// bit offset ``g`` and packed as little-endian u16 pairs into nine u32
+// words, the first at u32 offset g >> 5.
+__device__ __forceinline__ void stream_to_u32(const uint32_t (&w)[16], int g,
+                                              uint32_t (&vals)[9]) {
+  const int sh = g & 15;
+  uint32_t contrib[17];
+  uint32_t prev = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    contrib[i] = (w[i] >> sh) | ((prev << (16 - sh)) & 0xFFFFu);
+    prev = w[i];
+  }
+  contrib[16] = (prev << (16 - sh)) & 0xFFFFu;
+  const bool odd = (g >> 4) & 1;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    // odd: [0, c0, .., c16]; even: [c0, .., c16, 0]
+    const uint32_t lo = odd ? (j ? contrib[2 * j - 1] : 0u) : contrib[2 * j];
+    const uint32_t hi =
+        odd ? contrib[2 * j] : (j < 8 ? contrib[2 * j + 1] : 0u);
+    vals[j] = lo | (hi << 16);
+  }
 }
 
 // ------------------------------------------------------------ reductions

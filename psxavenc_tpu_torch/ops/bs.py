@@ -1,10 +1,11 @@
 """MDEC BS frame encoding ops on torch tensors: tables, quantization,
-run lengths, Huffman closed forms, DC chain, symbol emission and the
-NV21 rearranges.
+run lengths, Huffman closed forms, DC chain, scale selection, symbol
+emission and the NV21 rearranges.
 
-Counterpart of the parts of ``psxavenc_tpu/ops/bs.py`` that the fused
-BS path needs. The constant tables are copied (``tests/test_torch_tables``
-pins them equal to the JAX module's arrays); every function computes the
+Counterpart of ``psxavenc_tpu/ops/bs.py``: the fused pixel path and the
+coefficient-input symbols path. The constant tables are copied
+(``tests/test_torch_tables`` pins them equal to the JAX module's
+arrays); every function computes the
 same integers as its JAX namesake. Code values that JAX keeps in uint32
 are held in int32 or int64 here: none of them exceeds 17 bits.
 """
@@ -327,6 +328,12 @@ def quant_zz(device):
     return torch.as_tensor(QUANT_ZZ, dtype=torch.int32, device=device)
 
 
+def _ac_quant(c, qs):
+    """Quantize and clamp the AC positions by divisors ``qs``
+    broadcastable to ``c``."""
+    return _clamp_coeff(_div_rounded_fast(c, qs))
+
+
 def emit_symbols_at(c, scale_idx, dc_bits, dc_code):
     """Symbol emission at known per-frame scale indices.
 
@@ -338,7 +345,7 @@ def emit_symbols_at(c, scale_idx, dc_bits, dc_code):
     B, _, nb = c.shape
     qs = quant_zz(c.device)[None, :] * (scale_idx.to(torch.int32)
                                         + 1)[:, None]
-    ac = _clamp_coeff(_div_rounded_fast(c.to(torch.int32), qs[:, :, None]))
+    ac = _ac_quant(c.to(torch.int32), qs[:, :, None])
     nz = ac != 0
     run = _runs(nz, 1)
     bits_nz = ac_bits_closed_form(run, ac.abs())
@@ -352,6 +359,136 @@ def emit_symbols_at(c, scale_idx, dc_bits, dc_code):
     codes = torch.cat([dc_code[..., None].to(torch.int64),
                        code_w.to(torch.int64), eob], dim=2)
     return codes, bits
+
+
+def _select(bits_ps, nz_ps, dc_total, budgets, nb):
+    """First-fit scale selection over (B, 63) per-scale AC totals, the
+    budget rule (a frame fits iff 8 + 2 * ceil(total_bits / 16) <= its
+    budget, mdec.c:321-333). Returns (scale, scale_idx, nz_count,
+    total_bits). A frame that fits nowhere gets scale 64 and index 0, so
+    its counts are those of scale 1 (argmax over an all-false row)."""
+    per_scale_bits = bits_ps + (dc_total + 2 * nb + 10)[:, None]
+    total_bytes = 8 + 2 * ((per_scale_bits + 15) >> 4)
+    fits = total_bytes <= budgets.to(torch.int32)[:, None]
+    scale_idx = fits.to(torch.int32).argmax(dim=1).to(torch.int32)
+    scale = where(fits.any(dim=1), scale_idx + 1, 64).to(torch.int32)
+
+    def take(x):
+        return torch.gather(x, 1, scale_idx[:, None].long())[:, 0]
+
+    return scale, scale_idx, take(nz_ps), take(per_scale_bits)
+
+
+def _select_only(c, bits_ps, nz_ps, dc_bits, dc_code, dc_total, budgets,
+                 nb):
+    """Scale selection without symbol emission: the winner, its exact
+    totals and what the emission kernel needs."""
+    scale, scale_idx, nz_at, total_at = _select(bits_ps, nz_ps, dc_total,
+                                                budgets, nb)
+    return {"scale": scale, "scale_idx": scale_idx, "nz_count": nz_at,
+            "total_bits": total_at, "c": c, "dc_bits": dc_bits,
+            "dc_code": dc_code}
+
+
+def _select_and_emit(c, bits_ps, nz_ps, dc_bits, dc_code, dc_total,
+                     budgets, nb):
+    scale, scale_idx, nz_at, total_at = _select(bits_ps, nz_ps, dc_total,
+                                                budgets, nb)
+    codes, bits = emit_symbols_at(c, scale_idx, dc_bits, dc_code)
+    return {"scale": scale, "codes": codes, "bits": bits,
+            "nz_count": nz_at, "total_bits": total_at}
+
+
+SWEEP_CHUNK = 8
+_SWEEP_SENTINEL = 1 << 29            # an uncosted scale's bits: never fits
+
+
+def _sweep(c, budgets, dc_total, nb):
+    """The chunked early-exit sweep (psxavenc_tpu/ops/bs.py:641-683):
+    exact (B, 63) per-scale AC bit and nonzero totals, costed eight
+    scales at a time in order until every frame fits one of the costed
+    scales. Uncosted scales keep a sentinel that never fits, so the
+    selection equals a full sweep's."""
+    B = c.shape[0]
+    dev = c.device
+    q = quant_zz(dev)
+    bits_ps = torch.full((B, 63), _SWEEP_SENTINEL, dtype=torch.int32,
+                         device=dev)
+    nz_ps = torch.zeros((B, 63), dtype=torch.int32, device=dev)
+    extra = (dc_total + 2 * nb + 10)[:, None]
+    limit = budgets.to(device=dev, dtype=torch.int32)[:, None]
+    pos = torch.arange(63, device=dev)
+    for lo in range(0, 63, SWEEP_CHUNK):
+        fits = (8 + 2 * ((bits_ps + extra + 15) >> 4) <= limit) & (pos < lo)
+        if bool(fits.any(dim=1).all()):
+            break
+        for i in range(lo, min(lo + SWEEP_CHUNK, 63)):
+            ac = _ac_quant(c, (q * (i + 1))[None, :, None])
+            nz = ac != 0
+            bits = where(nz, ac_bits_closed_form(_runs(nz, 1), ac.abs()), 0)
+            bits_ps[:, i] = bits.sum(dim=(1, 2), dtype=torch.int32)
+            nz_ps[:, i] = nz.sum(dim=(1, 2), dtype=torch.int32)
+    return bits_ps, nz_ps
+
+
+def encode_frames_symbols(coefs, budgets, *, codec, kernel_sweep=True,
+                          emit=True, use_kernels=True):
+    """Quantize and symbolize a batch of frames at the reference's scales.
+
+    coefs: (B, NB, 64) int32 FDCT output in encode order; budgets: (B,)
+    int32 byte budgets. ``kernel_sweep`` is the counterpart of
+    psxavenc_tpu's ``pallas_sweep``: True runs the per-frame AC threshold
+    and the K6 scale search (``bs_cuda.select_scale``; its plain version
+    with ``use_kernels=False``), False the chunked early-exit sweep in
+    plain torch (the JAX package's XLA sweep). The two differ only on a
+    frame that fits no scale: the search reports ac_bits = nz = 0, the
+    sweep scale 1's totals.
+
+    Returns a dict of tensors (leading axis B): ``scale`` (64 = nothing
+    fits; the caller raises), ``codes``/``bits`` (B, NB, 65) int64 symbol
+    streams (DC, 63 ACs, EOB), ``nz_count`` and ``total_bits`` (without
+    the final 10-bit EOF). With ``emit=False``, instead of the symbols:
+    ``scale_idx``, the (B, 63, NB) int32 zigzag AC coefficients ``c``,
+    ``dc_bits`` and ``dc_code``.
+    """
+    from . import bs_cuda
+
+    B, nb, _ = coefs.shape
+    coefs = coefs.to(torch.int32)
+    dc_q = _clamp_coeff(_div_rounded(coefs[:, :, 0], 16))
+    dc_bits, dc_code = _dc_stage(dc_q, codec)
+    zz = torch.as_tensor(ZAGZIG[1:], dtype=torch.long, device=coefs.device)
+    c = coefs[:, :, zz].transpose(1, 2).contiguous()    # (B, 63, NB)
+    dc_total = dc_bits.sum(dim=1, dtype=torch.int32)
+
+    if not kernel_sweep:
+        bits_ps, nz_ps = _sweep(c, budgets, dc_total, nb)
+        finish = _select_and_emit if emit else _select_only
+        return finish(c, bits_ps, nz_ps, dc_bits, dc_code, dc_total,
+                      budgets, nb)
+
+    select = bs_cuda.select_scale if use_kernels else \
+        bs_cuda.select_scale_plain
+    scale, ac_bits, nz = select(c, ac_threshold(budgets, dc_total, nb))
+    scale_idx = where(scale <= 63, scale - 1, 0)
+    out = {"scale": scale, "nz_count": nz,
+           "total_bits": ac_bits + dc_total + 2 * nb + 10}
+    if not emit:
+        out.update(scale_idx=scale_idx, c=c, dc_bits=dc_bits,
+                   dc_code=dc_code)
+        return out
+    out["codes"], out["bits"] = emit_symbols_at(c, scale_idx, dc_bits,
+                                                dc_code)
+    return out
+
+
+def encode_frame_symbols(coefs, budget, *, codec, kernel_sweep=True):
+    """Single-frame wrapper over :func:`encode_frames_symbols`."""
+    budgets = torch.as_tensor(budget, dtype=torch.int32,
+                              device=coefs.device).reshape(1)
+    out = encode_frames_symbols(coefs[None], budgets, codec=codec,
+                                kernel_sweep=kernel_sweep)
+    return {k: v[0] for k, v in out.items()}
 
 
 def _blocks_encode_order(y, cr, cb, mb_x, mb_y):

@@ -1,4 +1,4 @@
-"""Wrappers and plain versions of the BS kernels K1-K3.
+"""Wrappers and plain versions of the BS kernels K1-K3, K6 and K7.
 
 Counterpart of ``psxavenc_tpu/ops/bs_pallas.py``. Each kernel has:
 
@@ -20,7 +20,8 @@ from . import bitpack as bitpack_ops
 
 TILE = 512  # coefficient lane padding, as psxavenc_tpu's select kernel
 
-LAUNCHES = {"select_scale_pix": 0, "dc_stage": 0, "emit_prep": 0}
+LAUNCHES = {"select_scale_pix": 0, "dc_stage": 0, "emit_prep": 0,
+            "select_scale": 0, "emit_pack": 0}
 
 
 def _on_cuda(t, name):
@@ -56,28 +57,21 @@ def _exact_totals(ca, s):
             nz.sum(dim=(1, 2), dtype=torch.int32))
 
 
-def select_scale_pix_plain(pix, thr_ac):
-    """FDCT + first-fit scale selection (plain torch).
-
-    pix: (B, 64, NB) int8 centered pixel rows; thr_ac: (B,) int32.
-    Returns (scale, ac_bits, nz, coefs): scale (B,) int32 is the first s in
-    1..63 whose exact AC bit total is <= thr_ac (64 if none, with ac_bits
-    and nz 0); coefs (B, 64, nb_pad) int16 signed zigzag rows, row 63 and
-    the pad lanes zero. The scales are walked in order; a frame leaves the
-    walk at its first fit.
-    """
-    B, P, nb = pix.shape
-    c = bs_ops.pixrows_to_coefs_zz(pix)                    # (B, 63, NB)
-    coefs = torch.zeros((B, 64, nb_padded(nb)), dtype=torch.int16,
-                        device=pix.device)
-    coefs[:, :63, :nb] = c.to(torch.int16)
-    ca = c.abs()
-    thr = thr_ac.to(device=pix.device, dtype=torch.int32)
-    scale = torch.full((B,), 64, dtype=torch.int32, device=pix.device)
-    bits = torch.zeros((B,), dtype=torch.int32, device=pix.device)
-    nz = torch.zeros((B,), dtype=torch.int32, device=pix.device)
-    active = torch.arange(B, device=pix.device)   # frames without a fit
+def _first_fit(ca, thr_ac):
+    """(scale, ac_bits, nz), each (B,) int32: the first s in 1..63 whose
+    exact AC bit total of |coefs| ``ca`` (B, 63, NB) is <= thr_ac (64 if
+    none, with ac_bits and nz 0). The scales are walked in order; a frame
+    leaves the walk at its first fit."""
+    B = ca.shape[0]
+    dev = ca.device
+    thr = thr_ac.to(device=dev, dtype=torch.int32)
+    scale = torch.full((B,), 64, dtype=torch.int32, device=dev)
+    bits = torch.zeros((B,), dtype=torch.int32, device=dev)
+    nz = torch.zeros((B,), dtype=torch.int32, device=dev)
+    active = torch.arange(B, device=dev)          # frames without a fit
     for s in range(1, 64):
+        if not active.numel():
+            break
         b_s, n_s = _exact_totals(ca[active], s)
         fit = b_s <= thr[active]
         done = active[fit]
@@ -85,9 +79,24 @@ def select_scale_pix_plain(pix, thr_ac):
         bits[done] = b_s[fit]
         nz[done] = n_s[fit]
         active = active[~fit]
-        if not active.numel():
-            break
-    return scale, bits, nz, coefs
+    return scale, bits, nz
+
+
+def select_scale_pix_plain(pix, thr_ac):
+    """FDCT + first-fit scale selection (plain torch).
+
+    pix: (B, 64, NB) int8 centered pixel rows; thr_ac: (B,) int32.
+    Returns (scale, ac_bits, nz, coefs): the selection of
+    :func:`select_scale_plain` on the FDCT, and the FDCT itself as coefs
+    (B, 64, nb_pad) int16 signed zigzag rows, row 63 and the pad lanes
+    zero.
+    """
+    B, P, nb = pix.shape
+    c = bs_ops.pixrows_to_coefs_zz(pix)                    # (B, 63, NB)
+    coefs = torch.zeros((B, 64, nb_padded(nb)), dtype=torch.int16,
+                        device=pix.device)
+    coefs[:, :63, :nb] = c.to(torch.int16)
+    return (*_first_fit(c.abs(), thr_ac), coefs)
 
 
 def select_scale_pix(pix, thr_ac):
@@ -111,6 +120,39 @@ def select_scale_pix(pix, thr_ac):
                   _build.ptr(thr), B, nb, nb_pad, _build.ptr(scale),
                   _build.ptr(bits), _build.ptr(nz), _build.ptr(coefs))
     return scale, bits, nz, coefs
+
+
+# ------------------------------------------------------------------- K6
+
+def select_scale_plain(c, thr_ac):
+    """First-fit scale selection from coefficients (plain torch).
+
+    c: (B, 63, NB) int32 zigzag AC coefficients; thr_ac: (B,) int32 (may
+    be negative: then nothing fits). Returns (scale, ac_bits, nz), each
+    (B,) int32: the first s in 1..63 whose exact AC bit total is <= thr_ac
+    (64 if none, with ac_bits and nz 0).
+    """
+    return _first_fit(c.to(torch.int32).abs(), thr_ac)
+
+
+def select_scale(c, thr_ac):
+    """K6 (``csrc/bs_select.cu``): see :func:`select_scale_plain`."""
+    if not _on_cuda(c, "select_scale"):
+        return select_scale_plain(c, thr_ac)
+    _require(c, torch.int32, 3, "select_scale c")
+    B, P, nb = c.shape
+    if P != 63:
+        raise ValueError("select_scale: c must be (B, 63, NB)")
+    thr = thr_ac.to(device=c.device, dtype=torch.int32).contiguous()
+    if thr.shape != (B,):
+        raise ValueError("select_scale: thr_ac must be (B,)")
+    scale = torch.empty((B,), dtype=torch.int32, device=c.device)
+    bits = torch.empty_like(scale)
+    nz = torch.empty_like(scale)
+    LAUNCHES["select_scale"] += 1
+    _build.launch("psx_select_scale", c, _build.ptr(c), _build.ptr(thr), B,
+                  nb, _build.ptr(scale), _build.ptr(bits), _build.ptr(nz))
+    return scale, bits, nz
 
 
 # ------------------------------------------------------------------- K2
@@ -160,21 +202,21 @@ def _place(acc, o, b, c):
             | torch.where(row == q + 1, lo[:, None, :], 0))
 
 
-def emit_prep_plain(coefs, scale, dc_code, dc_bits, *, eof):
-    """Winner emission + per-block packing + placement prep (plain torch).
+def _emit_windows(coefs, scale, dc_code, dc_bits):
+    """Per-block emission at the frame's scale (plain torch): DC, the
+    nonzero ACs' codes and EOB placed into (B, 8, NB) int64 MSB-first u32
+    windows; returns (windows, block_bits (B, NB) int64 including DC and
+    EOB). Bits past the 256th are cut; callers gate on block_bits.
 
-    coefs: (B, 64, nb_pad) int16 select-kernel coefficients; scale (B,) in
-    1..63; dc_code/dc_bits (B, NB). Returns (vals32 (B, NB+1, 9) int32 u32
-    bit patterns, e0 (B, NB+1) int32, block_bits (B, NB) int32,
-    total_bits (B,) int32), the EOF block at index NB. Blocks over 256
-    bits are cut; callers gate on block_bits.
+    coefs: (B, 64, nb_pad) int16 select-kernel coefficients or (B, 63, NB)
+    int32 zigzag AC coefficients; the true NB is the width of dc_code.
     """
     B = coefs.shape[0]
     nb = dc_code.shape[1]
     dev = coefs.device
     c = coefs[:, :63, :nb].to(torch.int32)
     qs = (bs_ops.quant_zz(dev)[None, :]
-          * scale.to(torch.int32)[:, None])[:, :, None]
+          * scale.to(device=dev, dtype=torch.int32)[:, None])[:, :, None]
     mag = bs_ops._div_rounded_fast(c.abs(), qs.expand_as(c))
     ac = torch.where(c < 0, -mag, mag).clamp(-0x200, 0x1FE)
     nz = ac != 0
@@ -192,20 +234,42 @@ def emit_prep_plain(coefs, scale, dc_code, dc_bits, *, eof):
         acc = _place(acc, offs[:, i], bits[:, i], code[:, i])
     two = torch.full_like(total, 2)
     acc = _place(acc, total, two, two)                 # EOB
-    block_bits = total + 2
+    return acc, total + 2
 
-    # The EOF block: a lone 10-bit code at the top of stream word 0.
-    eof_acc = torch.zeros((B, 8, 1), dtype=torch.int64, device=dev)
-    eof_acc[:, 0, 0] = eof << 22
-    acc = torch.cat([acc, eof_acc], dim=2)              # (B, 8, NB+1)
-    bb = torch.cat([block_bits, torch.full((B, 1), 10, dtype=torch.int64,
-                                           device=dev)], dim=1)
+
+def emit_prep_plain(coefs, scale, dc_code, dc_bits, *, eof):
+    """Winner emission + per-block packing + placement prep (plain torch).
+
+    coefs: (B, 64, nb_pad) int16 select-kernel coefficients; scale (B,) in
+    1..63; dc_code/dc_bits (B, NB). Returns (vals32 (B, NB+1, 9) int32 u32
+    bit patterns, e0 (B, NB+1) int32, block_bits (B, NB) int32,
+    total_bits (B,) int32), the EOF block at index NB. Blocks over 256
+    bits are cut; callers gate on block_bits.
+    """
+    streams, block_bits = emit_pack_plain(coefs, scale, dc_code, dc_bits)
+    streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
     goff = torch.cumsum(bb, dim=1) - bb
-    streams = torch.stack([acc >> 16, acc & 0xFFFF], dim=2).reshape(
-        B, 16, nb + 1).transpose(1, 2)
     vals32, e0 = bitpack_ops.streams_to_u32(streams, goff)
-    return (bitpack_ops.u32_to_i32(vals32), e0.to(torch.int32),
-            block_bits.to(torch.int32), bb.sum(dim=1).to(torch.int32))
+    return (bitpack_ops.u32_to_i32(vals32), e0.to(torch.int32), block_bits,
+            bb.sum(dim=1).to(torch.int32))
+
+
+def _emit_args(coefs, scale, dc_code, dc_bits, name):
+    """Checks the emission kernels' inputs; returns scale, dc_code and
+    dc_bits as contiguous int32 on the coefficients' device."""
+    B = coefs.shape[0]
+    nb = dc_code.shape[1]
+    if nb > coefs.shape[2]:
+        raise ValueError(f"{name}: coefs are narrower than NB")
+    dev = coefs.device
+    scale = scale.to(device=dev, dtype=torch.int32).contiguous()
+    dc_code = dc_code.to(device=dev, dtype=torch.int32).contiguous()
+    dc_bits = dc_bits.to(device=dev, dtype=torch.int32).contiguous()
+    if scale.shape != (B,) or dc_code.shape != (B, nb) \
+            or dc_bits.shape != (B, nb):
+        raise ValueError(f"{name}: expected scale (B,) and dc_code, "
+                         "dc_bits (B, NB)")
+    return scale, dc_code, dc_bits
 
 
 def emit_prep(coefs, scale, dc_code, dc_bits, *, eof):
@@ -214,17 +278,12 @@ def emit_prep(coefs, scale, dc_code, dc_bits, *, eof):
         return emit_prep_plain(coefs, scale, dc_code, dc_bits, eof=eof)
     _require(coefs, torch.int16, 3, "emit_prep coefs")
     B, P, nb_pad = coefs.shape
+    if P != 64:
+        raise ValueError("emit_prep: coefs must be (B, 64, nb_pad)")
+    scale, dc_code, dc_bits = _emit_args(coefs, scale, dc_code, dc_bits,
+                                         "emit_prep")
     nb = dc_code.shape[1]
-    if P != 64 or nb > nb_pad:
-        raise ValueError("emit_prep: coefs must be (B, 64, nb_pad >= NB)")
     dev = coefs.device
-    scale = scale.to(device=dev, dtype=torch.int32).contiguous()
-    dc_code = dc_code.to(device=dev, dtype=torch.int32).contiguous()
-    dc_bits = dc_bits.to(device=dev, dtype=torch.int32).contiguous()
-    if scale.shape != (B,) or dc_code.shape != (B, nb) \
-            or dc_bits.shape != (B, nb):
-        raise ValueError("emit_prep: expected scale (B,) and dc_code, "
-                         "dc_bits (B, NB)")
     vals32 = torch.empty((B, nb + 1, 9), dtype=torch.int32, device=dev)
     e0 = torch.empty((B, nb + 1), dtype=torch.int32, device=dev)
     block_bits = torch.empty((B, nb), dtype=torch.int32, device=dev)
@@ -235,3 +294,47 @@ def emit_prep(coefs, scale, dc_code, dc_bits, *, eof):
                   int(eof), _build.ptr(vals32), _build.ptr(e0),
                   _build.ptr(block_bits), _build.ptr(total))
     return vals32, e0, block_bits, total
+
+
+# ------------------------------------------------------------------- K7
+
+def emit_pack_plain(coefs, scale, dc_code, dc_bits):
+    """Winner emission + per-block packing (plain torch).
+
+    coefs: (B, 64, nb_pad) int16 select-kernel coefficients (row 63 and
+    the pad lanes are ignored) or (B, 63, NB) int32 zigzag AC
+    coefficients; scale (B,) in 1..63; dc_code/dc_bits (B, NB), whose
+    width is the true NB. Returns (streams (B, NB, 16) int32 u16 values,
+    word 2k = window k >> 16 and word 2k+1 = window k & 0xFFFF;
+    block_bits (B, NB) int32: DC + ACs + EOB). Blocks over 256 bits are
+    cut; callers gate on block_bits.
+    """
+    acc, block_bits = _emit_windows(coefs, scale, dc_code, dc_bits)
+    B, _, nb = acc.shape
+    streams = torch.stack([acc >> 16, acc & 0xFFFF], dim=2).reshape(
+        B, 16, nb).transpose(1, 2)
+    return streams.to(torch.int32).contiguous(), block_bits.to(torch.int32)
+
+
+def emit_pack(coefs, scale, dc_code, dc_bits):
+    """K7 (``csrc/bs_emit.cu``): see :func:`emit_pack_plain`."""
+    if not _on_cuda(coefs, "emit_pack"):
+        return emit_pack_plain(coefs, scale, dc_code, dc_bits)
+    form = (coefs.dtype, coefs.shape[1] if coefs.ndim == 3 else None)
+    if form not in ((torch.int16, 64), (torch.int32, 63)):
+        raise ValueError("emit_pack: coefs must be (B, 64, nb_pad) int16 or "
+                         f"(B, 63, NB) int32, got {coefs.dtype} "
+                         f"{tuple(coefs.shape)}")
+    _require(coefs, coefs.dtype, 3, "emit_pack coefs")
+    scale, dc_code, dc_bits = _emit_args(coefs, scale, dc_code, dc_bits,
+                                         "emit_pack")
+    B, rows, stride = coefs.shape
+    nb = dc_code.shape[1]
+    streams = torch.empty((B, nb, 16), dtype=torch.int32, device=coefs.device)
+    block_bits = torch.empty((B, nb), dtype=torch.int32, device=coefs.device)
+    LAUNCHES["emit_pack"] += 1
+    _build.launch("psx_emit_pack", coefs, _build.ptr(coefs),
+                  int(coefs.dtype == torch.int16), B, rows, stride, nb,
+                  _build.ptr(scale), _build.ptr(dc_code), _build.ptr(dc_bits),
+                  _build.ptr(streams), _build.ptr(block_bits))
+    return streams, block_bits

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on a card: each equals its plain version (the
-BS kernels at the video path's shapes, K5 on a ragged stream batch), and
-the encoder's bytes equal the native C++ tier.
+BS and block-stream kernels at the video path's shapes, K5 on a ragged
+stream batch), and the encoder's bytes equal the native C++ tier.
 
 Skipped without a CUDA device. This file imports no JAX, so it runs on a
 machine that has none:
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from psxavenc_tpu_torch.ops import _build
 from psxavenc_tpu_torch.ops import adpcm_cuda
+from psxavenc_tpu_torch.ops import bitpack as tbp
 from psxavenc_tpu_torch.ops import bitpack_cuda
 from psxavenc_tpu_torch.ops import bs as tbs
 from psxavenc_tpu_torch.ops import bs_cuda
@@ -50,7 +52,22 @@ def _cases(dev):
                        dtype=torch.int32, device=dev)
     emit = _emit_inputs(rng, 3, dev, [2, 31, 63])
     vals32, e0, _, _ = bs_cuda.emit_prep_plain(*emit, eof=0x1FF)
+    c63 = emit[0][:, :63, :NB].to(torch.int32).contiguous()
+    streams, goff, total = _streams(*bs_cuda.emit_pack_plain(*emit))
+    codes, bits = tbs.emit_symbols_at(c63, emit[1] - 1, emit[3], emit[2])
     return {
+        "select_scale": (bs_cuda.select_scale, bs_cuda.select_scale_plain,
+                         (tbs.pixrows_to_coefs_zz(pix), thr), {}),
+        "emit_pack_coefs63": (bs_cuda.emit_pack, bs_cuda.emit_pack_plain,
+                              [c63, *emit[1:]], {}),
+        "emit_pack_select64": (bs_cuda.emit_pack, bs_cuda.emit_pack_plain,
+                               emit, {}),
+        "place_streams": (bitpack_cuda.place_streams,
+                          bitpack_cuda.place_streams_plain,
+                          (streams, goff, total), {"capacity_words": 9067}),
+        "pack_block_streams": (bitpack_cuda.pack_block_streams,
+                               bitpack_cuda.pack_block_streams_plain,
+                               (codes, bits), {}),
         "select_scale_pix": (bs_cuda.select_scale_pix,
                              bs_cuda.select_scale_pix_plain, (pix, thr), {}),
         "dc_stage": (bs_cuda.dc_stage, bs_cuda.dc_stage_plain,
@@ -63,8 +80,18 @@ def _cases(dev):
     }
 
 
-@pytest.mark.parametrize("name", ["select_scale_pix", "dc_stage",
-                                  "emit_prep", "place_vals"])
+def _streams(streams, block_bits):
+    """Streams with the EOF block, their int32 global offsets and
+    totals."""
+    streams, bb = tbp.with_eof_block(streams, block_bits, 0x1FF)
+    goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+    return streams, goff, goff[:, -1] + bb[:, -1]
+
+
+@pytest.mark.parametrize("name", [
+    "select_scale_pix", "dc_stage", "emit_prep", "place_vals",
+    "select_scale", "emit_pack_coefs63", "emit_pack_select64",
+    "place_streams", "pack_block_streams"])
 def test_kernel_matches_plain(dev, name):
     kernel, plain, args, kw = _cases(dev)[name]
     got = kernel(*args, **kw)
@@ -75,6 +102,26 @@ def test_kernel_matches_plain(dev, name):
     for g, w in zip(got, want):
         assert g.is_cuda and g.shape == w.shape
         assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+
+
+def test_place_streams_writes_only_its_rows(dev):
+    """K9 on frames whose streams run far past the capacity (scale 2):
+    the kernel drops those words and leaves a guard row after the output
+    untouched."""
+    rng = np.random.default_rng(9)
+    streams, goff, _ = _streams(*bs_cuda.emit_pack_plain(
+        *_emit_inputs(rng, 3, dev, [2, 2, 40])))
+    B, nbe, _ = streams.shape
+    cap32 = 4534
+    out = torch.zeros((B + 1, cap32), dtype=torch.int32, device=dev)
+    _build.launch("psx_place_streams", streams, _build.ptr(streams),
+                  _build.ptr(goff), B, nbe, cap32, _build.ptr(out))
+    torch.cuda.synchronize()
+    assert int(goff[0, -1]) > 32 * cap32
+    assert not out[B].any()
+    want = bitpack_cuda.place_streams_plain(streams, goff, None,
+                                            capacity_words=2 * cap32)
+    assert torch.equal(tbp.u16_values(out[:B], 2 * cap32), want)
 
 
 @pytest.mark.parametrize("filter_count,shift_range",

@@ -5,8 +5,9 @@ on the card with ``psxavenc_tpu_torch/data/smoke_digests.json``. This file
 rebuilds each input from chip_smoke.py's recipes, encodes it with the JAX
 package on the CPU (``psxavenc_tpu.cli.main``, and for the 256-frame
 buffers ``psxavenc_tpu``'s BsFrameEncoder, whose CPU tier is the native
-encoder that tier-1 holds equal to the JAX pipeline) and asserts the
-committed digests, so they cannot go stale. It also holds the port's
+encoder that tier-1 holds equal to the JAX pipeline; for the symbols
+digest ``psxavenc_tpu.api.bs_encode_frames`` with the XLA sweep) and
+asserts the committed digests, so they cannot go stale. It also holds the port's
 ``utils.synth`` to the JAX package's for those recipes.
 
 Regenerate the digests file after a change to a recipe:
@@ -28,6 +29,8 @@ if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from psxavenc_tpu import api as japi  # noqa: E402
 from psxavenc_tpu import cli as jcli  # noqa: E402
 from psxavenc_tpu.models.bs_video import BsFrameEncoder  # noqa: E402
 from psxavenc_tpu.utils import synth as jsynth  # noqa: E402
@@ -35,7 +38,7 @@ from psxavenc_tpu_torch.utils import synth as tsynth  # noqa: E402
 
 CLI_CASES = cs.VIDEO_CLI_CASES + cs.AV_CLI_CASES
 KEYS = [f"phase4_{label}" for _, label in cs.PHASE4_CODECS] + \
-    [key for key, _, _ in CLI_CASES]
+    [key for key, _, _ in CLI_CASES] + ["symbols_v2"]
 
 
 def _phase4_digest(codec):
@@ -48,6 +51,14 @@ def _phase4_digest(codec):
     return cs.sha256(b"".join(buf.tobytes() for buf, _ in out))
 
 
+def _symbols_digest():
+    frames = cs.symbols_frames(np, tsynth)
+    out = japi.bs_encode_frames(
+        jnp.asarray(frames), jnp.full((len(frames),), cs.BUDGET, jnp.int32),
+        codec=0, width=cs.W, height=cs.H, pallas_sweep=False)
+    return cs.symbols_digest(np, {k: np.asarray(v) for k, v in out.items()})
+
+
 def _cli_digest(inputs, key, argv, src, out_dir):
     out = os.path.join(out_dir, cs.out_name(key))
     assert jcli.main(["-q", *argv, os.path.join(inputs, src), out]) == 0
@@ -56,6 +67,8 @@ def _cli_digest(inputs, key, argv, src, out_dir):
 
 def compute(key, inputs, out_dir):
     """The JAX package's digest of smoke output ``key``."""
+    if key == "symbols_v2":
+        return _symbols_digest()
     for codec, label in cs.PHASE4_CODECS:
         if key == f"phase4_{label}":
             return _phase4_digest(codec)
