@@ -39,7 +39,20 @@ Phases, one or more lines each:
    api.bs_encode_frames_packed with the kernel sweep and without on
    phase 4's 256 frames, each equal to fused_mxu; api.bs_encode_frames on
    128 frames, flat-packed equal to fused_mxu and its first frames equal
-   to the JAX package's symbols digest; K6, K7, K9 and K10 launched.
+   to the JAX package's symbols digest; K6, K7, K8 (fused_gather), K9
+   and K10 launched;
+11. K8 and the multi-file entry points: K8 against its plain version and
+   against K4 on K3's placement prep for phase 10's 128 frames (the
+   unfittable frame included), timed as in phase 3; the batch runner
+   (psxavenc_tpu_torch.batch) on a job list of real sizes (six 2-4 s
+   44,100 Hz vag files, a 10 s stereo 37,800 Hz xa, a 3-channel spui, the
+   40-frame 320x240 strv and sbs, the flagship strcd), grouped and serial,
+   every file equal between the two runs and to its digest, K1, K3, K4
+   and K5 launched; its streaming tier's chunk batcher on three vag files
+   and the xa with small chunks, equal to the digests, with chunk rounds
+   that shared a device call; libpsxav's xa_encode_simple on the 10 s
+   track and spu_encode_simple with a loop point, equal to their
+   digests.
 
 The digests (psxavenc_tpu_torch/data/smoke_digests.json) are the JAX
 package's outputs for the same inputs; tests/test_torch_smoke_refs.py
@@ -78,8 +91,8 @@ ADPCM_CHECK_UNITS = 64
 ADPCM_VARIANTS = ((5, 12), (4, 12), (4, 8))
 SYMBOLS_FRAMES = 8                   # frames of the symbols_v2 digest
 UNFIT_FRAME, UNFIT_BUDGET = 5, 200   # phase 10's unfittable frame
-PACKERS = ("fused_mxu", "fused", "fused_pallas", "blocks", "blocks_pallas",
-           "flat")
+PACKERS = ("fused_mxu", "fused", "fused_pallas", "fused_gather", "blocks",
+           "blocks_pallas", "flat")
 
 # (wrapper name, source, TPU kernel it replaces)
 KERNELS = [
@@ -91,6 +104,8 @@ KERNELS = [
      "psxavenc_tpu/ops/bs_pallas.py:891"),
     ("place_vals", "psxavenc_tpu_torch/csrc/bitpack_place.cu",
      "psxavenc_tpu/ops/bitpack_pallas.py:315"),
+    ("place_vals_gather", "psxavenc_tpu_torch/csrc/bitpack_gather.cu",
+     "psxavenc_tpu/ops/bitpack_pallas.py:400"),
     ("adpcm_encode_units", "psxavenc_tpu_torch/csrc/adpcm_units.cu",
      "psxavenc_tpu/ops/adpcm_pallas.py:194"),
     ("select_scale", "psxavenc_tpu_torch/csrc/bs_select.cu",
@@ -116,7 +131,7 @@ OPS_FDCT_BLOCK = 900      # K1: two 8x8 islow passes + descale + zigzag
 OPS_SCALE_EVAL = 20       # K1: quantize, run, closed-form bits, per coef
 OPS_DC_BLOCK = 12         # K2: difference, wrap, size, code
 OPS_EMIT_COEF = 24        # K3: quantize, run, code, window placement
-OPS_PLACE_WORD = 4        # K4, K9: test, offset, bound check, OR
+OPS_PLACE_WORD = 4        # K4, K8, K9: test, offset, bound check, OR
 OPS_FUNNEL_WORD = 6       # K9: shift, carry shift, mask, OR, LE pairing
 OPS_PACK_SYMBOL = 24      # K10: length mask, window index and shifts,
                           #     two-window OR, per symbol slot
@@ -169,6 +184,26 @@ AV_CLI_CASES = [
                       "-c", "2"], "flagship.avi"),
 ]
 PHASE4_CODECS = ((0, "v2"), (1, "v3"), (2, "v3dc"))
+# Phase 11's batch job list: new audio inputs with their own digests, and
+# the video and flagship CLI cases, whose digests the batch outputs must
+# equal too.
+BATCH_VAG_SECONDS = (2.0, 2.4, 2.8, 3.2, 3.6, 4.0)
+BATCH_AUDIO_CASES = [
+    (f"batch_vag{k}", ["-t", "vag", "-f", "44100"], f"vag{k}.wav")
+    for k in range(len(BATCH_VAG_SECONDS))] + [
+    ("batch_xa_10s", ["-t", "xa", "-f", "37800", "-c", "2", "-b", "4"],
+     "xa10s.wav"),
+    ("batch_spui_3ch", ["-t", "spui", "-f", "44100", "-c", "3"],
+     "spui3.wav"),
+]
+BATCH_CASES = BATCH_AUDIO_CASES + VIDEO_CLI_CASES + [
+    c for c in AV_CLI_CASES if c[0] == "strcd_flagship"]
+STREAM_CASES = BATCH_AUDIO_CASES[:3] + [
+    c for c in BATCH_AUDIO_CASES if c[0] == "batch_xa_10s"]
+STREAM_SPU_CHUNK_BLOCKS = 1024       # 3-5 chunk rounds per vag file
+STREAM_XA_CHUNK_SECTORS = 32         # 6 chunk rounds for the xa
+LIBPSXAV_KEYS = ("libpsxav_xa_simple", "libpsxav_spu_simple_loop")
+LIBPSXAV_LOOP_START = 30000
 
 
 def out_name(key):
@@ -200,6 +235,34 @@ def write_inputs(synth, d):
     synth.write_wav(j(d, "stereo44100.wav"),
                     synth.rand_pcm(88200, channels=2, seed=25), 44100,
                     channels=2)
+    for k, secs in enumerate(BATCH_VAG_SECONDS):
+        synth.write_wav(j(d, f"vag{k}.wav"), batch_vag_pcm(synth, k), 44100)
+    synth.write_wav(j(d, "xa10s.wav"), xa10s_pcm(synth), 37800, channels=2)
+    synth.write_wav(j(d, "spui3.wav"),
+                    synth.rand_pcm(88200, channels=3, seed=37), 44100,
+                    channels=3)
+
+
+def batch_vag_pcm(synth, k):
+    return synth.rand_pcm(int(44100 * BATCH_VAG_SECONDS[k]), seed=30 + k)
+
+
+def xa10s_pcm(synth):
+    """The 10 s stereo 37,800 Hz track: (378000, 2) int16."""
+    return synth.rand_pcm(378000, channels=2, seed=36)
+
+
+def libpsxav_outputs(lp, synth, **kw):
+    """The libpsxav outputs held to digests: xa_encode_simple on the 10 s
+    track, spu_encode_simple on the first vag file's PCM with a loop
+    point. ``lp`` is a libpsxav module; ``kw`` goes to both calls."""
+    pcm = xa10s_pcm(synth)
+    xa = lp.xa_encode_simple(lp.XaSettings(stereo=True, bits_per_sample=4,
+                                           frequency=37800),
+                             pcm.reshape(-1), len(pcm), **kw)
+    spu = lp.spu_encode_simple(batch_vag_pcm(synth, 0), LIBPSXAV_LOOP_START,
+                               **kw)
+    return dict(zip(LIBPSXAV_KEYS, (xa, spu)))
 
 
 def nv21(np, planes):
@@ -393,8 +456,8 @@ def check_kernels(torch, np, synth, card):
     dc_q = bs_ops.dc_quant_from_pixrows(pix)
     results = {}
 
-    def check(*args):
-        return compare(torch, results, 3, *args, card)
+    def check(*args, **kw):
+        return compare(torch, results, 3, *args, card, **kw)
 
     for codec, label in ((bs_ops.BS_V2, "v2"), (bs_ops.BS_V3DC, "v3dc")):
         if codec == bs_ops.BS_V2:
@@ -420,13 +483,37 @@ def check_kernels(torch, np, synth, card):
                                             eof=eof),
             (coefs, sidx, dc_code, dc_bits),
             lambda out: B * nb * 63 * OPS_EMIT_COEF)
+        lib_fn, lib_words = scatter_add_call(torch, vals32, e0)
         check("place_vals", label,
               lambda: bitpack_cuda.place_vals(vals32, e0,
                                               capacity_words=CAP_WORDS),
               lambda: bitpack_cuda.place_vals_plain(
                   vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-              lambda out: vals32.numel() * OPS_PLACE_WORD)
+              lambda out: vals32.numel() * OPS_PLACE_WORD,
+              library_fn=lib_fn)
+        if not torch.equal(lib_words, bitpack_cuda.place_vals(
+                vals32, e0, capacity_words=CAP_WORDS)):
+            raise AssertionError("one scatter_add_ on prepared indices "
+                                 "differs from K4")
     return results
+
+
+def scatter_add_call(torch, vals32, e0):
+    """One scatter_add_ computes K4's, K8's and K9's placement from the
+    placed u32 words (int32 bit patterns) and their prepared, clipped
+    indices (a spare column takes the dropped words): the words are
+    bit-disjoint, so add == or. Returns (the call, for timing; the (B,
+    cap32) words of one call on a zeroed output)."""
+    cap32 = (CAP_WORDS + 1) // 2
+    b = vals32.shape[0]
+    vals = vals32.to(torch.int32).reshape(b, -1)
+    idx = (e0.to(torch.int64)[..., None]
+           + torch.arange(9, device=e0.device)).clamp(max=cap32).reshape(
+        b, -1)
+    out = torch.zeros((b, cap32 + 1), dtype=torch.int32, device=e0.device)
+    out.scatter_add_(1, idx, vals)
+    words = out[:, :cap32].clone()
+    return (lambda: out.scatter_add_(1, idx, vals)), words
 
 
 def reset(counters):
@@ -760,18 +847,11 @@ def block_stream_kernels(torch, np, synth, card):
     goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
     total = goff[:, -1] + bb[:, -1]
     nbe = nb + 1
-    # One scatter_add_ on the placed u32 words and their prepared indices
-    # (a spare column takes the dropped words) computes K9's words: the
-    # contributions are bit-disjoint, so add == or.
-    cap32 = (CAP_WORDS + 1) // 2
     vals32, e0 = bitpack_ops.streams_to_u32(streams, goff)
-    vals = bitpack_ops.u32_to_i32(vals32).reshape(B, -1)
-    idx = (e0[..., None] + torch.arange(9, device=dev)).clamp(
-        max=cap32).reshape(B, -1)
-    lib_out = torch.zeros((B, cap32 + 1), dtype=torch.int32, device=dev)
-    lib_out.scatter_add_(1, idx, vals)
+    lib_fn, lib_words = scatter_add_call(
+        torch, bitpack_ops.u32_to_i32(vals32), e0)
     same = torch.equal(
-        bitpack_ops.u16_values(lib_out[:, :cap32].contiguous(), CAP_WORDS),
+        bitpack_ops.u16_values(lib_words, CAP_WORDS),
         bitpack_cuda.place_streams(streams, goff, total,
                                    capacity_words=CAP_WORDS))
     say(f"[10] place_streams: one scatter_add_ on the prepared (words, "
@@ -782,8 +862,7 @@ def block_stream_kernels(torch, np, synth, card):
               streams, goff, total, capacity_words=CAP_WORDS),
           (streams, goff),
           lambda out: B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD),
-          library_fn=(lambda: lib_out.scatter_add_(1, idx, vals)) if same
-          else None)
+          library_fn=lib_fn if same else None)
 
     codes, bits = bs_ops.emit_symbols_at(c, sidx - 1, dc_bits, dc_code)
     codes, bits = api._with_eof_symbols(codes, bits, 0x1FF)
@@ -793,7 +872,7 @@ def block_stream_kernels(torch, np, synth, card):
           lambda: bitpack_cuda.pack_block_streams(codes, bits),
           lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
           (codes, bits), lambda out: codes.numel() * OPS_PACK_SYMBOL)
-    return results
+    return results, (c64, sidx, dc_code, dc_bits)
 
 
 def words_equal(torch, got, ref, total_bits):
@@ -862,8 +941,8 @@ def symbols_and_packers(torch, np, synth, digests, card):
     say(f"[10] bs_encode_frames on {B} frames: flat-packed equal to "
         f"fused_mxu; the first {SYMBOLS_FRAMES} frames equal the JAX "
         f"package's digest; launches in phase 10's paths: {launches}")
-    for name in ("select_scale", "emit_pack", "place_streams",
-                 "pack_block_streams"):
+    for name in ("select_scale", "emit_pack", "place_vals_gather",
+                 "place_streams", "pack_block_streams"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in phase 10")
 
@@ -876,6 +955,187 @@ def symbols_and_packers(torch, np, synth, digests, card):
                 f"per {B}-frame batch on the device (CUDA events; "
                 f"kernels + glue) on {card}")
     return launches
+
+
+def gather_kernel(torch, k3_inputs, card):
+    """Phase 11, K8: K8 == its plain version and == K4 on K3's placement
+    prep for phase 10's 128 frames (frame 5 unfittable: its offsets run
+    past cap32). Returns K8's row of the kernel table."""
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+
+    vals32, e0, _, _ = bs_cuda.emit_prep(*k3_inputs, eof=0x1FF)
+    results = {}
+    lib_fn, lib_words = scatter_add_call(torch, vals32, e0)
+    got = compare(torch, results, 11, "place_vals_gather",
+                  "(K3's prep of phase 10's frames)",
+                  lambda: bitpack_cuda.place_vals_gather(
+                      vals32, e0, capacity_words=CAP_WORDS),
+                  lambda: bitpack_cuda.place_vals_gather_plain(
+                      vals32, e0, capacity_words=CAP_WORDS),
+                  (vals32, e0), lambda out: vals32.numel() * OPS_PLACE_WORD,
+                  card, library_fn=lib_fn)
+    k4 = bitpack_cuda.place_vals(vals32, e0, capacity_words=CAP_WORDS)
+    past = int(e0[UNFIT_FRAME, -1]) - (CAP_WORDS + 1) // 2
+    if not (torch.equal(got, k4) and torch.equal(got, lib_words)):
+        raise AssertionError("K8 differs from K4 or from one scatter_add_")
+    say(f"[11] place_vals_gather: equal to K4 and to one scatter_add_ on "
+        f"{B} frames; the unfittable frame's last block starts {past} u32 "
+        f"words past cap32 (its words there are dropped)")
+    if past <= 0:
+        raise AssertionError("phase 11: the unfittable frame fits its "
+                             "capacity")
+    return results["place_vals_gather"]
+
+
+def _job(argv, src, key, ins, out_dir):
+    return ["-q", *argv, os.path.join(ins, src),
+            os.path.join(out_dir, out_name(key))]
+
+
+def _check_outputs(cases, out_dir, digests, what):
+    for key, _, _ in cases:
+        if file_digest(os.path.join(out_dir, out_name(key))) != digests[key]:
+            raise AssertionError(f"{what}: {key} differs from the JAX "
+                                 "package's digest")
+
+
+def batch_phase(torch, digests, tmp, card):
+    """Phase 11, the batch runner: BATCH_CASES grouped and serial on the
+    card. Returns the launch counts of the grouped run."""
+    import contextlib
+    import io
+
+    from psxavenc_tpu_torch import batch
+    from psxavenc_tpu_torch.ops import adpcm_cuda, bitpack_cuda, bs_cuda
+
+    dev = torch.device("cuda", 0)
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, adpcm_cuda.LAUNCHES)
+    secs = {}
+    launches = None
+    for mode, group in (("grouped", True), ("serial", False)):
+        out_dir = os.path.join(tmp, f"batch_{mode}")
+        os.makedirs(out_dir)
+        jobs = [_job(argv, src, key, tmp, out_dir)
+                for key, argv, src in BATCH_CASES]
+        err = io.StringIO()
+        reset(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rcs = batch.run_jobs(jobs, group=group, device=dev)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+        if launches is None:
+            launches = {k: v for c in counters for k, v in c.items()}
+            for line in err.getvalue().splitlines():
+                if line.startswith("[batch]"):
+                    say(f"[11] {line}")
+        if rcs != [0] * len(jobs):
+            raise AssertionError(f"batch ({mode}) exit codes {rcs}: "
+                                 f"{err.getvalue()[-2000:]}")
+        _check_outputs(BATCH_CASES, out_dir, digests, f"batch ({mode})")
+    for key, _, _ in BATCH_CASES:
+        a, b = (open(os.path.join(tmp, f"batch_{m}", out_name(key)),
+                     "rb").read() for m in ("grouped", "serial"))
+        if a != b:
+            raise AssertionError(f"batch: {key} grouped != serial")
+    say(f"[11] batch runner, {len(BATCH_CASES)} jobs: grouped and serial "
+        f"outputs equal each other and the JAX package's digests; wall "
+        f"time grouped {secs['grouped']:.3f} s, serial {secs['serial']:.3f} "
+        f"s (in process, inputs on the host); launches in the grouped run "
+        f"{launches} on {card}")
+    for name in ("select_scale_pix", "emit_prep", "place_vals",
+                 "adpcm_encode_units"):
+        if not launches.get(name):
+            raise AssertionError(f"batch: kernel {name} never launched")
+    return launches
+
+
+def streaming_phase(torch, digests, tmp, card):
+    """Phase 11, the streaming tier's device path: STREAM_CASES run
+    concurrently through batch._run_streaming_audio with small chunks,
+    each round of chunks one shared K5 launch. The jobs are opened with
+    the whole-file ingest: the streaming ingest needs the FFmpeg
+    extension, which a host without FFmpeg's libraries does not build;
+    the chunk feeds and the batcher are the same either way."""
+    import contextlib
+    import io
+
+    from psxavenc_tpu_torch import batch, cli
+    from psxavenc_tpu_torch import cli_args as ca
+    from psxavenc_tpu_torch.containers import vag as vagmod
+    from psxavenc_tpu_torch.containers import xa as xamod
+    from psxavenc_tpu_torch.io import ingest
+
+    dev = torch.device("cuda", 0)
+    out_dir = os.path.join(tmp, "streaming")
+    os.makedirs(out_dir)
+    plan = []
+    for k, (key, argv, src) in enumerate(STREAM_CASES):
+        args = ca.Args()
+        if not ca.parse_args(args, _job(argv, src, key, tmp, out_dir)):
+            raise AssertionError(f"streaming: bad arguments for {key}")
+        plan.append((k, args, ingest.open_av_data(
+            args, cli._DECODER_FLAGS[args.format])))
+    rcs = [None] * len(plan)
+    saved = vagmod.SPU_CHUNK_BLOCKS, xamod.AUDIO_CHUNK_SECTORS_SOLO
+    vagmod.SPU_CHUNK_BLOCKS = STREAM_SPU_CHUNK_BLOCKS
+    xamod.AUDIO_CHUNK_SECTORS_SOLO = STREAM_XA_CHUNK_SECTORS
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            batch._run_streaming_audio(plan, rcs, dev)
+    finally:
+        vagmod.SPU_CHUNK_BLOCKS, xamod.AUDIO_CHUNK_SECTORS_SOLO = saved
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rcs != [0] * len(plan):
+        raise AssertionError(f"streaming: exit codes {rcs}: "
+                             f"{err.getvalue()[-2000:]}")
+    _check_outputs(STREAM_CASES, out_dir, digests, "streaming")
+    line = [ln for ln in err.getvalue().splitlines()
+            if "shared a device call" in ln]
+    if not line:
+        raise AssertionError("streaming: no chunk round shared a device "
+                             "call")
+    say(f"[11] streaming tier, {len(plan)} jobs in {secs:.3f} s: equal to "
+        f"the digests; {line[0]} on {card}")
+
+
+def libpsxav_phase(digests, synth, card):
+    """Phase 11, libpsxav on the card == its digests."""
+    from psxavenc_tpu_torch import libpsxav
+
+    t0 = time.perf_counter()
+    outs = libpsxav_outputs(libpsxav, synth, device="cuda")
+    secs = time.perf_counter() - t0
+    for key, data in outs.items():
+        if sha256(data) != digests[key]:
+            raise AssertionError(f"libpsxav: {key} differs from the JAX "
+                                 "package's digest")
+    say(f"[11] libpsxav xa_encode_simple (10 s stereo, "
+        f"{len(outs[LIBPSXAV_KEYS[0]])} bytes) and spu_encode_simple (loop "
+        f"at {LIBPSXAV_LOOP_START}) equal the JAX package's digests "
+        f"({secs:.3f} s) on {card}")
+
+
+def multi_file(torch, digests, synth, tmp, card):
+    """Phase 11's paths: batch runner, streaming tier, libpsxav. Returns
+    the launch counts of their run."""
+    from psxavenc_tpu_torch.ops import adpcm_cuda, bitpack_cuda, bs_cuda
+
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, adpcm_cuda.LAUNCHES)
+    grouped = batch_phase(torch, digests, tmp, card)
+    reset(counters)
+    streaming_phase(torch, digests, tmp, card)
+    libpsxav_phase(digests, synth, card)
+    total = dict(grouped)
+    for c in counters:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    say(f"[11] launches in phase 11's paths (the grouped batch run, the "
+        f"streaming tier, libpsxav): {total}")
+    return total
 
 
 def main():
@@ -929,12 +1189,17 @@ def main():
         adpcm_batch(torch, full, ref, card)
         del full, ref
         av = av_path(torch, digests, tmp, card, out_dir)
-    rows.update(block_stream_kernels(torch, np, synth, card))
-    blocks = symbols_and_packers(torch, np, synth, digests, card)
+        k10_rows, k3_inputs = block_stream_kernels(torch, np, synth, card)
+        rows.update(k10_rows)
+        blocks = symbols_and_packers(torch, np, synth, digests, card)
+        rows["place_vals_gather"] = gather_kernel(torch, k3_inputs, card)
+        del k3_inputs
+        multi = multi_file(torch, digests, synth, tmp, card)
 
     kernels = []
     for name, source, replaces in KERNELS:
-        launches = sum(path.get(name, 0) for path in (video, av, blocks))
+        launches = sum(path.get(name, 0)
+                       for path in (video, av, blocks, multi))
         if launches <= 0:
             raise AssertionError(f"kernel {name} launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": source,

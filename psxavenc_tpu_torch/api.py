@@ -8,9 +8,9 @@ Counterpart of ``psxavenc_tpu.api``:
   coefficients (glue) -> scale selection (K6, or the plain sweep) ->
   (B, NB, 65) symbol tensors;
 - ``bs_encode_frames_packed``: pixels in, packed bitstream words out,
-  through any of psxavenc_tpu's packers but ``fused_gather`` (see its
-  docstring for the kernels each runs). The default, ``fused_mxu`` with
-  the kernel sweep, is the path psxavenc_tpu runs on its accelerator:
+  through any of psxavenc_tpu's packers (see its docstring for the
+  kernels each runs). The default, ``fused_mxu`` with the kernel sweep,
+  is the path psxavenc_tpu runs on its accelerator:
 
     NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
     -> AC fit threshold -> FDCT + scale search (K1) -> emission +
@@ -95,6 +95,7 @@ class _Stages:
             self.emit_prep = bs_cuda.emit_prep
             self.emit_pack = bs_cuda.emit_pack
             self.place = bitpack_cuda.place_vals
+            self.place_gather = bitpack_cuda.place_vals_gather
             self.place_streams = bitpack_cuda.place_streams
         else:
             self.dc_stage = bs_cuda.dc_stage_plain
@@ -102,6 +103,7 @@ class _Stages:
             self.emit_prep = bs_cuda.emit_prep_plain
             self.emit_pack = bs_cuda.emit_pack_plain
             self.place = bitpack_cuda.place_vals_plain
+            self.place_gather = bitpack_cuda.place_vals_gather_plain
             self.place_streams = bitpack_cuda.place_streams_plain
 
 
@@ -186,13 +188,14 @@ def _select_pixels(frames, budgets, codec, width, height, st):
 
 def _fused_words(sel, packer, prep, eof, capacity_words, st):
     """The fused packers after selection: emission and placement (with
-    ``prep``, K3's placement prep and K4; else per-block streams), then
-    the overflow path for frames with a block over the 256-bit window.
-    Returns (B, capacity_words) int16 words."""
+    ``prep``, K3's placement prep and K4, or K8 for ``fused_gather``; else
+    per-block streams), then the overflow path for frames with a block
+    over the 256-bit window. Returns (B, capacity_words) int16 words."""
     args = (sel["c"], sel["scale_idx"] + 1, sel["dc_code"], sel["dc_bits"])
     if prep:
         vals32, e0, block_bits, _ = st.emit_prep(*args, eof=eof)
-        out32 = st.place(vals32, e0, capacity_words=capacity_words)
+        place = st.place_gather if packer == "fused_gather" else st.place
+        out32 = place(vals32, e0, capacity_words=capacity_words)
         words = bitpack_ops.words_u16(out32, capacity_words)
     else:
         streams, block_bits = st.emit_pack(*args)
@@ -203,6 +206,9 @@ def _fused_words(sel, packer, prep, eof, capacity_words, st):
             place = bitpack_cuda.place_streams_plain    # the XLA stage
         elif packer == "fused_pallas":
             place = st.place_streams
+        elif packer == "fused_gather":
+            place = functools.partial(bitpack_cuda.place_streams_gather,
+                                      place=st.place_gather)
         else:
             place = functools.partial(bitpack_cuda.place_streams_mxu,
                                       place=st.place)
@@ -244,15 +250,14 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
 
     - ``fused_mxu``: K3 emission + placement prep, then K4 placement; with
       ``kernel_sweep=False``, K7 emission, then ``streams_to_u32`` + K4;
+    - ``fused_gather``: as ``fused_mxu`` with K8 in place of K4;
     - ``fused``: K7 emission, then the plain stream placement
       (psxavenc_tpu's XLA ``_place_streams``);
     - ``fused_pallas``: K7 emission, then K9 placement;
     - ``blocks``: K6 (or the sweep), plain symbol emission, then the
       plain per-block packer (``_pack_block_streams`` + ``_place_streams``);
     - ``blocks_pallas``: as ``blocks`` with K10 packing and K9 placement;
-    - ``flat``: K6 (or the sweep), plain symbol emission, ``pack_bits``;
-    - ``fused_gather`` is not ported yet (its placement kernel K8 is queued
-      in ROADMAP.md) and raises NotImplementedError.
+    - ``flat``: K6 (or the sweep), plain symbol emission, ``pack_bits``.
 
     The ``fused*`` packers with the kernel sweep run K1 (and K2 for
     v3/v3dc) first. Frames with a block over 256 bits are packed by the
@@ -265,10 +270,6 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     """
     if packer is None:
         packer = "fused_mxu" if kernel_sweep else "blocks"
-    if packer == "fused_gather":
-        raise NotImplementedError(
-            "packer 'fused_gather' needs K8 (place_vals_gather_pallas), "
-            "which is not ported yet (ROADMAP.md, the next queue item)")
     if packer not in PACKERS:
         raise ValueError(f"unknown packer {packer!r}; one of {PACKERS}")
     st = _KERNELS if use_kernels else _PLAIN
@@ -282,9 +283,10 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
                 _frames_to_coefs(frames, width, height), budgets,
                 codec=codec, kernel_sweep=False, emit=False)
         return {"scale": sel["scale"],
-                "words": _fused_words(sel, packer,
-                                      kernel_sweep and packer == "fused_mxu",
-                                      eof, capacity_words, st),
+                "words": _fused_words(
+                    sel, packer,
+                    kernel_sweep and packer in ("fused_mxu", "fused_gather"),
+                    eof, capacity_words, st),
                 "total_bits": sel["total_bits"],
                 "nz_count": sel["nz_count"]}
 

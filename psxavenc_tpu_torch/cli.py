@@ -88,7 +88,12 @@ def main(argv=None):
     device = _device()
     if device is None:
         return 1
+    return encode(args, device)
 
+
+def encode(args, device):
+    """Encode one parsed job on ``device``: open the input and the output,
+    run the container muxer; returns the exit code (errors on stderr)."""
     try:
         dec = ingest.open_av_data(args, _DECODER_FLAGS[args.format])
     except ingest.OpenError:
@@ -119,13 +124,18 @@ def main(argv=None):
         output.close()
 
 
-def _dispatch(args, dec, output, device):
-    """Route to the container muxer (psxavenc_tpu/cli.py:114-171)."""
+def _dispatch(args, dec, output, device, unit_encoder=None,
+              frame_results=None):
+    """Route to the container muxer (psxavenc_tpu/cli.py:114-171).
+    ``unit_encoder`` and ``frame_results`` are the batch runner's
+    injection points: an ADPCM unit encoder that captures or replays, and
+    video frames it already encoded (``batch.py``)."""
     fmt = args.format
     if fmt in (ca.FORMAT_XA, ca.FORMAT_XACD):
         from .containers import xa as xamod
         _info(args, _audio_banner_xa(args))
-        xamod.encode_file_xa(args, dec, output, device)
+        xamod.encode_file_xa(args, dec, output, device,
+                             unit_encoder=unit_encoder)
     elif fmt in (ca.FORMAT_SPU, ca.FORMAT_VAG):
         if not (args.flags & ca.FLAG_OVERRIDE_LOOP_POINT):
             args.audio_loop_point = ingest.get_av_loop_point(dec, args)
@@ -134,7 +144,8 @@ def _dispatch(args, dec, output, device):
         from .containers import vag as vagmod
         _info(args, f"Audio format: SPU-ADPCM, {args.audio_frequency} "
                     "Hz mono")
-        vagmod.encode_file_spu(args, dec, output, device)
+        vagmod.encode_file_spu(args, dec, output, device,
+                               unit_encoder=unit_encoder)
     elif fmt in (ca.FORMAT_SPUI, ca.FORMAT_VAGI):
         if not (args.flags & ca.FLAG_OVERRIDE_LOOP_POINT):
             args.audio_loop_point = ingest.get_av_loop_point(dec, args)
@@ -142,13 +153,15 @@ def _dispatch(args, dec, output, device):
         _info(args, f"Audio format: SPU-ADPCM, {args.audio_frequency} "
                     f"Hz {args.audio_channels} channels, "
                     f"interleave={args.audio_interleave}")
-        vagmod.encode_file_spui(args, dec, output, device)
+        vagmod.encode_file_spui(args, dec, output, device,
+                                unit_encoder=unit_encoder)
     elif fmt in (ca.FORMAT_STR, ca.FORMAT_STRCD):
         from .containers import strf
         if dec.has_audio:
             _info(args, _audio_banner_xa(args))
         _info(args, _video_banner(args))
-        strf.encode_file_str(args, dec, output, device)
+        strf.encode_file_str(args, dec, output, device,
+                             frame_results=frame_results)
     elif fmt == ca.FORMAT_STRSPU:
         # The reference prints this and still exits 0 (main.c:159-162).
         print("This format is not currently supported", file=sys.stderr)
@@ -160,11 +173,13 @@ def _dispatch(args, dec, output, device):
                         f"{args.audio_channels} channels, "
                         f"interleave={args.audio_interleave}")
         _info(args, _video_banner(args))
-        strf.encode_file_strspu(args, dec, output, device)
+        strf.encode_file_strspu(args, dec, output, device,
+                                frame_results=frame_results)
     elif fmt == ca.FORMAT_SBS:
         from .containers import sbs
         _info(args, _video_banner(args))
-        sbs.encode_file_sbs(args, dec, output, device)
+        sbs.encode_file_sbs(args, dec, output, device,
+                            frame_results=frame_results)
 
     if not (args.flags & ca.FLAG_HIDE_PROGRESS):
         print("\nDone.", file=sys.stderr)

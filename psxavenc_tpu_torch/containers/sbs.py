@@ -3,7 +3,8 @@
 Counterpart of ``psxavenc_tpu/containers/sbs.py``: frames encode in
 look-ahead device batches through the ``.str`` muxer's frame feed and are
 written as they are produced; every frame gets the -a alignment as its
-budget.
+budget. With ``frame_results`` (the batch runner's), the frames are not
+encoded here.
 """
 
 from ..io.ingest import source_for
@@ -12,12 +13,15 @@ from ..utils.progress import Progress
 from . import strf
 
 
-def encode_file_sbs(args, dec, output, device):
-    enc = BsFrameEncoder(args.video_codec, dec.video_width,
-                         dec.video_height, device)
+def encode_file_sbs(args, dec, output, device, frame_results=None):
     total = dec.video_frame_count
-    feed = strf._FrameFeed(enc, source_for(dec), [args.alignment] * total,
-                           total)
+    if frame_results is not None:
+        feed = strf._PrecomputedFrameFeed(frame_results)
+    else:
+        enc = BsFrameEncoder(args.video_codec, dec.video_width,
+                             dec.video_height, device)
+        feed = strf._FrameFeed(enc, source_for(dec),
+                               [args.alignment] * total, total)
 
     progress = Progress(args)
     for f in range(1, total + 1):

@@ -103,6 +103,28 @@ def _schedule(args, dec, asps, interleave, vspb0, base_overflow,
     return sectors, audio_lengths, frame_budgets
 
 
+class _PrecomputedFrameFeed:
+    """Frame feed over results another component already encoded (the
+    batch runner groups many files' frames into shared device calls and
+    hands each muxer its slice)."""
+
+    def __init__(self, results):
+        self.results = results
+        self.scale_prefix = [0]
+        for _, info in results:
+            self.scale_prefix.append(self.scale_prefix[-1]
+                                     + info["quant_scale"])
+
+    def frame(self, f):
+        return self.results[f - 1]
+
+    def evict_below(self, f):
+        pass  # the batch runner owns the results
+
+    def quant_scale_sum(self, frames_started):
+        return self.scale_prefix[frames_started]
+
+
 class _FrameFeed:
     """Look-ahead batched frame encoder: encodes VIDEO_BATCH_FRAMES
     budgeted frames per device call and evicts written frames. Source
@@ -218,12 +240,18 @@ def _write_video_sector(args, buffer, desc, fb, info, enc):
 
 
 def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
-         sector_size, buffer_size, device):
-    """Incremental schedule writer shared by str/strcd and strv."""
+         sector_size, buffer_size, device, frame_results=None):
+    """Incremental schedule writer shared by str/strcd and strv; with
+    ``frame_results`` (the batch runner's), the frames are not encoded
+    here."""
     enc = BsFrameEncoder(args.video_codec, dec.video_width,
                          dec.video_height, device)
     source = source_for(dec)
-    frames = _FrameFeed(enc, source, frame_budgets, dec.video_frame_count)
+    if frame_results is not None:
+        frames = _PrecomputedFrameFeed(frame_results)
+    else:
+        frames = _FrameFeed(enc, source, frame_budgets,
+                            dec.video_frame_count)
     audio = xamod.AudioSectorFeed(args, source, audio_lengths, device)
     buffer = np.zeros(buffer_size, dtype=np.uint8)
     progress = Progress(args)
@@ -284,15 +312,15 @@ def strspu_schedule(args, dec, quiet=False):
                      overflow_den, frames_needed)
 
 
-def encode_file_str(args, dec, output, device):
+def encode_file_str(args, dec, output, device, frame_results=None):
     """str/strcd (filefmt.c:391-520)."""
     sector_size = xamod.xa_sector_size(args)
     sectors, audio_lengths, frame_budgets = str_schedule(args, dec)
     _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
-         sector_size, 2352, device)
+         sector_size, 2352, device, frame_results)
 
 
-def encode_file_strspu(args, dec, output, device):
+def encode_file_strspu(args, dec, output, device, frame_results=None):
     """strv: 2048-byte sectors, video only (filefmt.c:522-631; the
     reference's audio branch is unimplemented)."""
     if dec.has_audio:
@@ -300,4 +328,5 @@ def encode_file_strspu(args, dec, output, device):
             "strspu audio is unimplemented in the reference "
             "(filefmt.c:528)")
     sectors, _, frame_budgets = strspu_schedule(args, dec)
-    _mux(args, dec, output, sectors, [], frame_budgets, 2048, 2048, device)
+    _mux(args, dec, output, sectors, [], frame_budgets, 2048, 2048, device,
+         frame_results)

@@ -3,7 +3,10 @@
 Counterpart of ``psxavenc_tpu/containers/vag.py``, byte-compatible with
 psxavenc/filefmt.c:212-389 (encode_file_spu, encode_file_spui) and
 write_vag_header (filefmt.c:95-162). The ADPCM units of each chunk encode
-in one K5 call on the device.
+in one K5 call on the device. ``unit_encoder`` takes the place of
+``streams.encode_unit_streams`` (the batch runner's injection point): a
+non-chunked one gets the whole file in one call, a ``chunked`` one the
+bounded chunk feed.
 """
 
 import os
@@ -56,9 +59,12 @@ def write_vag_header(args, size_per_channel):
 SPU_CHUNK_BLOCKS = 65536
 
 
-def encode_file_spu(args, dec, output, device):
+def encode_file_spu(args, dec, output, device, unit_encoder=None):
     """Mono SPU-ADPCM -> raw .spu or .vag (filefmt.c:212-293)."""
     from ..io import ingest
+
+    if unit_encoder is None:
+        unit_encoder = streams.encode_unit_streams
 
     if args.format == ca.FORMAT_VAG:
         output.seek(VAG_HEADER_SIZE)
@@ -81,7 +87,8 @@ def encode_file_spu(args, dec, output, device):
     block_lens, block_eois = ingest.drain_audio_blocks(
         dec, SAMPLES_PER_BLOCK)
 
-    group = SPU_CHUNK_BLOCKS
+    group = len(block_lens) if streams.whole_file(unit_encoder) \
+        else SPU_CHUNK_BLOCKS
     progress = Progress(args)
     quiet = bool(args.flags & ca.FLAG_HIDE_PROGRESS)
     prev1 = prev2 = None
@@ -91,7 +98,7 @@ def encode_file_spu(args, dec, output, device):
         eois = block_eois[base:base + group]
         pcm = source.take_audio(int(lens.sum()))
         offsets, limits = streams.chunk_unit_layout(lens)
-        headers, nibbles, prev1, prev2 = streams.encode_unit_streams(
+        headers, nibbles, prev1, prev2 = unit_encoder(
             pcm.astype(np.int32)[None, :], offsets[None], limits[None],
             ops.SPU_FILTER_COUNT, ops.SHIFT_RANGE_4BPS, prev1=prev1,
             prev2=prev2, device=device)
@@ -130,8 +137,10 @@ def encode_file_spu(args, dec, output, device):
         dec.close()
 
 
-def encode_file_spui(args, dec, output, device):
+def encode_file_spui(args, dec, output, device, unit_encoder=None):
     """Interleaved SPU-ADPCM -> .spui or .vagi (filefmt.c:295-389)."""
+    if unit_encoder is None:
+        unit_encoder = streams.encode_unit_streams
     ch = args.audio_channels
     samples_per_chunk = (args.audio_interleave // BLOCK_SIZE) * \
         SAMPLES_PER_BLOCK
@@ -163,7 +172,8 @@ def encode_file_spui(args, dec, output, device):
         first = False
 
     units_per_chunk = max(1, samples_per_chunk // SAMPLES_PER_BLOCK)
-    group = max(1, SPU_CHUNK_BLOCKS // units_per_chunk)
+    group = max(1, len(chunks)) if streams.whole_file(unit_encoder) else \
+        max(1, SPU_CHUNK_BLOCKS // units_per_chunk)
     progress = Progress(args)
     prev1 = prev2 = None
     for gbase in range(0, len(chunks), group):
@@ -173,7 +183,7 @@ def encode_file_spui(args, dec, output, device):
             if ch > 1 else pcm[None, :]
         offsets, limits = streams.chunk_unit_layout(
             [ln for ln, _, _ in part])
-        headers, nibbles, prev1, prev2 = streams.encode_unit_streams(
+        headers, nibbles, prev1, prev2 = unit_encoder(
             per_channel.astype(np.int32),
             np.broadcast_to(offsets, (ch,) + offsets.shape),
             np.broadcast_to(limits, (ch,) + limits.shape),

@@ -13,7 +13,8 @@ output bytes:
   a persistent zero-initialized buffer reproduces this.
 
 The ADPCM units of a chunk of sectors encode in one K5 call on the device;
-sector byte assembly and EDC are host C++ (``native/host.py``).
+sector byte assembly and EDC are host C++ (``native/host.py``). The batch
+runner injects its own ``unit_encoder`` (``batch.py``).
 """
 
 import numpy as np
@@ -65,7 +66,9 @@ class XaAudioSectors:
     """
 
     def __init__(self, args, pcm_interleaved, lengths, device, prev1=None,
-                 prev2=None):
+                 prev2=None, unit_encoder=None):
+        if unit_encoder is None:
+            unit_encoder = streams.encode_unit_streams
         self.args = args
         ch = args.audio_channels
         stereo = ch == 2
@@ -93,7 +96,7 @@ class XaAudioSectors:
         offsets = (prefix[:, None] + k[None, :]).reshape(-1)
         limits = (np.asarray(lengths)[:, None] - k[None, :]).reshape(-1)
         B = chans.shape[0]
-        headers, nibbles, f1, f2 = streams.encode_unit_streams(
+        headers, nibbles, f1, f2 = unit_encoder(
             chans, np.broadcast_to(offsets, (B, len(offsets))),
             np.broadcast_to(limits, (B, len(limits))),
             ops.XA_FILTER_COUNT,
@@ -161,15 +164,17 @@ class AudioSectorFeed:
     """Chunked XA audio-sector encoder: chunk_sectors sectors per device
     call with exact ADPCM state threading across chunks (the reference's
     persistent psx_audio_encoder_state_t), pulling PCM incrementally from
-    a take_audio source."""
+    a take_audio source. ``unit_encoder`` takes the place of
+    ``streams.encode_unit_streams`` (the batch runner's injection point)."""
 
     def __init__(self, args, source, audio_lengths, device,
-                 chunk_sectors=None):
+                 chunk_sectors=None, unit_encoder=None):
         self.args = args
         self.source = source
         self.lengths = audio_lengths
         self.device = device
         self.chunk = chunk_sectors or AUDIO_CHUNK_SECTORS
+        self.unit_encoder = unit_encoder
         ch = args.audio_channels
         self.ch = ch
         self.prev1 = np.zeros(ch, np.int32)
@@ -184,7 +189,8 @@ class AudioSectorFeed:
             lens = self.lengths[self.next_idx:hi]
             pcm = self.source.take_audio(int(sum(lens)) * self.ch)
             xs = XaAudioSectors(self.args, pcm, lens, self.device,
-                                self.prev1, self.prev2)
+                                self.prev1, self.prev2,
+                                unit_encoder=self.unit_encoder)
             self.prev1, self.prev2 = xs.final_state
             for i in range(len(lens)):
                 self.cache[self.next_idx + i] = (xs, i)
@@ -195,8 +201,11 @@ class AudioSectorFeed:
         self.cache.pop(idx, None)
 
 
-def encode_file_xa(args, dec, output, device):
-    """filefmt.c:167-210."""
+def encode_file_xa(args, dec, output, device, unit_encoder=None):
+    """filefmt.c:167-210. An injected non-chunked ``unit_encoder`` gets the
+    whole file in one call (the batch runner's capture and replay count
+    on exactly one unit encode per file); a ``chunked`` one keeps the
+    bounded feed, so concurrent jobs' chunks can share device calls."""
     from ..io import ingest
 
     ch = args.audio_channels
@@ -211,8 +220,10 @@ def encode_file_xa(args, dec, output, device):
         eois.append(dec.end_of_input)
         dec.retire_av_data(ln * ch, 0)
 
-    feed = AudioSectorFeed(args, source, lengths, device,
-                           chunk_sectors=AUDIO_CHUNK_SECTORS_SOLO)
+    chunk = len(lengths) if streams.whole_file(unit_encoder) \
+        else AUDIO_CHUNK_SECTORS_SOLO
+    feed = AudioSectorFeed(args, source, lengths, device, chunk_sectors=chunk,
+                           unit_encoder=unit_encoder)
     buffer = np.zeros(2352, dtype=np.uint8)
     progress = Progress(args)
     for s in range(len(lengths)):

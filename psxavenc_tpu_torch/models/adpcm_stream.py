@@ -133,10 +133,20 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
                    None)
 
 
+def whole_file(unit_encoder):
+    """True for an injected unit encoder (the batch runner's capture or
+    replay) that takes a file's units in one call; the default encoder
+    and a ``chunked`` one get the containers' bounded chunk feeds."""
+    return (unit_encoder not in (None, encode_unit_streams)
+            and not getattr(unit_encoder, "chunked", False))
+
+
 def encode_prepared_units(units, lim, filter_count, shift_range,
                           prev1=None, prev2=None, state_t=None,
                           device="cuda"):
-    """Encode pre-gathered (B, T, 28) units (see encode_unit_streams).
+    """Encode pre-gathered (B, T, 28) units (see encode_unit_streams; the
+    batch runner concatenates many files' streams on B before calling):
+    numpy arrays or tensors on any device, moved to ``device``.
 
     ``state_t``: optional (B,) per-row unit index whose post-state to
     return as the final decoder state (rows padded with masked units
@@ -144,8 +154,9 @@ def encode_prepared_units(units, lim, filter_count, shift_range,
     the last column.
     """
     dev = torch.device(device)
-    units = torch.tensor(np.asarray(units).astype(np.int32), device=dev)
-    lim = adpcm_cuda.clip_limits(torch.tensor(np.asarray(lim), device=dev))
+    units = torch.as_tensor(units).to(device=dev,
+                                      dtype=torch.int32).contiguous()
+    lim = adpcm_cuda.clip_limits(torch.as_tensor(lim).to(dev)).contiguous()
     B, T = lim.shape
     if T == 0:
         return (np.zeros((B, 0), np.uint8),

@@ -1,5 +1,5 @@
 """Wrappers and plain versions of the placement and packing kernels K4,
-K9 and K10.
+K8, K9 and K10.
 
 Counterparts in ``psxavenc_tpu/ops/bitpack_pallas.py``:
 
@@ -10,8 +10,9 @@ Counterparts in ``psxavenc_tpu/ops/bitpack_pallas.py``:
   streams and their global bit offsets (``csrc/bitpack_streams.cu``);
 - K10 ``pack_block_streams_pallas``: dense per-block packing of symbol
   tensors into 16-word streams (``csrc/bitpack_streams.cu``);
-- ``place_streams_mxu``: ``streams_to_u32`` glue followed by K4 (a wrapper,
-  as ``place_streams_mxu_pallas`` is).
+- ``place_streams_mxu`` and ``place_streams_gather``: ``streams_to_u32``
+  glue followed by K4 or K8 (wrappers, as ``place_streams_mxu_pallas`` and
+  ``place_streams_gather_pallas`` are).
 
 Each wrapper takes the plain version only for CPU tensors and launches its
 kernel for CUDA tensors; ``LAUNCHES`` counts the launches.
@@ -22,7 +23,8 @@ import torch
 from . import _build, bitpack
 from .bs_cuda import _on_cuda, _require
 
-LAUNCHES = {"place_vals": 0, "place_streams": 0, "pack_block_streams": 0}
+LAUNCHES = {"place_vals": 0, "place_vals_gather": 0, "place_streams": 0,
+            "pack_block_streams": 0}
 
 BCAP = bitpack.BLOCK_CAP_WORDS
 cap32_of = bitpack.cap32_of
@@ -46,16 +48,21 @@ def place_vals_plain(vals32, e0, *, capacity_words):
     return bitpack.u32_to_i32(out[:, :cap32])
 
 
+def _check_place_args(vals32, e0, name):
+    _require(vals32, torch.int32, 3, f"{name} vals32")
+    _require(e0, torch.int32, 2, f"{name} e0")
+    B, nbe, slots = vals32.shape
+    if slots != 9 or e0.shape != (B, nbe) or e0.device != vals32.device:
+        raise ValueError(f"{name}: expected vals32 (B, NBe, 9) and e0 "
+                         "(B, NBe) on one device")
+    return B, nbe
+
+
 def place_vals(vals32, e0, *, capacity_words):
     """K4 (``csrc/bitpack_place.cu``): see :func:`place_vals_plain`."""
     if not _on_cuda(vals32, "place_vals"):
         return place_vals_plain(vals32, e0, capacity_words=capacity_words)
-    _require(vals32, torch.int32, 3, "place_vals vals32")
-    _require(e0, torch.int32, 2, "place_vals e0")
-    B, nbe, slots = vals32.shape
-    if slots != 9 or e0.shape != (B, nbe) or e0.device != vals32.device:
-        raise ValueError("place_vals: expected vals32 (B, NBe, 9) and "
-                         "e0 (B, NBe) on one device")
+    B, nbe = _check_place_args(vals32, e0, "place_vals")
     cap32 = cap32_of(capacity_words)
     out = torch.zeros((B, cap32), dtype=torch.int32, device=vals32.device)
     LAUNCHES["place_vals"] += 1
@@ -74,6 +81,44 @@ def place_streams_mxu(streams, goff, total_bits, *, capacity_words,
     out32 = place(bitpack.u32_to_i32(vals32), e0.to(torch.int32),
                   capacity_words=capacity_words)
     return bitpack.u16_values(out32, capacity_words)
+
+
+# ------------------------------------------------------------------- K8
+
+def place_vals_gather_plain(vals32, e0, *, capacity_words):
+    """K8's plain version: K4's function, so :func:`place_vals_plain`'s
+    scatter-add."""
+    return place_vals_plain(vals32, e0, capacity_words=capacity_words)
+
+
+def place_vals_gather(vals32, e0, *, capacity_words):
+    """K8 (``csrc/bitpack_gather.cu``): (B, NBe, 9) int32 u32 contributions
+    + (B, NBe) int32 u32 offsets -> (B, cap32) int32 placed u32 words, as
+    :func:`place_vals_plain`. Precondition: each frame's ``e0`` row is
+    non-decreasing (``emit_prep``'s offsets and a cumsum of block bits
+    are); the kernel binary-searches it. Each output word is written once,
+    so the output is not zero-filled first."""
+    if not _on_cuda(vals32, "place_vals_gather"):
+        return place_vals_gather_plain(vals32, e0,
+                                       capacity_words=capacity_words)
+    B, nbe = _check_place_args(vals32, e0, "place_vals_gather")
+    if B > 65535:
+        raise ValueError("place_vals_gather: at most 65,535 frames per call "
+                         "(one grid row per frame)")
+    cap32 = cap32_of(capacity_words)
+    out = torch.empty((B, cap32), dtype=torch.int32, device=vals32.device)
+    LAUNCHES["place_vals_gather"] += 1
+    _build.launch("psx_place_vals_gather", vals32, _build.ptr(vals32),
+                  _build.ptr(e0), B, nbe, cap32, _build.ptr(out))
+    return out
+
+
+def place_streams_gather(streams, goff, total_bits, *, capacity_words,
+                         place=place_vals_gather):
+    """:func:`place_streams_mxu` through K8 (``place``: K8's wrapper, or
+    its plain version)."""
+    return place_streams_mxu(streams, goff, total_bits,
+                             capacity_words=capacity_words, place=place)
 
 
 # ------------------------------------------------------------------- K9

@@ -77,6 +77,9 @@ def _cases(dev):
         "place_vals": (bitpack_cuda.place_vals,
                        bitpack_cuda.place_vals_plain, (vals32, e0),
                        {"capacity_words": 9068}),
+        "place_vals_gather": (bitpack_cuda.place_vals_gather,
+                              bitpack_cuda.place_vals_gather_plain,
+                              (vals32, e0), {"capacity_words": 9068}),
     }
 
 
@@ -90,7 +93,7 @@ def _streams(streams, block_bits):
 
 @pytest.mark.parametrize("name", [
     "select_scale_pix", "dc_stage", "emit_prep", "place_vals",
-    "select_scale", "emit_pack_coefs63", "emit_pack_select64",
+    "place_vals_gather", "select_scale", "emit_pack_coefs63", "emit_pack_select64",
     "place_streams", "pack_block_streams"])
 def test_kernel_matches_plain(dev, name):
     kernel, plain, args, kw = _cases(dev)[name]
@@ -122,6 +125,45 @@ def test_place_streams_writes_only_its_rows(dev):
     want = bitpack_cuda.place_streams_plain(streams, goff, None,
                                             capacity_words=2 * cap32)
     assert torch.equal(tbp.u16_values(out[:B], 2 * cap32), want)
+
+
+def _placed(dev, scales):
+    """K3's placed contributions for three frames at ``scales`` (scale 2
+    runs far past a 4,534-word capacity)."""
+    rng = np.random.default_rng(10)
+    vals32, e0, _, _ = bs_cuda.emit_prep_plain(
+        *_emit_inputs(rng, 3, dev, scales), eof=0x3FF)
+    return vals32, e0
+
+
+def test_place_vals_gather_equals_k4(dev):
+    """K8's words equal K4's, on frames that fit and frames that run past
+    the capacity."""
+    vals32, e0 = _placed(dev, [2, 31, 63])
+    for cap in (9068, 2 * int(e0.max()) + 40):
+        got = bitpack_cuda.place_vals_gather(vals32, e0, capacity_words=cap)
+        want = bitpack_cuda.place_vals(vals32, e0, capacity_words=cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), cap
+
+
+def test_place_vals_gather_writes_only_its_rows(dev):
+    """K8 writes every word of its (B, cap32) output, zeros included, and
+    nothing after it: a guard row stays untouched and a poisoned output
+    is fully overwritten."""
+    vals32, e0 = _placed(dev, [2, 2, 40])
+    B, nbe, _ = vals32.shape
+    cap32 = 4534
+    out = torch.full((B + 1, cap32), -1, dtype=torch.int32, device=dev)
+    out[B] = 0x5A5A5A5A
+    _build.launch("psx_place_vals_gather", vals32, _build.ptr(vals32),
+                  _build.ptr(e0), B, nbe, cap32, _build.ptr(out))
+    torch.cuda.synchronize()
+    assert int(e0[0, -1]) > cap32
+    assert (out[B] == 0x5A5A5A5A).all()
+    want = bitpack_cuda.place_vals_plain(vals32, e0,
+                                         capacity_words=2 * cap32)
+    assert torch.equal(out[:B], want)
 
 
 @pytest.mark.parametrize("filter_count,shift_range",

@@ -114,3 +114,50 @@ def test_place_vals_matches_pallas():
     got = bitpack_cuda.place_vals(vals32, e0, capacity_words=cap)
     assert got.shape == (3, (cap + 1) // 2)
     assert_same(want, tbp.words_u16(got, cap).numpy().view(np.uint16))
+
+
+def _tied_offsets():
+    """Placed contributions of real emitted streams (scale 40: no block
+    over 256 bits), plus a frame of hand-made contributions whose
+    offsets tie: runs of blocks at one u32 offset, zero-bit blocks, and
+    a block at the offset eight words before a tie, so one output word
+    gathers slot 8 of one block and slot 0 of several others."""
+    nb = 222
+    _, c64, scale, dc_code, dc_bits = _emit_inputs(43, 3, nb)
+    scale[0] = 40
+    vals32, e0, _, total = bs_cuda.emit_prep_plain(
+        *(torch.from_numpy(a) for a in (c64, scale, dc_code, dc_bits)),
+        eof=0x3FF)
+    rng = np.random.default_rng(44)
+    n1 = nb + 1
+    steps = rng.choice([0, 0, 0, 1, 2, 8], n1 - 1)
+    e_tied = np.concatenate([[0], np.cumsum(steps)]).astype(np.int32)
+    v_tied = np.zeros((n1, 9), np.int64)
+    for j in range(n1):
+        # Bit-disjoint words: block j owns bit (j % 32) of every slot.
+        v_tied[j, :] = rng.integers(0, 2, 9) << (j % 32)
+    # Blocks 32 apart never share a word, so no two candidates of one
+    # word own the same bit.
+    assert (e_tied[32:] - e_tied[:-32] > 8).all()
+    vals = np.concatenate([vals32.numpy(), tbp.u32_to_i32(
+        torch.from_numpy(v_tied))[None].numpy()])
+    e0s = np.concatenate([e0.numpy(), e_tied[None]])
+    return vals, e0s, int(total.max())
+
+
+@pytest.mark.parametrize("cut", [False, True])
+def test_place_vals_gather_matches_pallas(cut):
+    """K8's plain version == place_vals_gather_pallas in interpret mode,
+    with tied offsets, with and without a capacity that cuts the longest
+    frame short."""
+    vals, e0s, total_max = _tied_offsets()
+    assert (np.diff(e0s, axis=1) == 0).any(axis=1).all()
+    cap = total_max // 16 - 30 if cut else total_max // 16 + 40
+    want = jbpk.place_vals_gather_pallas(jnp.asarray(vals), jnp.asarray(e0s),
+                                         capacity_words=cap, interpret=True)
+    got = bitpack_cuda.place_vals_gather(torch.from_numpy(vals),
+                                         torch.from_numpy(e0s),
+                                         capacity_words=cap)
+    assert got.shape == (4, (cap + 1) // 2)
+    assert_same(want, tbp.words_u16(got, cap).numpy().view(np.uint16))
+    assert np.asarray(want).any()

@@ -22,7 +22,7 @@ from test_torch_parity import assert_same, video_frames
 
 W, H = 48, 32
 CAP = (4000 - 8 + 1) // 2
-PORTED = [p for p in tapi.PACKERS if p != "fused_gather"]
+PORTED = list(tapi.PACKERS)
 
 
 @pytest.fixture
@@ -32,6 +32,7 @@ def interpret_kernels(monkeypatch):
         monkeypatch.setattr(jbsp, fn, functools.partial(getattr(jbsp, fn),
                                                         interpret=True))
     for fn in ("place_vals_mxu_pallas", "place_streams_mxu_pallas",
+               "place_vals_gather_pallas", "place_streams_gather_pallas",
                "place_streams_pallas", "pack_block_streams_pallas"):
         monkeypatch.setattr(jbpk, fn, functools.partial(getattr(jbpk, fn),
                                                         interpret=True))
@@ -104,11 +105,9 @@ def test_default_packer_follows_the_sweep():
 
 
 def test_fused_gather_raises():
+    """Every packer of psxavenc_tpu runs (fused_gather through K8): only
+    an unknown packer name raises."""
     frames, budgets = _batch(False)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tapi.bs_encode_frames_packed(
-            torch.from_numpy(frames), torch.from_numpy(budgets), codec=0,
-            width=W, height=H, capacity_words=CAP, packer="fused_gather")
     with pytest.raises(ValueError, match="unknown packer"):
         tapi.bs_encode_frames_packed(
             torch.from_numpy(frames), torch.from_numpy(budgets), codec=0,

@@ -6,7 +6,8 @@ rebuilds each input from chip_smoke.py's recipes, encodes it with the JAX
 package on the CPU (``psxavenc_tpu.cli.main``, and for the 256-frame
 buffers ``psxavenc_tpu``'s BsFrameEncoder, whose CPU tier is the native
 encoder that tier-1 holds equal to the JAX pipeline; for the symbols
-digest ``psxavenc_tpu.api.bs_encode_frames`` with the XLA sweep) and
+digest ``psxavenc_tpu.api.bs_encode_frames`` with the XLA sweep; for the
+libpsxav digests ``psxavenc_tpu.libpsxav``) and
 asserts the committed digests, so they cannot go stale. It also holds the port's
 ``utils.synth`` to the JAX package's for those recipes.
 
@@ -32,13 +33,15 @@ import chip_smoke as cs  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from psxavenc_tpu import api as japi  # noqa: E402
 from psxavenc_tpu import cli as jcli  # noqa: E402
+from psxavenc_tpu import libpsxav as jlp  # noqa: E402
 from psxavenc_tpu.models.bs_video import BsFrameEncoder  # noqa: E402
 from psxavenc_tpu.utils import synth as jsynth  # noqa: E402
 from psxavenc_tpu_torch.utils import synth as tsynth  # noqa: E402
 
-CLI_CASES = cs.VIDEO_CLI_CASES + cs.AV_CLI_CASES
+CLI_CASES = cs.VIDEO_CLI_CASES + cs.AV_CLI_CASES + cs.BATCH_AUDIO_CASES
 KEYS = [f"phase4_{label}" for _, label in cs.PHASE4_CODECS] + \
-    [key for key, _, _ in CLI_CASES] + ["symbols_v2"]
+    [key for key, _, _ in CLI_CASES] + ["symbols_v2"] + \
+    list(cs.LIBPSXAV_KEYS)
 
 
 def _phase4_digest(codec):
@@ -69,6 +72,8 @@ def compute(key, inputs, out_dir):
     """The JAX package's digest of smoke output ``key``."""
     if key == "symbols_v2":
         return _symbols_digest()
+    if key in cs.LIBPSXAV_KEYS:
+        return cs.sha256(cs.libpsxav_outputs(jlp, tsynth)[key])
     for codec, label in cs.PHASE4_CODECS:
         if key == f"phase4_{label}":
             return _phase4_digest(codec)
