@@ -6,20 +6,30 @@ Phases, one or more lines each:
 
 1. the card and toolchain;
 2. the kernel build (nvcc, one process per source in
-   psxavenc_tpu_torch/csrc, started together);
+   psxavenc_tpu_torch/csrc, started together), and what ptxas reports for
+   the functions of bs_select.cu: registers, stack and spill bytes;
 3. each BS kernel (K1-K4) against its plain PyTorch version at the video
    path's shapes (BS 320x240, 128 frames, 18,144-byte budgets), v2 and
    v3dc: exact equality; the kernel's device time (one wrapper call
    captured as a CUDA graph and replayed back to back, so without the
    host's work), one wrapper call's and the plain version's times (CUDA
-   events, median);
+   events, median). K1's scale search is also checked for every kind of
+   seed (none, the answers, the answers shifted by +-1 and +-7, all 1, all
+   63, out of range) with one frame unfittable, its evaluation statistics
+   printed per case and held to the plain model of the search, timed with
+   the batch's last scale as every frame's seed and with the answers as
+   seeds, run on frames whose subsample misleads it (so that the ladder
+   gallops and bisects), and on 640x480 frames, whose rows do not fit
+   shared memory;
 4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
    and v3dc, each codec's bytes equal to its committed digest, K1-K4
    launched;
 5. the video CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI,
    equal to the digests;
-6. frames/s: device, end to end, and the plain path on the card, with a
-   torch.profiler breakdown of the device step;
+6. frames/s: device, end to end and the plain path on the card, with a
+   torch.profiler breakdown of the device step; and what K1's search
+   would do if every batch were seeded with the scale of the frame before
+   it (the encoder does not: the statistics say what that would buy);
 7. K5 against its plain version on 4,096 streams x 64 units for
    (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8), timed as
    in phase 3;
@@ -34,8 +44,9 @@ Phases, one or more lines each:
 10. the symbols API and the per-block-stream packers at the video path's
    width: K6, K7 (both coefficient forms), K9 and K10 against their plain
    versions on phase 4's first 128 frames (video+noise, one frame's
-   budget cut to 200 bytes: unfittable), timed as in phase 3; every
-   packer of
+   budget cut to 200 bytes: unfittable), timed as in phase 3; K6's seed
+   cases as K1's in phase 3, K6 on the misleading frames, on 640x480
+   frames and on a frame with a coefficient over 16 bits; every packer of
    api.bs_encode_frames_packed with the kernel sweep and without on
    phase 4's 256 frames, each equal to fused_mxu; api.bs_encode_frames on
    128 frames, flat-packed equal to fused_mxu and its first frames equal
@@ -90,7 +101,9 @@ ADPCM_UNITS = 1000
 ADPCM_CHECK_UNITS = 64
 ADPCM_VARIANTS = ((5, 12), (4, 12), (4, 8))
 SYMBOLS_FRAMES = 8                   # frames of the symbols_v2 digest
-UNFIT_FRAME, UNFIT_BUDGET = 5, 200   # phase 10's unfittable frame
+UNFIT_FRAME, UNFIT_BUDGET = 5, 200   # the unfittable frame of the checks
+MODEL_FRAMES = 16                    # frames the search's plain model runs
+BIG_W, BIG_H, BIG_FRAMES = 640, 480, 6   # rows too long for shared memory
 PACKERS = ("fused_mxu", "fused", "fused_pallas", "fused_gather", "blocks",
            "blocks_pallas", "flat")
 
@@ -265,9 +278,9 @@ def libpsxav_outputs(lp, synth, **kw):
     return dict(zip(LIBPSXAV_KEYS, (xa, spu)))
 
 
-def nv21(np, planes):
+def nv21(np, planes, w=W, h=H):
     y, cb, cr = planes
-    c = np.stack([cr.reshape(H // 2, W // 2), cb.reshape(H // 2, W // 2)],
+    c = np.stack([cr.reshape(h // 2, w // 2), cb.reshape(h // 2, w // 2)],
                  axis=-1).reshape(-1)
     return np.concatenate([y, c]).astype(np.uint8)
 
@@ -442,6 +455,247 @@ def select_ops(torch, nb, fdct):
     return ops
 
 
+def select_inputs(torch, frames, budgets, w=W, h=H):
+    """K1's inputs for NV21 ``frames`` on the card (BS v2): the pixel rows
+    and the AC fit thresholds of ``budgets``."""
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    pix = bs_ops.rearrange_nv21_rows(frames, w, h)
+    dc_bits, _ = bs_ops._dc_stage(bs_ops.dc_quant_from_pixrows(pix),
+                                  bs_ops.BS_V2)
+    return pix, bs_ops.ac_threshold(
+        budgets, dc_bits.sum(dim=1, dtype=torch.int32), pix.shape[2])
+
+
+def seed_cases(torch, answers):
+    """(name, seeds) for a batch whose scales are ``answers``."""
+    b = answers.shape[0]
+    dev = answers.device
+    odd = torch.tensor([0, 64, -5], dtype=torch.int32,
+                       device=dev)[torch.arange(b, device=dev) % 3]
+    return [("none", None), ("the answers", answers.clamp(max=63)),
+            ("answers + 1", answers + 1), ("answers - 1", answers - 1),
+            ("answers + 7", answers + 7), ("answers - 7", answers - 7),
+            ("all 1", torch.ones_like(answers)),
+            ("all 63", torch.full_like(answers, 63)),
+            ("0, 64, -5 (out of range)", odd)]
+
+
+def stats_text(torch, stats):
+    """Per-frame means of a kernel's statistics output."""
+    m = stats.to(torch.float64).mean(dim=0).tolist()
+    hits = int(((stats[:, 0] == 0) & (stats[:, 2] == 0)
+                & (stats[:, 3] == 1)).sum())
+    return (f"per frame {m[0]:.3f} ladder evaluations, {m[1]:.3f} fused "
+            f"passes, {m[2]:.3f} exact evaluations, {m[3]:.3f} self-seeding "
+            f"rounds; {hits} of {stats.shape[0]} frames done after one round "
+            f"and the fused pass; reader: {int((stats[:, 4] == 0).sum())} "
+            f"shared, {int((stats[:, 4] == 1).sum())} global; kcycles before "
+            f"the search {m[5] / 1e3:.1f}, self-seeding {m[6] / 1e3:.1f}, "
+            f"evaluations {m[7] / 1e3:.1f}, in all {sum(m[5:]) / 1e3:.1f} "
+            f"(slowest frame "
+            f"{int(stats[:, 5:].sum(dim=1).max()) / 1e3:.1f})")
+
+
+def check_seed_cases(torch, tag, name, kernel, want, c_abs, thr, threads,
+                     card):
+    """A select kernel against its plain answers ``want`` for every seed
+    case, exactly; its statistics per case; and its counts on the first
+    MODEL_FRAMES frames against the plain model of the search.
+    ``kernel(seeds, stats)`` launches it. Returns the no-seed statistics."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    b, _, nb = c_abs.shape
+    groups = bs_cuda.search_groups(nb, threads)
+    head = slice(0, min(b, MODEL_FRAMES))
+    cold = None
+    for case, seeds in seed_cases(torch, want[0]):
+        stats = torch.full((b, len(bs_cuda.STAT_NAMES)), -1,
+                           dtype=torch.int32, device=c_abs.device)
+        got = kernel(seeds, stats)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want, name)
+        model = bs_cuda.select_search_plain(
+            c_abs[head], thr[head], None if seeds is None else seeds[head],
+            groups)
+        same = (torch.equal(stats[head, :bs_cuda.COUNT_STATS],
+                            model[3][:, :bs_cuda.COUNT_STATS])
+                and all(torch.equal(m, w[head])
+                        for m, w in zip(model[:3], want)))
+        say(f"[{tag}] {name} seeds {case}: max |kernel - plain| = {err}; "
+            f"{stats_text(torch, stats)}; first {head.stop} frames' counts "
+            f"equal the plain model's: {same} (on {card})")
+        if err or not same or (stats[:, 4] != 0).any():
+            raise AssertionError(f"{name}, seeds {case}: the kernel "
+                                 "disagrees with its plain version, the "
+                                 "plain model, or did not read shared "
+                                 "memory")
+        if seeds is None:
+            cold = stats
+    new = cold.to(torch.float64).mean(dim=0).tolist()
+    say(f"[{tag}] {name} without seeds, evaluations of the whole frame per "
+        f"frame: {new[0] + 2 * new[1] + new[2]:.3f} (a fused pass counts as "
+        f"two) plus {new[3]:.3f} rounds of {groups} scales on an eighth of "
+        f"the frame")
+    return cold
+
+
+def check_misleading(torch, tag, name, pix, threads, launch, card):
+    """A select kernel on MODEL_FRAMES frames whose subsample misleads its
+    search by many scales (bs_cuda.misleading_frames: flat there, or flat
+    everywhere else), without seeds and with wrong ones: the stepping
+    passes run out, so every frame gallops and bisects with full ladder
+    evaluations. The answers equal the plain version's and the counts the
+    plain model's. ``launch(pix, c, thr, seeds, stats)`` runs the
+    kernel."""
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    pix, thr = bs_cuda.misleading_frames(pix[:MODEL_FRAMES])
+    c = bs_ops.pixrows_to_coefs_zz(pix).contiguous()
+    want = bs_cuda.select_scale_plain(c, thr)
+    groups = bs_cuda.search_groups(c.shape[2], threads)
+    for case, seeds in (("none", None), ("answers + 7", want[0] + 7)):
+        stats = torch.full((c.shape[0], len(bs_cuda.STAT_NAMES)), -1,
+                           dtype=torch.int32, device=c.device)
+        got = launch(pix, c, thr, seeds, stats)[:3]
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want, name)
+        model = bs_cuda.select_search_plain(c.abs(), thr, seeds, groups)
+        same = (torch.equal(stats[:, :bs_cuda.COUNT_STATS],
+                            model[3][:, :bs_cuda.COUNT_STATS])
+                and all(torch.equal(m, w) for m, w in zip(model[:3], want)))
+        say(f"[{tag}] {name} on {c.shape[0]} frames whose subsample "
+            f"misleads (scales {int(want[0].min())}..{int(want[0].max())}), "
+            f"seeds {case}: max |kernel - plain| = {err}; "
+            f"{stats_text(torch, stats)}; least ladder evaluations of a "
+            f"frame {int(stats[:, 0].min())}; counts equal the plain "
+            f"model's: {same} (on {card})")
+        if err or not same or int(stats[:, 0].min()) < 1:
+            raise AssertionError(f"{name} on misleading frames, seeds "
+                                 f"{case}: wrong answer, counts unlike the "
+                                 "plain model's, or no gallop")
+
+
+def lane_balance(torch, tag, c_abs, scale):
+    """How evenly pass B's work falls on a warp's lanes: the nonzero levels
+    of each pair of blocks at the frame's scale, summed per warp as the
+    kernel waits for them (the busiest lane of 32) over the same work
+    spread evenly, with the pairs in natural order and in the kernels'
+    order (a warp's lanes take pairs of one kind: chroma, upper luma,
+    lower luma)."""
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    keep = (scale >= 1) & (scale <= 63)
+    ca, s = c_abs[keep], scale[keep].to(torch.int32)
+    d = bs_ops.quant_zz(ca.device)[None, :, None] * s[:, None, None]
+    nz = ((ca + (d >> 1)) >= d).sum(dim=1)                  # (B, NB)
+    pairs = nz[:, 0::2] + nz[:, 1::2]
+    n = pairs.shape[1]
+    third = n // 3
+    i = torch.arange(n, device=ca.device)
+    orders = {"natural": i, "by kind": 3 * (i % third) + i // third}
+    parts = []
+    for label, order in orders.items():
+        p = pairs[:, order]
+        p = torch.nn.functional.pad(p, (0, -n % 32)).reshape(len(p), -1, 32)
+        ratio = float(p.max(dim=2).values.sum() * 32) / float(pairs.sum())
+        parts.append(f"{label} x{ratio:.2f}")
+    say(f"[{tag}] pass B over {len(ca)} frames at their scales: "
+        f"{float(nz.to(torch.float64).mean()):.1f} nonzero levels a block; "
+        f"the warps' busiest lanes against evenly spread work: "
+        f"{', '.join(parts)}")
+
+
+def seeded_times(torch, tag, name, row, kernel, want, stats, evals_bound,
+                 groups, card):
+    """Adds to ``row`` the kernel's device time with every frame seeded
+    with the batch's last scale (what carrying a seed from batch to batch
+    would give) and with the answers as seeds; prints how the cold time's
+    distance from the bound splits into more evaluations and slower
+    evaluations."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    answers = want[0].clamp(max=63)
+    carried = answers[-1:].expand(answers.shape[0]).contiguous()
+    row["seeded_ms"] = graph_ms(torch, lambda: kernel(carried, None))
+    row["hit_ms"] = graph_ms(torch, lambda: kernel(answers, None))
+    m = stats.to(torch.float64).mean(dim=0).tolist()
+    work = m[0] + 2 * m[1] + m[2] + m[3] * groups / bs_cuda.SUBSAMPLE
+    ratio = row["ms"] / row["bound_ms"]
+    say(f"[{tag}] {name}: kernel {row['ms']:.4f} ms without seeds, "
+        f"{row['seeded_ms']:.4f} ms with the last frame's scale as every "
+        f"frame's seed, {row['hit_ms']:.4f} ms with the answers as seeds "
+        f"(graph replay); without seeds it is x{ratio:.2f} its bound of "
+        f"{row['bound_ms']:.4f} ms: x{work / evals_bound:.2f} from "
+        f"evaluating {work:.2f} frames' worth per frame where the bound "
+        f"counts {evals_bound:.2f}, x{ratio * evals_bound / work:.2f} from "
+        f"evaluating slower than the card's int32 rate (on {card})")
+
+
+def big_frames(torch, np, synth):
+    """BIG_FRAMES NV21 frames of BIG_W x BIG_H on the card, their budgets
+    (four times 320x240's; one unfittable), pixel rows and thresholds."""
+    host = np.stack([nv21(np, p, BIG_W, BIG_H) for p in synth.rand_frames(
+        BIG_W, BIG_H, BIG_FRAMES, seed=17)])
+    frames = torch.from_numpy(host).to(torch.device("cuda", 0))
+    budgets = torch.full((BIG_FRAMES,), 4 * BUDGET, dtype=torch.int32,
+                         device=frames.device)
+    budgets[1] = UNFIT_BUDGET
+    return select_inputs(torch, frames, budgets, BIG_W, BIG_H)
+
+
+def check_big(torch, tag, name, kernel, plain, c, thr, card):
+    """A select kernel on frames whose rows do not fit shared memory:
+    equal to its plain version without seeds and with wrong ones, every
+    frame read from global memory."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    want = plain()
+    for case, seeds in (("none", None), ("answers + 1", want[0] + 1)):
+        stats = torch.full((c.shape[0], len(bs_cuda.STAT_NAMES)), -1,
+                           dtype=torch.int32, device=c.device)
+        got = kernel(seeds, stats)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want, name)
+        say(f"[{tag}] {name} on {c.shape[0]} frames {BIG_W}x{BIG_H} (NB = "
+            f"{c.shape[2]}), seeds {case}: max |kernel - plain| = {err}; "
+            f"scales {want[0].tolist()}; {stats_text(torch, stats)}")
+        if err or not (stats[:, 4] == 1).all():
+            raise AssertionError(f"{name} at {BIG_W}x{BIG_H}: wrong answer "
+                                 "or not the global-memory reader")
+
+
+def ptxas_report(log, source):
+    """Phase 2: registers, stack and spill bytes that ptxas reports for
+    each function of ``source`` (from the build's ``-Xptxas -v`` output):
+    the kernels, and the functions they call but do not inline."""
+    import re
+
+    section = log.partition(f"== {source}\n")[2].partition("\n== ")[0]
+    found = re.findall(
+        r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) "
+        r"bytes spill stores, (\d+) bytes spill loads(?:\s+ptxas info\s+: "
+        r"Used (\d+) registers)?", section)
+    if not found:
+        raise AssertionError(f"no ptxas report for {source} in the build's "
+                             "output")
+    kernel = ""
+    for name, stack, stores, loads, regs in found:
+        entry = next((k for k in ("select_pix_kernel", "select_kernel")
+                      if k in name), None)
+        if entry:
+            kernel = short = entry
+        else:
+            # partial_totals<kEx, Reader>, listed after the kernel calling it
+            m = re.search(r"\d+([a-z_]+)ILb(\d)E.*?(\w+Reader)", name)
+            short = (f"{kernel}'s {m[1]}<kEx={m[2]}, {m[3][-12:]}>" if m
+                     else name[-40:])
+        used = f"{regs} registers, " if regs else ""
+        say(f"[2] ptxas {source} {short}: {used}{stack} bytes stack frame, "
+            f"{stores} bytes spill stores, {loads} bytes spill loads")
+
+
 def check_kernels(torch, np, synth, card):
     """Phase 3: each BS kernel == its plain version; returns the timings
     and bounds of the first check of each."""
@@ -474,6 +728,9 @@ def check_kernels(torch, np, synth, card):
             lambda: bs_cuda.select_scale_pix(pix, thr),
             lambda: bs_cuda.select_scale_pix_plain(pix, thr), (pix, thr),
             select_ops(torch, nb, 1))
+        if codec == bs_ops.BS_V2:
+            select_pix_checks(torch, np, synth, card, results, pix, budgets,
+                              dc_bits, thr, scale)
         sidx = torch.where(scale <= 63, scale, 1)
         eof = 0x1FF if codec == bs_ops.BS_V2 else 0x3FF
         vals32, e0, _, _ = check(
@@ -496,6 +753,57 @@ def check_kernels(torch, np, synth, card):
             raise AssertionError("one scatter_add_ on prepared indices "
                                  "differs from K4")
     return results
+
+
+def bound_evals(torch, scale):
+    """Evaluations per frame that the bound counts (see select_ops)."""
+    return float(torch.where((scale > 1) & (scale <= 63), 2, 1).to(
+        torch.float64).mean())
+
+
+def select_pix_checks(torch, np, synth, card, results, pix, budgets, dc_bits,
+                      thr, scale):
+    """Phase 3, K1's search: the seed cases with one frame unfittable,
+    the seeded times on the row's own thresholds, frames whose subsample
+    misleads, and 640x480 frames."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    name = "select_scale_pix"
+    nb = pix.shape[2]
+    budgets_u = budgets.clone()
+    budgets_u[UNFIT_FRAME] = UNFIT_BUDGET
+    thr_u = bs_ops.ac_threshold(
+        budgets_u, dc_bits.sum(dim=1, dtype=torch.int32), nb)
+    want = bs_cuda.select_scale_pix_plain(pix, thr_u)
+    if int(want[0][UNFIT_FRAME]) != 64:
+        raise AssertionError("phase 3: the unfittable frame fits")
+    c_abs = want[3][:, :63, :nb].to(torch.int32).abs()
+    check_seed_cases(torch, 3, name,
+                     lambda seeds, stats: bs_cuda.select_scale_pix(
+                         pix, thr_u, seeds, stats_out=stats),
+                     want, c_abs, thr_u, bs_cuda.K1_THREADS, card)
+    lane_balance(torch, 3, c_abs, scale)
+
+    def kernel(seeds, stats):
+        return bs_cuda.select_scale_pix(pix, thr, seeds, stats_out=stats)
+
+    stats = torch.zeros((pix.shape[0], len(bs_cuda.STAT_NAMES)),
+                        dtype=torch.int32, device=pix.device)
+    kernel(None, stats)
+    seeded_times(torch, 3, name, results[name], kernel, (scale,), stats,
+                 bound_evals(torch, scale),
+                 bs_cuda.search_groups(nb, bs_cuda.K1_THREADS), card)
+    check_misleading(torch, 3, name, pix, bs_cuda.K1_THREADS,
+                     lambda p, c, t, seeds, st: bs_cuda.select_scale_pix(
+                         p, t, seeds, stats_out=st), card)
+
+    pixb, thrb = big_frames(torch, np, synth)
+    check_big(torch, 3, name,
+              lambda seeds, st: bs_cuda.select_scale_pix(pixb, thrb, seeds,
+                                                         stats_out=st),
+              lambda: bs_cuda.select_scale_pix_plain(pixb, thrb), pixb, thrb,
+              card)
 
 
 def scatter_add_call(torch, vals32, e0):
@@ -652,6 +960,35 @@ def throughput(torch, np, synth, card, out_dir):
         say(f"[6] {label} end to end: {len(frame_list) / dt:.1f} frames/s "
             f"({len(frame_list)} frames, H2D + device + D2H + headers) on "
             f"{card}")
+        carried_seed_hits(torch, label, frames, budgets, 8, card)
+
+
+def carried_seed_hits(torch, label, frames, budgets, n_batches, card):
+    """Phase 6: K1's statistics over ``n_batches`` batches of ``frames``
+    seeded as an encoder could carry seeds: the first batch not at all,
+    each later frame with the scale of the last frame of the batch before.
+    BsFrameEncoder does not do so; this says what it would buy."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    pix, thr = select_inputs(torch, frames, budgets)
+    rows = []
+    seed = None
+    for _ in range(n_batches):
+        stats = torch.zeros((frames.shape[0], len(bs_cuda.STAT_NAMES)),
+                            dtype=torch.int32, device=frames.device)
+        seeds = None if seed is None else seed.expand(
+            frames.shape[0]).contiguous()
+        scale = bs_cuda.select_scale_pix(pix, thr, seeds, stats_out=stats)[0]
+        seed = scale[-1:].clamp(max=63)
+        if seeds is not None:
+            rows.append(stats)
+    seeded = torch.cat(rows)
+    torch.cuda.synchronize()
+    say(f"[6] {label} K1 with seeds carried from batch to batch (the "
+        f"encoder carries none) over the {n_batches - 1} seeded batches "
+        f"of {frames.shape[0]} frames (seed {int(seed)}; scales "
+        f"{int(scale.min())}..{int(scale.max())}): "
+        f"{stats_text(torch, seeded)} (on {card})")
 
 
 def adpcm_kernel(torch, np, synth, card):
@@ -828,6 +1165,8 @@ def block_stream_kernels(torch, np, synth, card):
         select_ops(torch, nb, 0))
     if int(scale[UNFIT_FRAME]) != 64 or not (scale[:UNFIT_FRAME] <= 63).all():
         raise AssertionError("phase 10: the unfittable frame was not found")
+    select_checks(torch, np, synth, card, results, c, thr, scale,
+                  bs_ops.rearrange_nv21_rows(frames, W, H))
     sidx = torch.where(scale <= 63, scale, 1)
     emit_ops = B * nb * 63 * OPS_EMIT_COEF
     emit_args = (sidx, dc_code, dc_bits)
@@ -873,6 +1212,52 @@ def block_stream_kernels(torch, np, synth, card):
           lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
           (codes, bits), lambda out: codes.numel() * OPS_PACK_SYMBOL)
     return results, (c64, sidx, dc_code, dc_bits)
+
+
+def select_checks(torch, np, synth, card, results, c, thr, scale, pix):
+    """Phase 10, K6's search: the seed cases (frame 5 is unfittable), the
+    seeded times, frames made from the pixel rows ``pix`` whose subsample
+    misleads, 640x480 frames, and a frame with a coefficient over 16
+    bits, which alone is read from global memory."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    name = "select_scale"
+
+    def kernel(seeds, stats):
+        return bs_cuda.select_scale(c, thr, seeds, stats_out=stats)
+
+    want = bs_cuda.select_scale_plain(c, thr)
+    cold = check_seed_cases(torch, 10, name, kernel, want, c.abs(), thr,
+                            bs_cuda.K6_THREADS, card)
+    seeded_times(torch, 10, name, results[name], kernel, want, cold,
+                 bound_evals(torch, scale),
+                 bs_cuda.search_groups(c.shape[2], bs_cuda.K6_THREADS), card)
+    check_misleading(torch, 10, name, pix, bs_cuda.K6_THREADS,
+                     lambda p, cm, t, seeds, st: bs_cuda.select_scale(
+                         cm, t, seeds, stats_out=st), card)
+
+    pixb, thrb = big_frames(torch, np, synth)
+    cb = bs_ops.pixrows_to_coefs_zz(pixb).contiguous()
+    check_big(torch, 10, name,
+              lambda seeds, st: bs_cuda.select_scale(cb, thrb, seeds,
+                                                     stats_out=st),
+              lambda: bs_cuda.select_scale_plain(cb, thrb), cb, thrb, card)
+
+    wide = c[:8].clone()
+    wide[2, 5, 7] = -70000
+    stats = torch.full((8, len(bs_cuda.STAT_NAMES)), -1, dtype=torch.int32,
+                       device=c.device)
+    got = bs_cuda.select_scale(wide, thr[:8], stats_out=stats)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, got, bs_cuda.select_scale_plain(wide, thr[:8]),
+                      name)
+    say(f"[10] {name} with a coefficient of -70,000 in frame 2 of 8: max "
+        f"|kernel - plain| = {err}; reader per frame (1 = global memory) "
+        f"{stats[:, 4].tolist()}")
+    if err or stats[:, 4].tolist() != [0, 0, 1, 0, 0, 0, 0, 0]:
+        raise AssertionError("select_scale: the over-16-bit frame is wrong "
+                             "or was not read from global memory")
 
 
 def words_equal(torch, got, ref, total_bits):
@@ -1177,6 +1562,7 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         f.write(_build.build_log)
+    ptxas_report(_build.build_log, "bs_select.cu")
 
     rows = check_kernels(torch, np, synth, card)
     video = main_path(torch, np, synth, digests)

@@ -291,22 +291,4 @@ __device__ __forceinline__ void stream_to_u32(const uint32_t (&w)[16], int g,
   }
 }
 
-// ------------------------------------------------------------ reductions
-
-// Sum of v over the block, returned to every thread. ``scratch`` holds
-// one int per warp; the trailing barrier lets the caller reuse it.
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xFFFFFFFFu, v, off);
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < nwarps; ++w) total += scratch[w];
-  __syncthreads();
-  return total;
-}
-
 }  // namespace psx

@@ -30,12 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures: every pointer and the stream as c_void_p.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "psx_select_scale_pix": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "psx_select_scale_pix": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P],
     "psx_dc_stage": [_P, _I, _I, _I, _P, _P, _P],
     "psx_emit_prep": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "psx_place_vals": [_P, _P, _I, _I, _I, _P, _P],
     "psx_place_vals_gather": [_P, _P, _I, _I, _I, _P, _P],
-    "psx_select_scale": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "psx_select_scale": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "psx_select_constants": [_P],
     "psx_emit_pack": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "psx_place_streams": [_P, _P, _I, _I, _I, _P, _P],
     "psx_pack_block_streams": [_P, _P, _I, _I, _P, _P, _P],
@@ -44,7 +46,9 @@ _SIGNATURES = {
 }
 
 _lib = None
-build_log = ""  # the compiler's output (ptxas register/spill report)
+# The compiler's output (ptxas register/spill report), kept beside the
+# library so that a later process can read it too.
+build_log = ""
 
 
 def find_nvcc():
@@ -68,7 +72,10 @@ def build():
     for name in HEADERS + SOURCES:
         h.update(name.encode() + (CSRC / name).read_bytes())
     out = BUILD_DIR / f"libpsx_torch_kernels_{h.hexdigest()[:16]}.so"
+    log_file = out.with_suffix(".log")
     if out.exists():
+        if log_file.exists():
+            build_log = log_file.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as td:
@@ -92,6 +99,7 @@ def build():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{build_log}")
+        log_file.write_text(build_log)
         os.replace(tmp, out)
     return out
 

@@ -12,6 +12,8 @@ The kernel sources carry the design notes: what each replaces, what bounds
 it on the H100, and what the design does about it.
 """
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -82,10 +84,275 @@ def _first_fit(ca, thr_ac):
     return scale, bits, nz
 
 
-def select_scale_pix_plain(pix, thr_ac):
+# ------------------------------------ the kernels' search, step for step
+
+# The search's constants, which ``csrc/bs_select.cu`` has too: the first
+# launch holds the two copies against each other (_check_constants).
+SUBSAMPLE = 8          # self-seeding reads every eighth pair of blocks
+MAX_GROUPS = 8         # scales one self-seeding round probes at most
+MAX_FUSED = 3          # stepping passes before the ladder gallops and bisects
+K1_THREADS = 480       # 15 warps: two even trips over 900 pairs of blocks
+K6_THREADS = 928       # 29 warps: one pair of blocks per thread at 900
+# The kernels' statistics per frame: full ladder evaluations, fused passes,
+# exact evaluations, self-seeding rounds, which reader ran (0: shared
+# memory, 1: global memory), and SM cycles before the search (K1's FDCT,
+# K6's copy), in self-seeding rounds and in full evaluations.
+STAT_NAMES = ("ladder", "fused", "exact", "sub_rounds", "global_reader",
+              "fill_cycles", "seed_cycles", "eval_cycles")
+COUNT_STATS = 4        # the first columns, which the plain model counts too
+_CONSTANTS = (SUBSAMPLE, MAX_GROUPS, MAX_FUSED, K1_THREADS, K6_THREADS,
+              len(STAT_NAMES))
+_constants_checked = False
+
+
+def _check_constants():
+    """Raises unless the built kernels were compiled with this module's
+    constants: the plain model of the search counts what the kernels do
+    only then."""
+    global _constants_checked
+    if _constants_checked:
+        return
+    got = (ctypes.c_int * len(_CONSTANTS))()
+    _build.lib().psx_select_constants(got)
+    if tuple(got) != _CONSTANTS:
+        raise RuntimeError(f"csrc/bs_select.cu was built with the constants "
+                           f"{tuple(got)}, ops/bs_cuda.py has {_CONSTANTS}")
+    _constants_checked = True
+
+
+def ladder_lb_plain(ca, d):
+    """The ladder lower-bound terms of |coefs| ``ca`` (..., 63, NB) at
+    divisors ``d`` broadcastable to it: per nonzero, the run-0 code length
+    of its level class plus a run-aware bonus (the torch counterpart of
+    psxavenc_tpu's ``ladder_lb``, which proves the bound and that it never
+    rises with the scale). level >= k iff ca + d // 2 >= k * d."""
+    ge = bs_ops._ge
+    t = ca + (d >> 1)
+    nz = t >= d
+    c2 = ge(t, 2 * d)
+    c3 = ge(t, 3 * d)
+    lb = 3 + 2 * c2 + c3 + 2 * ge(t, 4 * d) + ge(t, 5 * d) + 2 * ge(t, 7 * d)
+    run = bs_ops._runs(nz, ca.ndim - 2)
+    g = (run.clamp(max=3) + ge(run, 5) + ge(run, 8) + ge(run, 10)
+         + 2 * ge(run, 14) + ge(run, 17))
+    return torch.where(nz, lb + torch.where(run >= 1, c2 + c3, 0) + g, 0)
+
+
+def _ladder_totals(ca, s):
+    """The ladder lower bound per frame of ``ca`` (B, 63, NB) at scale s."""
+    d = bs_ops.quant_zz(ca.device)[None, :, None] * s
+    return ladder_lb_plain(ca, d).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def subsample_mask(nb, device):
+    """(NB,) bool: the blocks the self-seeding reads, pairs (2j, 2j + 1)
+    with j a multiple of SUBSAMPLE."""
+    return (torch.arange(nb, device=device) >> 1) % SUBSAMPLE == 0
+
+
+def _subsample(ca):
+    return ca[..., subsample_mask(ca.shape[-1], ca.device)]
+
+
+def misleading_frames(pix, scale=12):
+    """Frames whose subsample says nothing true of them, made from pixel
+    rows ``pix`` (B, 64, NB) int8 (for tests and measurements): the even
+    frames are flat on the subsample's blocks, so self-seeding names scale
+    1, and the odd frames flat on all the others, so it names a scale far
+    too high. Returns (pix, thr_ac) with each threshold the frame's exact
+    total at ``scale``: the answer is at most ``scale`` and, for noisy
+    pixels, far from what the subsample names, so the search has to gallop
+    and bisect with ladder evaluations."""
+    sub = subsample_mask(pix.shape[2], pix.device)
+    pix = pix.clone()
+    pix[0::2] = torch.where(sub, 0, pix[0::2])
+    pix[1::2] = torch.where(sub, pix[1::2], 0)
+    ca = bs_ops.pixrows_to_coefs_zz(pix).abs()
+    return pix, _exact_totals(ca, scale)[0]
+
+
+def search_groups(nb, threads):
+    """How many scales one self-seeding round of a ``threads``-wide CTA
+    probes on a frame of ``nb`` blocks: the subsample's pairs take a group
+    of whole warps (one pair a thread), and every such group of the CTA
+    probes a scale of its own."""
+    n_sub = -(-((nb + 1) // 2) // SUBSAMPLE)
+    group = min(threads, -(-n_sub // 32) * 32)
+    return min(threads // group, MAX_GROUPS)
+
+
+def _group_probe(lo, hi, g, groups, hint):
+    """The scale group g of ``groups`` probes inside (lo, hi): with a hint
+    inside it the first two groups take the hint and the scale below, the
+    others spread as they would without."""
+    if lo < hint < hi:
+        if g == 0:
+            return hint
+        if g == 1:
+            return max(hint - 1, lo + 1)
+        g -= 2
+        groups -= 2
+    return min(lo + max((hi - lo) * (g + 1) // (groups + 1), 1), hi - 1)
+
+
+def _search_frame(ca, thr, seed, groups):
+    """One frame of :func:`select_search_plain`: ca (63, NB)."""
+    ca = ca[None]
+    sub = _subsample(ca)
+    count = dict.fromkeys(STAT_NAMES, 0)     # the kernels' columns stay 0
+    # No scale up to lo fits (0: nothing known) and the ladder fits at hi
+    # (64: nothing known). Every evaluation below only tightens the two
+    # from a total it computed, so no seed can change the answer.
+    lo, hi = 0, 64
+    known = {}                       # scale: the fused passes' exact totals
+
+    def ladder(s, data=ca):
+        return int(_ladder_totals(data, s))
+
+    def exact(s):
+        bits, nz = _exact_totals(ca, s)
+        return int(bits), int(nz)
+
+    # The subsample's ladder, scaled to the frame, names a likely scale:
+    # rounds of one probe per group, the first round around the caller's
+    # seed.
+    hint = seed if 1 <= seed <= 63 else 0
+    slo, shi = 0, 64
+    while shi - slo > 1:
+        count["sub_rounds"] += 1
+        for p in [_group_probe(slo, shi, g, groups, hint)
+                  for g in range(groups)]:
+            if ladder(p, sub) * SUBSAMPLE <= thr:
+                shi = min(shi, p)
+            else:
+                slo = max(slo, p)
+        hint = 0
+    # A fused pass: the ladder at s - 1 and the exact totals at s from one
+    # read of the whole frame. It usually closes the bracket; when the
+    # subsample was off, the answer is most often the next scale on the
+    # side the pass points to, so up to MAX_FUSED passes step that way:
+    # upward an exact evaluation is enough (every scale below is known not
+    # to fit), downward it takes a fused pass.
+    s = min(shi, 63)
+    exact_only = False
+    for _ in range(MAX_FUSED):
+        below = max(s - 1, 1)
+        ladder_fits = False
+        if exact_only:
+            count["exact"] += 1
+        else:
+            count["fused"] += 1
+            ladder_fits = ladder(below) <= thr
+            if ladder_fits:
+                hi = min(hi, below)
+            else:
+                lo = max(lo, below)
+        known[s] = exact(s)
+        if known[s][0] <= thr:               # the ladder is below the exact
+            hi = min(hi, s)
+        elif lo >= s - 1:                    # nothing below s fits, nor s
+            lo = max(lo, s)
+        if hi - lo <= 1:
+            break
+        if ladder_fits:
+            s, exact_only = hi, False        # the answer is below s
+        elif s < 63:
+            s, exact_only = s + 1, True      # nothing up to s fits
+        else:
+            break
+
+    # lower_bound of "the ladder fits": gallop away from a one-sided
+    # bracket with doubling steps, bisect a two-sided one.
+    step = 1
+    while hi - lo > 1:
+        if lo == 0 and hi < 64:
+            probe, step = hi - step, 2 * step
+        elif hi == 64 and lo > 0:
+            probe, step = lo + step, 2 * step
+        else:
+            probe = (lo + hi) >> 1
+        probe = min(max(probe, lo + 1), hi - 1)
+        count["ladder"] += 1
+        if ladder(probe) <= thr:
+            hi = probe
+        else:
+            lo = probe
+
+    # The exact walk upward from the bound's answer; the fused pass's
+    # totals are not computed again.
+    for s in range(hi, 64):
+        if s in known:
+            bits, nz = known[s]
+        else:
+            count["exact"] += 1
+            bits, nz = exact(s)
+        if bits <= thr:
+            return s, bits, nz, [count[k] for k in STAT_NAMES]
+    return 64, 0, 0, [count[k] for k in STAT_NAMES]
+
+
+def select_search_plain(c_abs, thr_ac, seeds=None, groups=1):
+    """The search of K1 and K6, evaluation for evaluation (plain torch,
+    frame by frame; for tests and measurements, not a wrapper's CPU path).
+
+    c_abs: (B, 63, NB) |coefs|; thr_ac: (B,); seeds: (B,) search seeds or
+    None, a seed outside 1..63 meaning none; ``groups``: the scales one
+    self-seeding round probes (:func:`search_groups`). Returns
+    (scale, ac_bits, nz, stats): the first three equal :func:`_first_fit`
+    whatever the seeds; stats (B, 8) int32 counts per frame what the first
+    ``COUNT_STATS`` of ``STAT_NAMES`` name: full ladder evaluations, fused
+    passes, exact evaluations, self-seeding rounds (the other columns are
+    the kernels' own and 0 here). A frame first searches a subsample of
+    its blocks for a likely scale, starting at its seed, then checks that
+    scale on all of them: a seed that is the answer costs one such round
+    and one fused pass, where the ladder rules out the scale below."""
+    B = c_abs.shape[0]
+    seed_list = [0] * B if seeds is None else [int(s) for s in seeds]
+    rows = [_search_frame(c_abs[b], int(thr_ac[b]), seed_list[b], groups)
+            for b in range(B)]
+    dev = c_abs.device
+    scale, bits, nz = (torch.tensor([r[k] for r in rows], dtype=torch.int32,
+                                    device=dev) for k in range(3))
+    stats = torch.tensor([r[3] for r in rows], dtype=torch.int32, device=dev)
+    return scale, bits, nz, stats
+
+
+def _check_seeds(seeds, batch, device, name):
+    """``seeds`` as the kernels take it: None, or a (B,) integer tensor on
+    ``device``, returned as contiguous int32. Seeds only order the search
+    (a value outside 1..63 means none); they never change an output."""
+    if seeds is None:
+        return None
+    if (not isinstance(seeds, torch.Tensor) or seeds.shape != (batch,)
+            or seeds.dtype.is_floating_point or seeds.dtype == torch.bool):
+        raise ValueError(f"{name}: seeds must be a (B,) = ({batch},) "
+                         "integer tensor")
+    if seeds.device != device:
+        raise ValueError(f"{name}: seeds are on {seeds.device}, the frames "
+                         f"on {device}")
+    return seeds.to(torch.int32).contiguous()
+
+
+def _stats_arg(stats_out, batch, device, name):
+    if stats_out is None:
+        return None
+    _require(stats_out, torch.int32, 2, f"{name} stats_out")
+    if stats_out.shape != (batch, len(STAT_NAMES)) \
+            or stats_out.device != device:
+        raise ValueError(f"{name}: stats_out must be (B, "
+                         f"{len(STAT_NAMES)}) on {device}")
+    return stats_out
+
+
+def _opt_ptr(t):
+    return _build.ptr(t) if t is not None else None
+
+
+def select_scale_pix_plain(pix, thr_ac, seeds=None):
     """FDCT + first-fit scale selection (plain torch).
 
-    pix: (B, 64, NB) int8 centered pixel rows; thr_ac: (B,) int32.
+    pix: (B, 64, NB) int8 centered pixel rows; thr_ac: (B,) int32;
+    ``seeds`` is ignored (no answer depends on it).
     Returns (scale, ac_bits, nz, coefs): the selection of
     :func:`select_scale_plain` on the FDCT, and the FDCT itself as coefs
     (B, 64, nb_pad) int16 signed zigzag rows, row 63 and the pad lanes
@@ -99,9 +366,20 @@ def select_scale_pix_plain(pix, thr_ac):
     return (*_first_fit(c.abs(), thr_ac), coefs)
 
 
-def select_scale_pix(pix, thr_ac):
-    """K1 (``csrc/bs_select.cu``): see :func:`select_scale_pix_plain`."""
+def select_scale_pix(pix, thr_ac, seeds=None, stats_out=None):
+    """K1 (``csrc/bs_select.cu``): see :func:`select_scale_pix_plain`.
+
+    ``seeds``: optional (B,) integer tensor on the pixels' device, a guess
+    of each frame's scale (a value outside 1..63 means none). It only says
+    where the search looks first and changes no output. ``stats_out``: optional
+    (B, 8) int32 tensor the kernel fills with its evaluation counts and
+    cycles per frame (``STAT_NAMES``); the CPU path zeroes it."""
+    seeds = _check_seeds(seeds, pix.shape[0], pix.device, "select_scale_pix")
+    stats_out = _stats_arg(stats_out, pix.shape[0], pix.device,
+                           "select_scale_pix")
     if not _on_cuda(pix, "select_scale_pix"):
+        if stats_out is not None:
+            stats_out.zero_()
         return select_scale_pix_plain(pix, thr_ac)
     _require(pix, torch.int8, 3, "select_scale_pix pix")
     B, P, nb = pix.shape
@@ -115,29 +393,37 @@ def select_scale_pix(pix, thr_ac):
     bits = torch.empty_like(scale)
     nz = torch.empty_like(scale)
     coefs = torch.empty((B, 64, nb_pad), dtype=torch.int16, device=pix.device)
+    _check_constants()
     LAUNCHES["select_scale_pix"] += 1
     _build.launch("psx_select_scale_pix", pix, _build.ptr(pix),
-                  _build.ptr(thr), B, nb, nb_pad, _build.ptr(scale),
-                  _build.ptr(bits), _build.ptr(nz), _build.ptr(coefs))
+                  _build.ptr(thr), _opt_ptr(seeds), B, nb, nb_pad, K1_THREADS,
+                  _build.ptr(scale), _build.ptr(bits), _build.ptr(nz),
+                  _build.ptr(coefs), _opt_ptr(stats_out))
     return scale, bits, nz, coefs
 
 
 # ------------------------------------------------------------------- K6
 
-def select_scale_plain(c, thr_ac):
+def select_scale_plain(c, thr_ac, seeds=None):
     """First-fit scale selection from coefficients (plain torch).
 
     c: (B, 63, NB) int32 zigzag AC coefficients; thr_ac: (B,) int32 (may
-    be negative: then nothing fits). Returns (scale, ac_bits, nz), each
+    be negative: then nothing fits); ``seeds`` is ignored (no answer
+    depends on it). Returns (scale, ac_bits, nz), each
     (B,) int32: the first s in 1..63 whose exact AC bit total is <= thr_ac
     (64 if none, with ac_bits and nz 0).
     """
     return _first_fit(c.to(torch.int32).abs(), thr_ac)
 
 
-def select_scale(c, thr_ac):
-    """K6 (``csrc/bs_select.cu``): see :func:`select_scale_plain`."""
+def select_scale(c, thr_ac, seeds=None, stats_out=None):
+    """K6 (``csrc/bs_select.cu``): see :func:`select_scale_plain`; |c| <
+    2^17. ``seeds`` and ``stats_out`` as :func:`select_scale_pix`."""
+    seeds = _check_seeds(seeds, c.shape[0], c.device, "select_scale")
+    stats_out = _stats_arg(stats_out, c.shape[0], c.device, "select_scale")
     if not _on_cuda(c, "select_scale"):
+        if stats_out is not None:
+            stats_out.zero_()
         return select_scale_plain(c, thr_ac)
     _require(c, torch.int32, 3, "select_scale c")
     B, P, nb = c.shape
@@ -149,9 +435,11 @@ def select_scale(c, thr_ac):
     scale = torch.empty((B,), dtype=torch.int32, device=c.device)
     bits = torch.empty_like(scale)
     nz = torch.empty_like(scale)
+    _check_constants()
     LAUNCHES["select_scale"] += 1
-    _build.launch("psx_select_scale", c, _build.ptr(c), _build.ptr(thr), B,
-                  nb, _build.ptr(scale), _build.ptr(bits), _build.ptr(nz))
+    _build.launch("psx_select_scale", c, _build.ptr(c), _build.ptr(thr),
+                  _opt_ptr(seeds), B, nb, K6_THREADS, _build.ptr(scale),
+                  _build.ptr(bits), _build.ptr(nz), _opt_ptr(stats_out))
     return scale, bits, nz
 
 

@@ -107,6 +107,166 @@ def test_kernel_matches_plain(dev, name):
         assert torch.equal(g.to(torch.int64), w.to(torch.int64))
 
 
+def _select_inputs(dev, nb, batch=6):
+    """Pixel rows and thresholds for K1, their coefficients for K6, the
+    plain answers (scale, bits, nz) and the coefficient output."""
+    rng = np.random.default_rng(13)
+    pix = rng.integers(-128, 128, (batch, 64, nb)).astype(np.int8)
+    pix[1] //= 4                                   # a smoother frame
+    pix = torch.from_numpy(pix).to(dev)
+    thr = (torch.tensor([20000, 60000, 150000, -1, 10 ** 8, 40000][:batch],
+                        device=dev) * nb // NB).to(torch.int32)
+    c = tbs.pixrows_to_coefs_zz(pix).contiguous()
+    want = bs_cuda.select_scale_pix_plain(pix, thr)
+    return pix, thr, c, want
+
+
+def _seed_cases(answers):
+    """Seed tensors by name: none, the answers (64 becomes 63), and wrong
+    ones: off by one and by seven either way, 1, 63, out of range."""
+    b = answers.shape[0]
+    k = torch.arange(b, device=answers.device)
+    off = torch.tensor([1, -1, 7, -7], device=answers.device)[k % 4]
+    const = torch.tensor([1, 63, 0, 64, -5], device=answers.device)[k % 5]
+    return {"none": None, "hit": answers.clamp(max=63),
+            "shifted": answers + off, "constant": const.to(torch.int32)}
+
+
+def _check_select(kernel, args, seeds, want, c, thr, threads, reader):
+    """The kernel equals the plain answers and does, evaluation for
+    evaluation, what the plain model of the search does."""
+    stats = torch.full((c.shape[0], len(bs_cuda.STAT_NAMES)), -1,
+                       dtype=torch.int32, device=c.device)
+    got = kernel(*args, seeds, stats_out=stats)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    model = bs_cuda.select_search_plain(
+        c.abs(), thr, seeds, bs_cuda.search_groups(c.shape[2], threads))
+    assert all(torch.equal(m, w) for m, w in zip(model[:3], want))
+    assert torch.equal(stats[:, :4], model[3][:, :4])
+    assert stats[:, 4].tolist() == reader
+    # Cycles: before the search and in evaluations always, in self-seeding
+    # rounds where there were any.
+    assert (stats[:, 5] > 0).all() and (stats[:, 7] > 0).all()
+    assert torch.equal(stats[:, 6] > 0, stats[:, 3] > 0)
+    return stats
+
+
+@pytest.mark.parametrize("seeds", ["none", "hit", "shifted", "constant"])
+@pytest.mark.parametrize("name", ["select_scale_pix", "select_scale"])
+def test_select_seeds(dev, name, seeds):
+    """K1 and K6 give the plain answers for any seeds, from shared memory,
+    in the evaluations the plain model counts; a seed that is the answer
+    costs one self-seeding round and the fused pass."""
+    pix, thr, c, want = _select_inputs(dev, NB)
+    seed_t = _seed_cases(want[0])[seeds]
+    if name == "select_scale_pix":
+        stats = _check_select(bs_cuda.select_scale_pix, (pix, thr), seed_t,
+                              want, c, thr, bs_cuda.K1_THREADS, [0] * 6)
+    else:
+        stats = _check_select(bs_cuda.select_scale, (c, thr), seed_t,
+                              want[:3], c, thr, bs_cuda.K6_THREADS, [0] * 6)
+    assert (stats[:, 1] >= 1).all()               # a fused pass, always
+    if seeds == "hit":
+        assert stats[4, :4].tolist() == [0, 1, 0, 1]   # loose: scale 1
+
+
+@pytest.mark.parametrize("seeds", ["none", "shifted"])
+@pytest.mark.parametrize("name", ["select_scale_pix", "select_scale"])
+def test_select_global_reader(dev, name, seeds):
+    """A 640x480 frame's rows do not fit shared memory: the same search
+    reads global memory."""
+    nb = 40 * 30 * 6
+    pix, thr, c, want = _select_inputs(dev, nb, batch=4)
+    seed_t = _seed_cases(want[0])[seeds]
+    if name == "select_scale_pix":
+        _check_select(bs_cuda.select_scale_pix, (pix, thr), seed_t, want, c,
+                      thr, bs_cuda.K1_THREADS, [1] * 4)
+    else:
+        _check_select(bs_cuda.select_scale, (c, thr), seed_t, want[:3], c,
+                      thr, bs_cuda.K6_THREADS, [1] * 4)
+
+
+@pytest.mark.parametrize("seeds", ["none", "shifted"])
+@pytest.mark.parametrize("name", ["select_scale_pix", "select_scale"])
+def test_select_gallop_and_bisect(dev, name, seeds):
+    """Frames whose subsample misleads the search by many scales, both
+    ways: the kernels' ladder gallops and bisects (full ladder evaluations
+    are counted for every frame), evaluation for evaluation as the plain
+    model, and the answers are the plain ones."""
+    pix, _, _, _ = _select_inputs(dev, NB)
+    pix, thr = bs_cuda.misleading_frames(pix, scale=12)
+    c = tbs.pixrows_to_coefs_zz(pix).contiguous()
+    want = bs_cuda.select_scale_pix_plain(pix, thr)
+    assert ((want[0] >= 4) & (want[0] <= 12)).all()
+    seed_t = _seed_cases(want[0])[seeds]
+    if name == "select_scale_pix":
+        stats = _check_select(bs_cuda.select_scale_pix, (pix, thr), seed_t,
+                              want, c, thr, bs_cuda.K1_THREADS, [0] * 6)
+    else:
+        stats = _check_select(bs_cuda.select_scale, (c, thr), seed_t,
+                              want[:3], c, thr, bs_cuda.K6_THREADS, [0] * 6)
+    assert (stats[:, 0] >= 4).all()
+    assert (stats[0::2, 1] == 1).all()            # upward: exact steps
+    assert (stats[1::2, 1] == bs_cuda.MAX_FUSED).all()
+
+
+@pytest.mark.parametrize("nb", [NB, 6 * 37, 585])
+def test_select_scale_wide_frame(dev, nb):
+    """K6 with a magnitude over 16 bits in one frame: that frame alone is
+    read from global memory; also a row length that is not a multiple of
+    four, and an odd one."""
+    pix, thr, c, _ = _select_inputs(dev, max(nb, 600))
+    c = c[:, :, :nb].contiguous()
+    c[2, 5, 7] = -70000
+    want = bs_cuda.select_scale_plain(c, thr)
+    _check_select(bs_cuda.select_scale, (c, thr), None, want, c, thr,
+                  bs_cuda.K6_THREADS, [0, 0, 1, 0, 0, 0])
+
+
+def test_select_writes_only_its_rows(dev):
+    """K1 and K6 leave a guard row after every output untouched, the
+    statistics included."""
+    pix, thr, c, want = _select_inputs(dev, NB)
+    B = pix.shape[0]
+    nb_pad = bs_cuda.nb_padded(NB)
+    for name in ("psx_select_scale_pix", "psx_select_scale"):
+        outs = [torch.full((B + 1,), -9, dtype=torch.int32, device=dev)
+                for _ in range(3)]
+        coefs = torch.full((B + 1, 64, nb_pad), 0x5A5A, dtype=torch.int16,
+                           device=dev)
+        stats = torch.full((B + 1, len(bs_cuda.STAT_NAMES)), -9,
+                           dtype=torch.int32, device=dev)
+        ptrs = [_build.ptr(t) for t in outs]
+        if name == "psx_select_scale_pix":
+            _build.launch(name, pix, _build.ptr(pix), _build.ptr(thr), None,
+                          B, NB, nb_pad, bs_cuda.K1_THREADS, *ptrs,
+                          _build.ptr(coefs), _build.ptr(stats))
+        else:
+            _build.launch(name, c, _build.ptr(c), _build.ptr(thr), None, B,
+                          NB, bs_cuda.K6_THREADS, *ptrs, _build.ptr(stats))
+        torch.cuda.synchronize()
+        for t, w in zip(outs, want):
+            assert torch.equal(t[:B], w) and int(t[B]) == -9
+        assert (stats[B] == -9).all() and (stats[:B] >= 0).all()
+        if name == "psx_select_scale_pix":
+            assert torch.equal(coefs[:B], want[3])
+            assert (coefs[B] == 0x5A5A).all()
+
+
+def test_select_refused_launch_raises(dev, monkeypatch):
+    """A thread count the kernel does not take is an error, not a
+    fallback."""
+    pix, thr, c, _ = _select_inputs(dev, 600, batch=2)
+    monkeypatch.setattr(bs_cuda, "K1_THREADS", 1024)
+    with pytest.raises(RuntimeError):
+        bs_cuda.select_scale_pix(pix, thr)
+    monkeypatch.setattr(bs_cuda, "K6_THREADS", 100)
+    with pytest.raises(RuntimeError):
+        bs_cuda.select_scale(c, thr)
+
+
 def test_place_streams_writes_only_its_rows(dev):
     """K9 on frames whose streams run far past the capacity (scale 2):
     the kernel drops those words and leaves a guard row after the output
