@@ -7,10 +7,13 @@ Phases, one or more lines each:
 1. the card and toolchain;
 2. the kernel build (nvcc, one process per source in
    psxavenc_tpu_torch/csrc, started together), and what ptxas reports for
-   the functions of bs_select.cu: registers, stack and spill bytes;
-3. each BS kernel (K1-K4) against its plain PyTorch version at the video
-   path's shapes (BS 320x240, 128 frames, 18,144-byte budgets), v2 and
-   v3dc: exact equality; the kernel's device time (one wrapper call
+   the functions of bs_select.cu and bs_emit.cu: registers, stack and spill
+   bytes;
+3. each BS kernel (K1-K4, and the tail emission of the blocks over 256
+   bits, also held to the exact flat packer) against its plain PyTorch
+   version at the video path's shapes (BS 320x240, 128 frames, 18,144-byte
+   budgets, every eighth frame noise), v2 and v3dc: exact equality; K3's
+   cycle sections per frame; the kernel's device time (one wrapper call
    captured as a CUDA graph and replayed back to back, so without the
    host's work), one wrapper call's and the plain version's times (CUDA
    events, median). K1's scale search is also checked for every kind of
@@ -22,12 +25,17 @@ Phases, one or more lines each:
    gallops and bisects), and on 640x480 frames, whose rows do not fit
    shared memory;
 4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
-   and v3dc, each codec's bytes equal to its committed digest, K1-K4
-   launched;
+   and v3dc, each codec's bytes equal to its committed digest, K1-K4 and
+   the tail emission launched, the frames with a block over 256 bits
+   counted on the device;
 5. the video CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI,
    equal to the digests;
-6. frames/s: device, end to end and the plain path on the card, with a
-   torch.profiler breakdown of the device step; and what K1's search
+6. frames/s on video, on video with every eighth frame noise and on a
+   batch of noise frames (no block over 256 bits): the device step as the
+   median of seven medians with the least and the greatest, end to end and
+   the plain path on the card, with a torch.profiler breakdown of the
+   device step, which must hold no operation that waits for the device
+   (nonzero, item) and launch the tail emission; and what K1's search
    would do if every batch were seeded with the scale of the frame before
    it (the encoder does not: the statistics say what that would buy);
 7. K5 against its plain version on 4,096 streams x 64 units for
@@ -44,7 +52,9 @@ Phases, one or more lines each:
 10. the symbols API and the per-block-stream packers at the video path's
    width: K6, K7 (both coefficient forms), K9 and K10 against their plain
    versions on phase 4's first 128 frames (video+noise, one frame's
-   budget cut to 200 bytes: unfittable), timed as in phase 3; K6's seed
+   budget cut to 200 bytes: unfittable), timed as in phase 3; the tail
+   emission on the same frames (the unfittable one runs past the
+   capacity), both coefficient forms; K6's seed
    cases as K1's in phase 3, K6 on the misleading frames, on 640x480
    frames and on a frame with a coefficient over 16 bits; every packer of
    api.bs_encode_frames_packed with the kernel sweep and without on
@@ -129,6 +139,9 @@ KERNELS = [
      "psxavenc_tpu/ops/bitpack_pallas.py:453"),
     ("pack_block_streams", "psxavenc_tpu_torch/csrc/bitpack_streams.cu",
      "psxavenc_tpu/ops/bitpack_pallas.py:64"),
+    # No TPU kernel: the flat re-pack that the JAX package leaves to XLA.
+    ("emit_tail", "psxavenc_tpu_torch/csrc/bs_emit.cu",
+     "psxavenc_tpu/api.py:212"),
 ]
 
 # ---------------------------------------------------------------- bounds
@@ -143,7 +156,13 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_FDCT_BLOCK = 900      # K1: two 8x8 islow passes + descale + zigzag
 OPS_SCALE_EVAL = 20       # K1: quantize, run, closed-form bits, per coef
 OPS_DC_BLOCK = 12         # K2: difference, wrap, size, code
-OPS_EMIT_COEF = 24        # K3: quantize, run, code, window placement
+OPS_EMIT_ZERO = 2         # K3, K7: the zero test of a coefficient (compare
+                          #     with half the divisor, OR into the mask)
+OPS_EMIT_NONZERO = 50     # K3, K7: per nonzero level: quantize and clamp,
+                          #     run, code lookup or escape, shift into words
+OPS_EMIT_BLOCK = 60       # K3, K7: DC and EOB codes, the offset's scan,
+                          #     nine shifted and paired words (16 for K7)
+OPS_TAIL_BLOCK = 2        # tail emission: a block's total read and compared
 OPS_PLACE_WORD = 4        # K4, K8, K9: test, offset, bound check, OR
 OPS_FUNNEL_WORD = 6       # K9: shift, carry shift, mask, OR, LE pairing
 OPS_PACK_SYMBOL = 24      # K10: length mask, window index and shifts,
@@ -163,6 +182,23 @@ def bound(n_bytes, ops):
     ms_ops = ops / INT32_OPS_PER_S * 1e3
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
                                                             "operations")
+
+
+def emit_ops(torch, coefs, scale, nb, blocks=None):
+    """The operations of the emission (K3, K7; the tail emission on the
+    (B, NB) mask ``blocks``) on this run's data: a zero test for every
+    coefficient, the quantize-and-code work for those whose level at the
+    frame's scale is nonzero, counted here, and the per-block work."""
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    d = bs_ops.quant_zz(coefs.device)[None, :, None] * scale[:, None, None]
+    nonzero = coefs[:, :63, :nb].abs() >= (d + 1) >> 1
+    n_blocks = coefs.shape[0] * nb
+    if blocks is not None:
+        nonzero = nonzero & blocks[:, None, :]
+        n_blocks = int(blocks.sum())
+    return (n_blocks * (63 * OPS_EMIT_ZERO + OPS_EMIT_BLOCK)
+            + int(nonzero.sum()) * OPS_EMIT_NONZERO)
 
 
 def adpcm_ops(n_units, filter_count):
@@ -413,13 +449,15 @@ def max_abs_err(torch, got, want, name):
 
 
 def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
-            ops_fn, card, library_fn=None):
+            ops_fn, card, library_fn=None, bytes_fn=None):
     """The kernel == its plain version, exactly; prints and keeps (the
     first time per name) the wrapper's device time (``graph_ms``), the
     wrapper call's and the plain version's times (CUDA events, median)
     and the bound computed from ``inputs``, the outputs and
     ``ops_fn(out)``. ``library_fn`` is one PyTorch call computing the same
-    function, timed as the wrapper is."""
+    function, timed as the wrapper is. ``bytes_fn(out)``: the bytes this
+    run's data makes the function move, where that is not all of the
+    inputs and outputs."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -429,12 +467,13 @@ def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
     plain_ms = time_ms(torch, plain_fn, reps=3)
     library_ms = graph_ms(torch, library_fn) if library_fn else None
     outs = got if isinstance(got, tuple) else (got,)
-    bound_ms, bound_by = bound(nbytes(*inputs, *outs), ops_fn(got))
+    bound_ms, bound_by = bound(
+        bytes_fn(got) if bytes_fn else nbytes(*inputs, *outs), ops_fn(got))
     lib = f", one PyTorch call {library_ms:.4f} ms" if library_fn else ""
     say(f"[{tag}] {name} {label}: max |kernel - plain| = {err}; kernel "
         f"{ms:.4f} ms on the device (graph replay; one wrapper call "
-        f"{call_ms:.4f} ms with its host work), plain {plain_ms:.4f} ms{lib}, bound "
-        f"{bound_ms:.4f} ms ({bound_by}) (B={B}, {W}x{H}) on {card}")
+        f"{call_ms:.4f} ms with its host work), plain {plain_ms:.4f} ms{lib}, "
+        f"bound {bound_ms:.4f} ms ({bound_by}) (B={B}, {W}x{H}) on {card}")
     if err:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              "version")
@@ -666,10 +705,12 @@ def check_big(torch, tag, name, kernel, plain, c, thr, card):
                                  "or not the global-memory reader")
 
 
-def ptxas_report(log, source):
+def ptxas_report(log, source, entries):
     """Phase 2: registers, stack and spill bytes that ptxas reports for
     each function of ``source`` (from the build's ``-Xptxas -v`` output):
-    the kernels, and the functions they call but do not inline."""
+    the kernels named in ``entries`` (a template's instance with its
+    argument: a flag, int32 or int16), and the functions they call but do
+    not inline."""
     import re
 
     section = log.partition(f"== {source}\n")[2].partition("\n== ")[0]
@@ -682,10 +723,12 @@ def ptxas_report(log, source):
                              "output")
     kernel = ""
     for name, stack, stores, loads, regs in found:
-        entry = next((k for k in ("select_pix_kernel", "select_kernel")
-                      if k in name), None)
+        entry = next((k for k in entries if k in name), None)
         if entry:
-            kernel = short = entry
+            m = re.search(entry + r"I(?:Lb(\d)|([is]))E", name)
+            arg = "" if not m else f"<{m[1]}>" if m[1] else \
+                {"i": "<int32>", "s": "<int16>"}[m[2]]
+            kernel, short = entry, entry + arg
         else:
             # partial_totals<kEx, Reader>, listed after the kernel calling it
             m = re.search(r"\d+([a-z_]+)ILb(\d)E.*?(\w+Reader)", name)
@@ -694,6 +737,95 @@ def ptxas_report(log, source):
         used = f"{regs} registers, " if regs else ""
         say(f"[2] ptxas {source} {short}: {used}{stack} bytes stack frame, "
             f"{stores} bytes spill stores, {loads} bytes spill loads")
+
+
+def emit_stats_line(torch, tag, coefs, emit_args, eof, card):
+    """K3's cycle sections (its ``stats_out``), means over the frames, and
+    how unevenly its walk fills the warps."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    stats = torch.zeros((coefs.shape[0], len(bs_cuda.EMIT_STAT_NAMES)),
+                        dtype=torch.int32, device=coefs.device)
+    bs_cuda.emit_prep(coefs, *emit_args, eof=eof, stats_out=stats)
+    torch.cuda.synchronize()
+    st = stats.to(torch.float64)
+    parts = ", ".join(f"{name[:-7]} {v:.0f}" for name, v in zip(
+        bs_cuda.EMIT_STAT_NAMES, st.mean(dim=0).tolist()))
+    whole = st[:, [0, 3, 4, 5]].sum(dim=1)
+    say(f"[{tag}] emit_prep SM cycles per frame (one warp's clock, means "
+        f"over {len(st)} frames): {parts}; the whole CTA (tables + emit + "
+        f"scan + store) {float(whole.mean()):.0f}, slowest frame "
+        f"{float(whole.max()):.0f} (on {card})")
+    # The walk lasts as long as a warp's busiest lane: the nonzero levels of
+    # every block, laid out over the trips' threads as the kernel does.
+    nb = emit_args[1].shape[1]
+    d = (bs_ops.quant_zz(coefs.device)[None, :, None]
+         * emit_args[0][:, None, None])
+    count = (coefs[:, :63, :nb].abs() >= (d + 1) >> 1).sum(dim=1)
+    width = bs_cuda.emit_threads(nb)
+    t = torch.arange(width, device=coefs.device)
+    column = (t % (width // 6)) * 6 + t // (width // 6)
+    steps = 0
+    for n0 in range(0, nb, width):
+        n = n0 + column
+        lanes = torch.where(n < nb, count[:, n.clamp(max=nb - 1)], 0)
+        steps += int(lanes.reshape(len(st), -1, 32).max(dim=2).values.sum())
+    say(f"[{tag}] emit_prep walk: {float(count.float().mean()):.2f} nonzero "
+        f"levels a block; its warps take {steps} steps of a nonzero each in "
+        f"all, x{32 * steps / int(count.sum()):.2f} of evenly filled warps")
+    if not (stats[:, [0, 1, 2, 3, 4, 5]] > 0).all():
+        raise AssertionError("emit_prep: a cycle section is empty")
+
+
+def check_tail(torch, results, tag, label, placed, coefs, emit_args,
+               block_bits, eof, card):
+    """The tail emission on ``placed`` (the placement kernel's words, which
+    hold every block's first 256 bits) == its plain version and, as u16
+    words, == the exact flat packer on the same frames; it counts the
+    frames that have a block over 256 bits. Timed as the other kernels:
+    the replayed launch ORs the same bits into its words again. The bound
+    counts the block totals read once and, per long block, its column of
+    coefficients and the words its tail touches."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    kw = dict(capacity_words=CAP_WORDS)
+    long_blocks = block_bits > 256
+    n_long = int(long_blocks.sum())
+    n_frames = int(long_blocks.any(dim=1).sum())
+    tail_bytes = int((block_bits - 256).clamp(min=0).sum()) // 8
+    first, counted = bs_cuda.emit_tail(placed.clone(), coefs, *emit_args,
+                                       block_bits, **kw)
+    flat = api._overflow_words(coefs, emit_args[0] - 1, emit_args[2],
+                               emit_args[1], eof, CAP_WORDS)
+    torch.cuda.synchronize()
+    same = torch.equal(bitpack_ops.words_u16(first, CAP_WORDS), flat)
+    say(f"[{tag}] emit_tail {label}: {n_frames} of {placed.shape[0]} frames "
+        f"have a block over 256 bits ({n_long} blocks, the longest "
+        f"{int(block_bits.max())} bits, longest frame "
+        f"{int(block_bits.sum(dim=1).max()) + 10} bits of {16 * CAP_WORDS}); "
+        f"counted on the device: {int(counted)}; K3 + K4 + the tail emission "
+        f"equal the exact flat packer: {same}")
+    if not same or int(counted) != n_frames:
+        raise AssertionError("emit_tail: the words differ from the flat "
+                             "packer's, or the frames were miscounted")
+    scratch = placed.clone()
+    count = torch.zeros((1,), dtype=torch.int32, device=placed.device)
+    compare(torch, results, tag, "emit_tail", label,
+            lambda: bs_cuda.emit_tail(scratch, coefs, *emit_args, block_bits,
+                                      count=count, **kw)[0],
+            lambda: bs_cuda.emit_tail_plain(placed, coefs, *emit_args,
+                                            block_bits, **kw)[0],
+            (), lambda out: (block_bits.numel() * OPS_TAIL_BLOCK
+                             + emit_ops(torch, coefs, emit_args[0],
+                                        block_bits.shape[1], long_blocks)),
+            card, bytes_fn=lambda out: (
+                nbytes(block_bits, emit_args[0])
+                + n_long * (63 * coefs.element_size() + 8)
+                + 2 * (tail_bytes + 8 * n_long)))
+    return n_frames
 
 
 def check_kernels(torch, np, synth, card):
@@ -733,25 +865,32 @@ def check_kernels(torch, np, synth, card):
                               dc_bits, thr, scale)
         sidx = torch.where(scale <= 63, scale, 1)
         eof = 0x1FF if codec == bs_ops.BS_V2 else 0x3FF
-        vals32, e0, _, _ = check(
+        vals32, e0, block_bits, _ = check(
             "emit_prep", label,
             lambda: bs_cuda.emit_prep(coefs, sidx, dc_code, dc_bits, eof=eof),
             lambda: bs_cuda.emit_prep_plain(coefs, sidx, dc_code, dc_bits,
                                             eof=eof),
             (coefs, sidx, dc_code, dc_bits),
-            lambda out: B * nb * 63 * OPS_EMIT_COEF)
+            lambda out: emit_ops(torch, coefs, sidx, nb))
+        if codec == bs_ops.BS_V2:
+            emit_stats_line(torch, 3, coefs, (sidx, dc_code, dc_bits), eof,
+                            card)
         lib_fn, lib_words = scatter_add_call(torch, vals32, e0)
-        check("place_vals", label,
-              lambda: bitpack_cuda.place_vals(vals32, e0,
-                                              capacity_words=CAP_WORDS),
-              lambda: bitpack_cuda.place_vals_plain(
-                  vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-              lambda out: vals32.numel() * OPS_PLACE_WORD,
-              library_fn=lib_fn)
-        if not torch.equal(lib_words, bitpack_cuda.place_vals(
-                vals32, e0, capacity_words=CAP_WORDS)):
+        placed = check(
+            "place_vals", label,
+            lambda: bitpack_cuda.place_vals(vals32, e0,
+                                            capacity_words=CAP_WORDS),
+            lambda: bitpack_cuda.place_vals_plain(
+                vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
+            lambda out: vals32.numel() * OPS_PLACE_WORD,
+            library_fn=lib_fn)
+        if not torch.equal(lib_words, placed):
             raise AssertionError("one scatter_add_ on prepared indices "
                                  "differs from K4")
+        if not check_tail(torch, results, 3, label, placed, coefs,
+                          (sidx, dc_code, dc_bits), block_bits, eof, card):
+            raise AssertionError("phase 3: no frame has a block over 256 "
+                                 "bits")
     return results
 
 
@@ -851,10 +990,11 @@ def main_path(torch, np, synth, digests):
             f"package's digest; mean quant scale "
             f"{enc.quant_scale_sum / MAIN_FRAMES:.2f}")
     launches = dict(bs_cuda.LAUNCHES, **bitpack_cuda.LAUNCHES)
-    say(f"[4] launches in the video path: {launches}; frames on the "
-        f"overflow path: {api.COUNTERS['overflow_frames']} of "
-        f"{3 * MAIN_FRAMES}")
-    for name in ("select_scale_pix", "dc_stage", "emit_prep", "place_vals"):
+    say(f"[4] launches in the video path: {launches}; frames with a block "
+        f"over 256 bits (counted on the device by the tail emission): "
+        f"{api.COUNTERS['overflow_frames']} of {3 * MAIN_FRAMES}")
+    for name in ("select_scale_pix", "dc_stage", "emit_prep", "place_vals",
+                 "emit_tail"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "video path")
@@ -895,10 +1035,16 @@ def cli_phase(digests, tmp):
                 "start-up)")
 
 
+# Operations that make the host wait for a device value.
+HOST_WAITS = ("aten::nonzero", "aten::item", "aten::_local_scalar_dense",
+              "aten::is_nonzero")
+
+
 def profile_step(torch, step, label, step_ms, card, out_dir, reps=5):
     """Device time by kernel over ``reps`` steps (torch.profiler), against
     the step's CUDA-event time; the full table goes to
-    <out_dir>/profile_<label>.txt."""
+    <out_dir>/profile_<label>.txt. The step must hold no operation of
+    HOST_WAITS."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -910,6 +1056,7 @@ def profile_step(torch, step, label, step_ms, card, out_dir, reps=5):
     rows = prof.key_averages()
     with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
         f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
+    waits = sorted(e.key for e in rows if e.key in HOST_WAITS)
     kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1000 / reps
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
@@ -918,19 +1065,34 @@ def profile_step(torch, step, label, step_ms, card, out_dir, reps=5):
         f"({100 * busy_ms / step_ms:.1f}% of the {step_ms:.3f} ms step); "
         "top: " + "; ".join(
             f"{e.key[:48]} {e.self_device_time_total / 1000 / reps:.3f} ms"
-            for e in top) + f" (on {card})")
+            for e in top) + f"; operations that wait for the device "
+        f"({', '.join(HOST_WAITS)}): {waits or 'none'} (on {card})")
+    if waits:
+        raise AssertionError(f"the {label} device step waits for the "
+                             f"device in {waits}")
+
+
+STEP_REPEATS = 7
 
 
 def throughput(torch, np, synth, card, out_dir):
-    """Phase 6: BS v2 320x240 frames/s at B=128, on synthetic video and
-    on the same with every eighth frame noise (overflow path)."""
+    """Phase 6: BS v2 320x240 frames/s at B=128, on synthetic video, on
+    the same with every eighth frame noise (both have frames with blocks
+    over 256 bits) and on noise frames alone (none has: at 18,144 bytes
+    noise lands on high scales)."""
     from psxavenc_tpu_torch import api
     from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+    from psxavenc_tpu_torch.ops import bs_cuda
 
     dev = torch.device("cuda", 0)
     budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
-    for label, noise_every in (("video", 0), ("video+noise", 8)):
-        host = smoke_frames(np, synth, B, seed=14, noise_every=noise_every)
+    rng = np.random.default_rng(3)
+    mixes = (
+        ("video", smoke_frames(np, synth, B, seed=14, noise_every=0)),
+        ("video+noise", smoke_frames(np, synth, B, seed=14, noise_every=8)),
+        ("noise", rng.integers(0, 256, (B, W * H * 3 // 2)).astype(np.uint8)),
+    )
+    for label, host in mixes:
         frames = torch.from_numpy(host).to(dev)
 
         def step(use_kernels=True):
@@ -938,13 +1100,23 @@ def throughput(torch, np, synth, card, out_dir):
                 frames, budgets, codec=0, width=W, height=H,
                 capacity_words=CAP_WORDS, use_kernels=use_kernels)
 
-        before = api.COUNTERS["overflow_frames"]
+        api.COUNTERS["overflow_frames"] = 0
+        tails = bs_cuda.LAUNCHES["emit_tail"]
         step()
-        overflow = api.COUNTERS["overflow_frames"] - before
-        ms = time_ms(torch, step, reps=20)
+        tails = bs_cuda.LAUNCHES["emit_tail"] - tails
+        overflow = api.COUNTERS["overflow_frames"]
+        if tails != 1 or (overflow > 0) != (label != "noise"):
+            raise AssertionError(
+                f"phase 6, {label}: {tails} launches of the tail emission "
+                f"in a step, {overflow} frames with a block over 256 bits")
+        runs = sorted(time_ms(torch, step, reps=10)
+                      for _ in range(STEP_REPEATS))
+        ms = statistics.median(runs)
         say(f"[6] {label} device: {B / ms * 1000:.1f} frames/s ({ms:.4f} ms "
-            f"per {B}-frame batch, kernels + glue, no H2D; {overflow} of "
-            f"{B} frames on the overflow path) on {card}")
+            f"per {B}-frame batch, the median of {STEP_REPEATS} medians of 10 "
+            f"steps, least {runs[0]:.4f}, greatest {runs[-1]:.4f}; kernels + "
+            f"glue, no H2D; {overflow} of {B} frames have a block over 256 "
+            f"bits, counted on the device) on {card}")
         profile_step(torch, step, label.replace("+", "_"), ms, card, out_dir)
         plain_ms = time_ms(torch, lambda: step(False), reps=3)
         say(f"[6] {label} plain path on the card: "
@@ -960,7 +1132,8 @@ def throughput(torch, np, synth, card, out_dir):
         say(f"[6] {label} end to end: {len(frame_list) / dt:.1f} frames/s "
             f"({len(frame_list)} frames, H2D + device + D2H + headers) on "
             f"{card}")
-        carried_seed_hits(torch, label, frames, budgets, 8, card)
+        if label != "noise":
+            carried_seed_hits(torch, label, frames, budgets, 8, card)
 
 
 def carried_seed_hits(torch, label, frames, budgets, n_batches, card):
@@ -1134,9 +1307,10 @@ def av_path(torch, digests, tmp, card, out_dir):
 
 
 def block_stream_kernels(torch, np, synth, card):
-    """Phase 10, kernels: K6, K7 (both coefficient forms), K9 and K10 ==
-    their plain versions on phase 4's first 128 frames, one of them
-    unfittable. Returns the rows of the kernel table."""
+    """Phase 10, kernels: K6, K7 and the tail emission (both coefficient
+    forms), K9 and K10 == their plain versions on phase 4's first 128
+    frames, one of them unfittable. Returns the rows of the kernel
+    table."""
     from psxavenc_tpu_torch import api
     from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
     from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
@@ -1168,19 +1342,31 @@ def block_stream_kernels(torch, np, synth, card):
     select_checks(torch, np, synth, card, results, c, thr, scale,
                   bs_ops.rearrange_nv21_rows(frames, W, H))
     sidx = torch.where(scale <= 63, scale, 1)
-    emit_ops = B * nb * 63 * OPS_EMIT_COEF
+    pack_ops = emit_ops(torch, c, sidx, nb)
     emit_args = (sidx, dc_code, dc_bits)
     streams, block_bits = check(
         "emit_pack", "(63, NB) int32",
         lambda: bs_cuda.emit_pack(c, *emit_args),
         lambda: bs_cuda.emit_pack_plain(c, *emit_args), (c, *emit_args),
-        lambda out: emit_ops)
+        lambda out: pack_ops)
     c64 = bs_cuda.select_scale_pix(bs_ops.rearrange_nv21_rows(frames, W, H),
                                    thr)[3]
     check("emit_pack", "(64, nb_pad) int16",
           lambda: bs_cuda.emit_pack(c64, *emit_args),
           lambda: bs_cuda.emit_pack_plain(c64, *emit_args),
-          (c64, *emit_args), lambda out: emit_ops)
+          (c64, *emit_args), lambda out: pack_ops)
+
+    vals32, e0, prep_bits, _ = bs_cuda.emit_prep(c64, *emit_args, eof=0x1FF)
+    if not torch.equal(prep_bits, block_bits):
+        raise AssertionError("K3's and K7's block totals differ")
+    placed = bitpack_cuda.place_vals(vals32, e0, capacity_words=CAP_WORDS)
+    for label, coefs in (("(64, nb_pad) int16, one frame unfittable", c64),
+                         ("(63, NB) int32, one frame unfittable", c)):
+        check_tail(torch, results, 10, label, placed, coefs, emit_args,
+                   block_bits, 0x1FF, card)
+    if int(block_bits[UNFIT_FRAME].sum()) <= 16 * CAP_WORDS:
+        raise AssertionError("phase 10: the unfittable frame fits its "
+                             "capacity")
 
     streams, bb = bitpack_ops.with_eof_block(streams, block_bits, 0x1FF)
     goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
@@ -1326,8 +1512,8 @@ def symbols_and_packers(torch, np, synth, digests, card):
     say(f"[10] bs_encode_frames on {B} frames: flat-packed equal to "
         f"fused_mxu; the first {SYMBOLS_FRAMES} frames equal the JAX "
         f"package's digest; launches in phase 10's paths: {launches}")
-    for name in ("select_scale", "emit_pack", "place_vals_gather",
-                 "place_streams", "pack_block_streams"):
+    for name in ("select_scale", "emit_pack", "emit_tail",
+                 "place_vals_gather", "place_streams", "pack_block_streams"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in phase 10")
 
@@ -1562,7 +1748,10 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         f.write(_build.build_log)
-    ptxas_report(_build.build_log, "bs_select.cu")
+    ptxas_report(_build.build_log, "bs_select.cu",
+                 ("select_pix_kernel", "select_kernel"))
+    ptxas_report(_build.build_log, "bs_emit.cu",
+                 ("emit_prep_kernel", "emit_pack_kernel", "emit_tail_kernel"))
 
     rows = check_kernels(torch, np, synth, card)
     video = main_path(torch, np, synth, digests)
@@ -1576,7 +1765,8 @@ def main():
         del full, ref
         av = av_path(torch, digests, tmp, card, out_dir)
         k10_rows, k3_inputs = block_stream_kernels(torch, np, synth, card)
-        rows.update(k10_rows)
+        for name, row in k10_rows.items():
+            rows.setdefault(name, row)      # the tail emission: phase 3's
         blocks = symbols_and_packers(torch, np, synth, digests, card)
         rows["place_vals_gather"] = gather_kernel(torch, k3_inputs, card)
         del k3_inputs

@@ -14,10 +14,12 @@ Counterpart of ``psxavenc_tpu.api``:
 
     NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
     -> AC fit threshold -> FDCT + scale search (K1) -> emission +
-    placement prep (K3) -> placement (K4) -> the overflow path.
+    placement prep (K3) -> placement (K4) -> the tail emission of blocks
+    over 256 bits.
 
 The device is the input tensors' device; on the CPU every kernel runs
-its plain version.
+its plain version. No step of that path on the card waits for the
+device.
 """
 
 import functools
@@ -32,7 +34,45 @@ from .ops import bs as bs_ops
 from .ops import bs_cuda
 from .ops import fdct as fdct_ops
 
-COUNTERS = {"overflow_frames": 0}
+
+class _Counters:
+    """``COUNTERS["overflow_frames"]``: frames with a block over 256 bits
+    that a fused packer met. The tail emission counts them on the frames'
+    device; reading the entry brings those counts to the host, which is
+    the only place where the counter waits for the device. Assigning to
+    the entry discards them. Only these two operations exist: there is no
+    way to read the entry without the counts that are still on a device."""
+
+    def __init__(self):
+        self._host = {"overflow_frames": 0}
+        self._on_device = {}            # device -> (1,) int32 count
+
+    def device_count(self, device):
+        """The (1,) int32 count on ``device`` that the tail emission adds
+        to."""
+        if device not in self._on_device:
+            self._on_device[device] = torch.zeros((1,), dtype=torch.int32,
+                                                  device=device)
+        return self._on_device[device]
+
+    def __iter__(self):
+        return iter(self._host)
+
+    def __getitem__(self, key):
+        for count in self._on_device.values():
+            self._host[key] += int(count.item())
+            count.zero_()
+        return self._host[key]
+
+    def __setitem__(self, key, value):
+        if key not in self._host:
+            raise KeyError(key)
+        for count in self._on_device.values():
+            count.zero_()
+        self._host[key] = value
+
+
+COUNTERS = _Counters()
 
 
 def _adpcm_words(units, limits, prev1, prev2, filter_count, shift_range):
@@ -94,6 +134,7 @@ class _Stages:
             self.select = bs_cuda.select_scale_pix
             self.emit_prep = bs_cuda.emit_prep
             self.emit_pack = bs_cuda.emit_pack
+            self.emit_tail = bs_cuda.emit_tail
             self.place = bitpack_cuda.place_vals
             self.place_gather = bitpack_cuda.place_vals_gather
             self.place_streams = bitpack_cuda.place_streams
@@ -102,6 +143,7 @@ class _Stages:
             self.select = bs_cuda.select_scale_pix_plain
             self.emit_prep = bs_cuda.emit_prep_plain
             self.emit_pack = bs_cuda.emit_pack_plain
+            self.emit_tail = bs_cuda.emit_tail_plain
             self.place = bitpack_cuda.place_vals_plain
             self.place_gather = bitpack_cuda.place_vals_gather_plain
             self.place_streams = bitpack_cuda.place_streams_plain
@@ -189,38 +231,43 @@ def _select_pixels(frames, budgets, codec, width, height, st):
 def _fused_words(sel, packer, prep, eof, capacity_words, st):
     """The fused packers after selection: emission and placement (with
     ``prep``, K3's placement prep and K4, or K8 for ``fused_gather``; else
-    per-block streams), then the overflow path for frames with a block
-    over the 256-bit window. Returns (B, capacity_words) int16 words."""
+    per-block streams), then the part of every block past the 256-bit
+    window: with ``prep`` the tail emission ORs it into the placed words;
+    on the stream routes the frames with such a block take the exact flat
+    path. Returns (B, capacity_words) int16 words."""
     args = (sel["c"], sel["scale_idx"] + 1, sel["dc_code"], sel["dc_bits"])
     if prep:
         vals32, e0, block_bits, _ = st.emit_prep(*args, eof=eof)
         place = st.place_gather if packer == "fused_gather" else st.place
         out32 = place(vals32, e0, capacity_words=capacity_words)
-        words = bitpack_ops.words_u16(out32, capacity_words)
+        out32, _ = st.emit_tail(
+            out32, *args, block_bits, capacity_words=capacity_words,
+            count=COUNTERS.device_count(out32.device))
+        return bitpack_ops.words_u16(out32, capacity_words)
+
+    streams, block_bits = st.emit_pack(*args)
+    streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
+    goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+    total = goff[:, -1] + bb[:, -1]
+    if packer == "fused":
+        place = bitpack_cuda.place_streams_plain    # the XLA stage
+    elif packer == "fused_pallas":
+        place = st.place_streams
+    elif packer == "fused_gather":
+        place = functools.partial(bitpack_cuda.place_streams_gather,
+                                  place=st.place_gather)
     else:
-        streams, block_bits = st.emit_pack(*args)
-        streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
-        goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
-        total = goff[:, -1] + bb[:, -1]
-        if packer == "fused":
-            place = bitpack_cuda.place_streams_plain    # the XLA stage
-        elif packer == "fused_pallas":
-            place = st.place_streams
-        elif packer == "fused_gather":
-            place = functools.partial(bitpack_cuda.place_streams_gather,
-                                      place=st.place_gather)
-        else:
-            place = functools.partial(bitpack_cuda.place_streams_mxu,
-                                      place=st.place)
-        words = bitpack_ops.u16_to_i16(
-            place(streams, goff, total, capacity_words=capacity_words))
+        place = functools.partial(bitpack_cuda.place_streams_mxu,
+                                  place=st.place)
+    words = bitpack_ops.u16_to_i16(
+        place(streams, goff, total, capacity_words=capacity_words))
 
     # Frames with a block over the 256-bit window take the exact path;
     # for every other frame both paths give the same words.
     ovf = (block_bits > 16 * bitpack_ops.BLOCK_CAP_WORDS).any(dim=1)
     idx = torch.nonzero(ovf)[:, 0]
     if idx.numel():
-        COUNTERS["overflow_frames"] += int(idx.numel())
+        COUNTERS.device_count(words.device).add_(idx.numel())
         words[idx] = _overflow_words(
             sel["c"][idx], sel["scale_idx"][idx], sel["dc_bits"][idx],
             sel["dc_code"][idx], eof, capacity_words)
@@ -248,8 +295,9 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     the same bytes); default ``fused_mxu`` with the kernel sweep,
     ``blocks`` without it:
 
-    - ``fused_mxu``: K3 emission + placement prep, then K4 placement; with
-      ``kernel_sweep=False``, K7 emission, then ``streams_to_u32`` + K4;
+    - ``fused_mxu``: K3 emission + placement prep, then K4 placement, then
+      the tail emission; with ``kernel_sweep=False``, K7 emission, then
+      ``streams_to_u32`` + K4;
     - ``fused_gather``: as ``fused_mxu`` with K8 in place of K4;
     - ``fused``: K7 emission, then the plain stream placement
       (psxavenc_tpu's XLA ``_place_streams``);
@@ -260,9 +308,18 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     - ``flat``: K6 (or the sweep), plain symbol emission, ``pack_bits``.
 
     The ``fused*`` packers with the kernel sweep run K1 (and K2 for
-    v3/v3dc) first. Frames with a block over 256 bits are packed by the
-    exact flat path, frame by frame (psxavenc_tpu sends the whole batch;
-    the bytes are the same). ``total_bits`` is the selection's for the
+    v3/v3dc) first. A block over 256 bits: ``fused_mxu`` and
+    ``fused_gather`` with the kernel sweep place every block's first 256
+    bits with K3 and K4 (K8) and the rest with the tail emission
+    (``ops.bs_cuda.emit_tail``, the same file as K3; its plain version on
+    the CPU and with ``use_kernels=False``), on the card with no plain
+    packing and no wait for the device. The stream routes (``fused``,
+    ``fused_pallas``, K7 without the kernel sweep) pack the frames that
+    have such a block by the exact flat path (``_overflow_words``), frame
+    by frame, which reads the frames' indices on the host (psxavenc_tpu
+    sends the whole batch there; the bytes are the same).
+    ``COUNTERS["overflow_frames"]`` counts those
+    frames either way. ``total_bits`` is the selection's for the
     fused packers and the packer's for the others; they differ only on an
     unfittable frame. ``use_kernels=False`` runs the plain versions on
     any device (for measuring the plain path; never chosen

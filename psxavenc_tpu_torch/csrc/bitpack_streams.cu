@@ -5,7 +5,7 @@
 // (_pack_kernel); plain version: ops/bitpack_cuda.py::
 // pack_block_streams_plain (ops/bitpack.py:_pack_block_streams). Each
 // block's S (code, bits) symbols are placed in order into eight MSB-first
-// u32 windows in registers (psx::place_code, shared with K3 and K7) and
+// u32 windows in registers (psx::place_code) and
 // written as its 16-word u16 stream and its bit count. Symbols of 0 bits
 // are skipped and each code is masked to its length, as the windowed
 // shift/mask of _pack_block_streams does; bits past the 256th are cut
@@ -19,7 +19,7 @@
 // _place_streams). The TPU kernel swept each frame's blocks in order
 // through a sliding 256-lane window with dynamic lane rotates, because it
 // has no scatter; here each block computes its nine placed u32 words
-// (psx::stream_to_u32, as K3 does) and ORs every nonzero one below cap32
+// (psx::stream_to_u32) and ORs every nonzero one below cap32
 // into the zeroed output with atomicOr. Different blocks' words are
 // bit-disjoint, so the order does not matter. Words at or past cap32 drop
 // (the TPU kernel instead clamps its flushes for an unfittable frame); the

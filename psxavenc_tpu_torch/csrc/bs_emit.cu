@@ -1,24 +1,53 @@
-// K3 and K7: winner emission + per-block packing, one thread per block.
+// K3 and K7: winner emission + per-block packing, one thread per block,
+// and the tail emission of blocks longer than the 256-bit window.
 //
 // K3 replaces psxavenc_tpu/ops/bs_pallas.py::emit_prep_pallas
 // (_emit_prep_kernel, _emit_chunk_windows); plain version:
 // ops/bs_cuda.py::emit_prep_plain. K7 replaces bs_pallas.py::
 // emit_pack_pallas (_emit_pack_kernel); plain version: ops/bs_cuda.py::
-// emit_pack_plain. Both run emit_block below.
+// emit_pack_plain. The tail emission has no TPU kernel behind it: it
+// replaces the flat re-pack that psxavenc_tpu/api.py:212-235 leaves to XLA;
+// plain version: ops/bs_cuda.py::emit_tail_plain. All three run emit_block
+// below.
 //
-// emit_block, per block at the frame's chosen scale: quantize the 63 AC
-// positions (round half away from zero, clamp to [-0x200, 0x1FE]), keep
-// the zero-run length as a counter, and place DC, the nonzero ACs'
-// closed-form codes and the EOB into eight MSB-first u32 windows held in
-// registers (256 bits; longer blocks are cut here and sent down the exact
-// overflow path by the caller, which gates on block_bits).
+// emit_block, per block at the frame's chosen scale, in two passes:
+//  A. find: the 63 AC positions are read once (no divide) and a 63-bit
+//     mask of the positions whose level is nonzero is built: level != 0 iff
+//     |c| >= ceil(d / 2);
+//  B. walk: only the set bits are visited. Each is quantized (round half
+//     away from zero by the exact div_floor, clamp to [-0x200, 0x1FE]), its
+//     run is the distance to the set bit before it, its code comes from a
+//     table in shared memory (levels up to 7 at runs up to 31, levels up to
+//     40 at runs 0 and 1; else the 22-bit escape), and the code goes into a
+//     64-bit shift register that hands a finished MSB-first u32 word to the
+//     sink whenever 32 bits are full. A warp so lasts as long as its
+//     busiest lane's nonzero count, not as long as the union of its lanes'.
+// Word w of a block holds its bits [32w, 32w + 32). The window sink stores
+// words 0..7 (the 256-bit window) in shared memory as they are finished
+// (later words are dropped, block_bits counts them; eight registers chosen
+// by a run-time index would cost sixteen instructions a word); the tail sink
+// takes words 8 and up and ORs them into the frame's placed words at the
+// block's frame-global bit offset.
 //
-// K3, one CTA per frame, then:
+// K3 and K7 read the coefficients from a tile in shared memory, 63 rows by
+// one block per thread, that the CTA fills asynchronously (no register held
+// meanwhile): a thread that loads its own column from global memory waits
+// for each of the 63 rows in turn. K3 fills its tile with 63 bulk copies of a
+// row each, K7, whose rows may start on any boundary, with 16-byte cp.async
+// copies or element by element. The tail emission reads global memory: its
+// blocks are few.
+//
+// K3, one CTA per frame (a frame's blocks in as few even trips as 960
+// threads allow, a tile per trip; the next trip's rows are asked into L2
+// before a trip's emission, so that they leave HBM meanwhile), then:
 //  2. a CTA-wide exclusive scan over the block totals, with the 10-bit EOF
 //     block at index NB, gives each block's frame-global bit offset;
-//  3. each block's windows are funnel-shifted to their sub-word alignment
-//     and packed as little-endian u16 pairs into nine u32 words
-//     (ops/bitpack.py:streams_to_u32), at u32 offset e0 = goff >> 5.
+//  3. each block's windows, parked in shared memory meanwhile (in the
+//     vals32 output itself for frames too large for that), are shifted to
+//     their sub-word alignment with nine funnel shifts and rotated into
+//     little-endian u16 pairs (ops/bitpack.py:streams_to_u32), at u32
+//     offset e0 = goff >> 5, gathered in shared memory and written to
+//     vals32 once, in whole lines.
 // Outputs have NB + 1 entries per frame (no lane padding).
 //
 // K7, a 2-D grid (block tiles x frames), writes each block's windows as
@@ -28,58 +57,313 @@
 // int32 rows; blocks at or past the true NB (dc_code's width) emit
 // nothing.
 //
-// What bounds them on the H100: integer issue rate of the per-block symbol
-// walk (63 positions x quantize + Huffman + two-row window update). The
-// windows live in registers (every window index is a compile-time
-// constant); K3's raw windows wait for the scan in the vals32 output
-// itself (read back by the thread that wrote them), and only the block
-// totals pass through shared memory.
+// The tail emission, one CTA per frame after the placement kernel: a frame
+// without a block over 256 bits leaves after reading its block totals;
+// otherwise the CTA counts the frame, scans the totals for the offsets,
+// lists its long blocks and walks them, a thread each.
+//
+// What bounds them on the H100: K3 the walk's dependent integer work and
+// the arrival of a frame's first tile, during which nothing computes; K7 the
+// bytes of its coefficients and streams. See PERF.md for the sections'
+// cycles (K3's stats output).
 #include "bs_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kPackThreads = 256;
+constexpr int kMaxThreads = 960;   // K3: ten groups of 96
+constexpr int kPackThreads = 96;   // K7
+// A tile's row stride is a constant, so that the 63 row offsets of a
+// column are immediates and not 63 registers.
+constexpr int kTileStride = kMaxThreads;
+constexpr int kTailThreads = 256;
+constexpr int kWindowBits = 256;
+constexpr int kEmitStats = 8;  // ops/bs_cuda.py:EMIT_STAT_NAMES
 
-// The frame's 63 AC divisors and their f32 reciprocals, into shared memory.
-__device__ void load_divisors(int* qd, float* qrcp, int s) {
-  if (threadIdx.x < 63) {
-    const int d = psx::kQuantZZ[threadIdx.x] * s;
-    qd[threadIdx.x] = d;
-    qrcp[threadIdx.x] = 1.0f / static_cast<float>(d);
+// ---- asynchronous copies into shared memory
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+                 "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::
+                   : "memory");
+}
+// Asks L2 for ``bytes`` (a multiple of 16, from a 16-byte boundary) that a
+// later copy will read, so that they leave HBM while the CTA computes.
+__device__ __forceinline__ void prefetch_l2(const void* gmem, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(gmem),
+               "r"(bytes));
+}
+
+// Bulk copies (the card's copy engine moves a whole row per instruction) that
+// report to a barrier in shared memory: the barrier's phase ends when the
+// one expected arrival has come and every expected byte has landed.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+      shared_addr(bar)));
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// ``bytes``: a multiple of 16, both addresses on 16-byte boundaries.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(shared_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+// Waits for the end of the barrier's phase of parity ``phase``.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, int phase) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+// ---- end of the asynchronous copies
+
+// Starts the copy of a tile: rows[p * stride + n0 + t] for p < 63 and
+// t < width (columns at or past ``stride`` are left out) into
+// tile[p * kStride + t]. ``vec``: 16-byte copies (width, stride and n0 are
+// multiples of 16 bytes of T and ``rows`` is so aligned); else element by
+// element. cp_async_wait and a barrier complete it.
+template <int kStride, typename T>
+__device__ __forceinline__ void stage_tile(T* tile, const T* rows, int stride,
+                                           int n0, int width, bool vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec) {
+    const int chunks = width / kVec;
+    for (int i = threadIdx.x; i < 63 * chunks; i += blockDim.x) {
+      const int p = i / chunks, t = (i - p * chunks) * kVec;
+      if (n0 + t < stride)
+        cp_async(tile + p * kStride + t,
+                 rows + static_cast<size_t>(p) * stride + n0 + t, 16);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 63 * width; i += blockDim.x) {
+      const int p = i / width, t = i - p * width;
+      if (n0 + t >= stride) continue;
+      const T* src = rows + static_cast<size_t>(p) * stride + n0 + t;
+      T* dst = tile + p * kStride + t;
+      if (sizeof(T) == 4) cp_async(dst, src, 4); else *dst = *src;
+    }
+  }
+}
+
+// The first warp starts the bulk copy of a tile of int16 rows (as
+// stage_tile's, 16-byte aligned: whole rows of ``width`` columns, cut at
+// ``stride``), a row per lane and instruction; barrier_wait(bar, phase)
+// completes it. Every thread must have left the tile's last contents.
+template <int kStride>
+__device__ __forceinline__ void stage_tile_bulk(int16_t* tile,
+                                                const int16_t* rows,
+                                                int stride, int n0, int width,
+                                                uint64_t* bar) {
+  if (threadIdx.x >= 32) return;
+  const int bytes = 2 * min(width, stride - n0);
+  if (threadIdx.x == 0) barrier_expect(bar, 63 * bytes);
+  __syncwarp();
+  for (int p = threadIdx.x; p < 63; p += 32)
+    bulk_copy(tile + p * kStride, rows + static_cast<size_t>(p) * stride + n0,
+              bytes, bar);
+}
+
+// Per-frame tables in shared memory, filled by the CTA itself: the 63 AC
+// divisors (psx::kQuantZZ times the frame's scale) with their f32
+// reciprocals and their zero-test thresholds, and the AC codes
+// (psx::ac_bits_code) as (bits << 24 | code of the positive level), 0 where
+// the pair is an escape.
+constexpr int kLow = 7 * 32, kHigh = 2 * 33;
+struct EmitTables {
+  int2 div[63];  // (divisor, bits of its f32 reciprocal)
+  int thr[63];
+  // [(level - 1) * 32 + run] for levels 1..7 at runs 0..31, then
+  // [kLow + run * 33 + level - 8] for runs 0..1 at levels 8..40
+  uint32_t code[kLow + kHigh];
+};
+
+__device__ __forceinline__ void load_tables(EmitTables& t, int s) {
+  for (int i = threadIdx.x; i < kLow + kHigh + 63; i += blockDim.x) {
+    if (i < kLow + kHigh) {
+      const int j = i - kLow;
+      const int r = i < kLow ? i & 31 : j / 33;
+      const int a = i < kLow ? (i >> 5) + 1 : j % 33 + 8;
+      int bits;
+      uint32_t code;
+      psx::ac_bits_code(r, a, bits, code);
+      // No table code is as long as the 22-bit escape.
+      const uint32_t e =
+          bits == 22 ? 0u : (static_cast<uint32_t>(bits) << 24) | code;
+      t.code[i] = e;
+    } else {
+      const int p = i - kLow - kHigh;
+      const int d = psx::kQuantZZ[p] * s;
+      t.div[p] = make_int2(d, __float_as_int(1.0f / static_cast<float>(d)));
+      t.thr[p] = (d + 1) >> 1;
+    }
   }
   __syncthreads();
 }
 
-// Emission of block ``n`` (coefficient rows 0..62 at ``stride``) into the
-// windows ``acc``; returns its bits (DC + ACs + EOB, uncut).
-template <typename T>
-__device__ __forceinline__ int emit_block(const T* coefs, int stride, int n,
-                                          int dcb, uint32_t dcc,
-                                          const int* qd, const float* qrcp,
-                                          uint32_t (&acc)[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0;
-  psx::place_code(acc, 0, dcb, dcc);
-  int o = dcb, run = 0;
-  for (int p = 0; p < 63; ++p) {
-    const int c = coefs[p * stride + n];
-    const int d = qd[p];
-    const int mag = psx::div_floor((c < 0 ? -c : c) + (d >> 1), d, qrcp[p]);
-    int ac = c < 0 ? -mag : mag;
-    ac = min(max(ac, -0x200), 0x1FE);
-    if (ac) {
-      int bits;
-      uint32_t code;
-      psx::ac_bits_code(run, ac, bits, code);
-      psx::place_code(acc, o, bits, code);
-      o += bits;
-      run = 0;
-    } else {
-      ++run;
+// (bits, code) of the nonzero level ``ac`` at run ``r`` from the tables.
+__device__ __forceinline__ void ac_lookup(const EmitTables& t, int r, int ac,
+                                          int& bits, uint32_t& code) {
+  // No branch: a warp's lanes hold levels of every size.
+  const int a = ac < 0 ? -ac : ac;
+  const bool low = a <= 7;
+  const bool listed = low ? r < 32 : (a <= 40 && r < 2);
+  const int at = low ? ((a - 1) << 5) + r : kLow + r * 33 + a - 8;
+  const uint32_t e = listed ? t.code[listed ? at : 0] : 0u;
+  if (e) {
+    bits = static_cast<int>(e >> 24);
+    code = (e & 0xFFFFFFu) | (ac < 0 ? 1u : 0u);
+  } else {
+    bits = 22;
+    code = (1u << 16) | static_cast<uint32_t>((r << 10) | (ac & 0x3FF));
+  }
+}
+
+// The shift register of the walk: codes enter at the low end, finished u32
+// words leave from the top. ``fill`` < 32 between calls.
+template <typename Sink>
+struct BitWriter {
+  Sink& sink;
+  uint64_t buf = 0;
+  int fill = 0, w = 0;
+  __device__ __forceinline__ explicit BitWriter(Sink& s) : sink(s) {}
+  // Appends a ``b``-bit code (0 <= b <= 32, no bits above b).
+  __device__ __forceinline__ void put(int b, uint32_t code) {
+    buf = (buf << b) | code;
+    fill += b;
+    if (fill >= 32) {
+      fill -= 32;
+      sink.word(w++, static_cast<uint32_t>(buf >> fill));
     }
   }
-  psx::place_code(acc, o, 2, 0x2u);  // EOB
+  // Hands over the last, partly filled word (zeros below its bits).
+  __device__ __forceinline__ void finish() {
+    if (fill) sink.word(w, static_cast<uint32_t>(buf << (32 - fill)));
+  }
+};
+
+// Words 0..7 of a block (the 256-bit window), stored as they are finished:
+// word w at ``at[w * step]``. Words the block does not reach are not
+// written; load_windows reads them as zeros.
+struct WindowSink {
+  uint32_t* at;
+  int step;
+  __device__ __forceinline__ void word(int w, uint32_t v) {
+    if (w < 8) at[w * step] = v;
+  }
+};
+
+// The eight window words of a block of ``bits`` bits that a WindowSink
+// stored at ``at``.
+__device__ __forceinline__ void load_windows(uint32_t (&acc)[8],
+                                             const uint32_t* at, int step,
+                                             int bits) {
+  const int words = (bits + 31) >> 5;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = k < words ? at[k * step] : 0u;
+}
+
+// Words 8 and up of a block, ORed into the frame's placed u32 words
+// (MSB-first u16 words as little-endian pairs, ops/bitpack.py:
+// streams_to_u32) at the block's frame-global bit offset ``g``. u16 words
+// at or past ``cap_words`` drop.
+struct TailSink {
+  int* out;
+  int g, cap_words;
+  __device__ __forceinline__ void word(int w, uint32_t v) {
+    if (w < 8 || v == 0) return;
+    const int bit = g + 32 * w;
+    const int k = bit >> 4;
+    // The word's 32 bits inside the three u16 words k, k + 1, k + 2.
+    const uint64_t t = static_cast<uint64_t>(v) << (16 - (bit & 15));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const uint32_t h = static_cast<uint32_t>(t >> (32 - 16 * i)) & 0xFFFFu;
+      const int ki = k + i;
+      if (h && ki < cap_words)
+        atomicOr(out + (ki >> 1), static_cast<int>(h << ((ki & 1) * 16)));
+    }
+  }
+};
+
+// The column of a ``width``-wide tile (a multiple of 96) that thread ``t``
+// takes: a warp's lanes get blocks of one kind (a macroblock is Cr, Cb and
+// four Y blocks in a row, and chroma blocks are the emptier), so that its
+// lanes' walks are of like length.
+__device__ __forceinline__ int lane_column(int t, int width) {
+  const int per_kind = width / 6;
+  return (t % per_kind) * 6 + t / per_kind;
+}
+
+// Emission of one block, whose coefficient at scan position p + 1 is
+// ``col[p * kStride]`` (``stride`` where kStride is 0), into ``sink``;
+// returns its bits (DC + ACs + EOB, uncut). The lanes of ``meet`` (all of
+// the warp's lanes that make this call, or 0) meet after pass A, and
+// ``find_end``, where not null, receives the clock there.
+template <int kStride, typename T, typename Sink>
+__device__ __forceinline__ int emit_block(const T* __restrict__ col,
+                                          int stride, int dcb, uint32_t dcc,
+                                          const EmitTables& t, Sink& sink,
+                                          unsigned meet = 0,
+                                          long long* find_end = nullptr) {
+  if (kStride) stride = kStride;
+  uint32_t half[2] = {0, 0};
+#pragma unroll
+  for (int p = 0; p < 63; ++p) {
+    const int c = col[p * stride];
+    const uint32_t nz = (c < 0 ? -c : c) >= t.thr[p];
+    half[p >> 5] |= nz << (p & 31);
+  }
+  if (meet) __syncwarp(meet);
+  if (find_end) *find_end = clock64();
+  BitWriter<Sink> bw(sink);
+  bw.put(dcb, dcc);
+  int o = dcb, prev = -1;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    uint32_t mask = half[h];
+    while (mask) {
+      const int p = 32 * h + __ffs(static_cast<int>(mask)) - 1;
+      mask &= mask - 1;
+      const int c = col[p * stride];
+      const int2 dv = t.div[p];
+      const int mag = psx::div_floor((c < 0 ? -c : c) + (dv.x >> 1), dv.x,
+                                     __int_as_float(dv.y));
+      const int ac = min(max(c < 0 ? -mag : mag, -0x200), 0x1FE);
+      int bits;
+      uint32_t code;
+      ac_lookup(t, p - prev - 1, ac, bits, code);
+      prev = p;
+      bw.put(bits, code);
+      o += bits;
+    }
+  }
+  bw.put(2, 0x2u);  // EOB
+  bw.finish();
   return o + 2;
 }
 
@@ -116,66 +400,152 @@ __device__ int block_exclusive_scan(int* a, int n, int* scratch) {
   return total;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of K3: nb + 1 block totals (then offsets); unless
+// ``kParkGlobal``, a block's eight raw windows between phases 1 and 3, window
+// k of block n at [k * nb + n] (else they wait in the frame's vals32 rows);
+// the trip's coefficient tile, 63 rows of kTileStride int16 values, which
+// phase 3 reuses for the trip's nine placed words a block.
+template <bool kParkGlobal>
+__global__ void __launch_bounds__(kMaxThreads)
 emit_prep_kernel(const int16_t* __restrict__ coefs_in, int nb_pad, int nb,
                  const int* __restrict__ scale_in,
                  const int* __restrict__ dc_code_in,
                  const int* __restrict__ dc_bits_in, int eof, int* vals_out,
                  int* __restrict__ e0_out, int* __restrict__ bbits_out,
-                 int* __restrict__ total_out) {
-  extern __shared__ int goff[];  // nb + 1 block totals, then offsets
-  __shared__ int qd[63];
-  __shared__ float qrcp[63];
+                 int* __restrict__ total_out, int* __restrict__ stats_out) {
+  extern __shared__ __align__(16) int goff[];
+  __shared__ EmitTables tables;
   __shared__ int scratch[32];
+  __shared__ __align__(8) uint64_t tile_bar;
 
   const int b = blockIdx.x;
   const int nbe = nb + 1;
+  const int width = blockDim.x;
   const int16_t* coefs = coefs_in + static_cast<size_t>(b) * 64 * nb_pad;
+  if (threadIdx.x == 0) barrier_init(&tile_bar);
+  __syncthreads();
   int* vals = vals_out + static_cast<size_t>(b) * nbe * 9;
-  load_divisors(qd, qrcp, scale_in[b]);
-
-  // --- 1. per-block emission into registers; raw windows parked in vals.
-  for (int n = threadIdx.x; n < nb; n += blockDim.x) {
-    const size_t i = static_cast<size_t>(b) * nb + n;
-    uint32_t acc[8];
-    const int o = emit_block(coefs, nb_pad, n, dc_bits_in[i],
-                             static_cast<uint32_t>(dc_code_in[i]), qd, qrcp,
-                             acc);
-    goff[n] = o;
-    bbits_out[i] = o;
+  uint32_t* park = kParkGlobal ? reinterpret_cast<uint32_t*>(vals)
+                               : reinterpret_cast<uint32_t*>(goff + nbe);
+  const int park_n = kParkGlobal ? 9 : 1, park_k = kParkGlobal ? 1 : nb;
+  int* tile_words = goff + ((nbe + (kParkGlobal ? 0 : 8 * nb) + 3) & ~3);
+  int16_t* tile = reinterpret_cast<int16_t*>(tile_words);
+  // Statistics: the first lane of the last warp (a warp of luma blocks)
+  // reads the clock; its warp meets before each reading, so that a section
+  // is the warp's and not one lane's.
+  __shared__ int st[kEmitStats];
+  const bool stats_on = stats_out != nullptr;
+  const bool timed = stats_on && threadIdx.x == blockDim.x - 32;
+  long long t = 0;
+  // The cycles since the last call, into column ``k``.
+  auto lap = [&](int k) {
+    if (timed) {
+      const long long now = clock64();
+      st[k] += static_cast<int>(now - t);
+      t = now;
+    }
+  };
+  if (timed) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) vals[n * 9 + k] = static_cast<int>(acc[k]);
+    for (int k = 0; k < kEmitStats; ++k) st[k] = 0;
+    t = clock64();
+  }
+  stage_tile_bulk<kTileStride>(tile, coefs, nb_pad, 0, width, &tile_bar);
+  load_tables(tables, scale_in[b]);
+  const int column = lane_column(threadIdx.x, width);
+  lap(0);
+
+  // --- 1. per-block emission into registers; raw windows parked.
+  int phase = 0;
+  for (int n0 = 0; n0 < nb; n0 += width, phase ^= 1) {
+    // The block's DC code is fetched while the tile is on its way.
+    const int n = n0 + column;
+    const size_t i = static_cast<size_t>(b) * nb + n;
+    int dcb = 0;
+    uint32_t dcc = 0;
+    if (n < nb) {
+      dcb = dc_bits_in[i];
+      dcc = static_cast<uint32_t>(dc_code_in[i]);
+    }
+    long long tw = 0;
+    if (timed) tw = clock64();
+    barrier_wait(&tile_bar, phase);
+    if (timed) st[6] += static_cast<int>(clock64() - tw);
+    // The next trip's rows start towards L2 before this trip's emission.
+    if (n0 + width < nb && threadIdx.x < 63)
+      prefetch_l2(coefs + static_cast<size_t>(threadIdx.x) * nb_pad + n0 +
+                      width,
+                  2 * min(width, nb_pad - n0 - width));
+    // With statistics a warp's emitting lanes meet around each pass.
+    const unsigned meet = stats_on ? __ballot_sync(0xFFFFFFFFu, n < nb) : 0u;
+    if (n < nb) {
+      WindowSink sink{park + n * park_n, park_k};
+      long long ta = 0, tb = 0;
+      if (timed) ta = clock64();
+      const int o = emit_block<kTileStride>(tile + column, 0, dcb, dcc,
+                                            tables, sink, meet,
+                                            timed ? &tb : nullptr);
+      if (meet) __syncwarp(meet);
+      if (timed) {
+        st[1] += static_cast<int>(tb - ta);
+        st[2] += static_cast<int>(clock64() - tb);
+      }
+      goff[n] = o;
+      bbits_out[i] = o;
+    }
+    if (timed) tw = clock64();
+    __syncthreads();
+    if (timed) st[7] += static_cast<int>(clock64() - tw);
+    if (n0 + width < nb)
+      stage_tile_bulk<kTileStride>(tile, coefs, nb_pad, n0 + width, width,
+                                   &tile_bar);
   }
   if (threadIdx.x == 0) goff[nb] = 10;  // the end-of-frame code
   __syncthreads();
+  lap(3);
 
   // --- 2. frame-global bit offsets.
   const int total = block_exclusive_scan(goff, nbe, scratch);
   if (threadIdx.x == 0) total_out[b] = total;
+  lap(4);
 
-  // --- 3. funnel shift + LE u16-pair packing (streams_to_u32).
-  for (int n = threadIdx.x; n < nbe; n += blockDim.x) {
-    uint32_t acc[8];
-    if (n < nb) {
+  // --- 3. funnel shift + LE u16-pair packing (streams_to_u32): the
+  // 256-bit stream moved down by g & 31 bits is nine MSB-first u32 words,
+  // each stored with its halves swapped. A trip's words gather in shared
+  // memory (9 words a block: no bank is hit twice) and leave in order.
+  for (int n0 = 0; n0 < nbe; n0 += width) {
+    const int n = n0 + threadIdx.x;
+    if (n < nbe) {
+      uint32_t acc[8];
+      const int g = goff[n];
+      if (n < nb) {
+        load_windows(acc, park + n * park_n, park_k, goff[n + 1] - g);
+      } else {
+        // The EOF block: a lone 10-bit code at the top of window 0.
+        acc[0] = static_cast<uint32_t>(eof) << 22;
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        acc[k] = static_cast<uint32_t>(vals[n * 9 + k]);
-    } else {
-      // The EOF block: a lone 10-bit code at the top of stream word 0.
-      acc[0] = static_cast<uint32_t>(eof) << 22;
+        for (int k = 1; k < 8; ++k) acc[k] = 0;
+      }
+      const int sh = g & 31;
 #pragma unroll
-      for (int k = 1; k < 8; ++k) acc[k] = 0;
+      for (int j = 0; j < 9; ++j) {
+        const uint32_t w = __funnelshift_r(j < 8 ? acc[j] : 0u,
+                                           j > 0 ? acc[j - 1] : 0u, sh);
+        tile_words[threadIdx.x * 9 + j] =
+            static_cast<int>(__funnelshift_l(w, w, 16));
+      }
+      e0_out[static_cast<size_t>(b) * nbe + n] = g >> 5;
     }
-    uint32_t w[16], v[9];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)  // word i: high, then low half of window i/2
-      w[i] = (i & 1) ? (acc[i >> 1] & 0xFFFFu) : (acc[i >> 1] >> 16);
-    const int g = goff[n];
-    psx::stream_to_u32(w, g, v);
-#pragma unroll
-    for (int j = 0; j < 9; ++j) vals[n * 9 + j] = static_cast<int>(v[j]);
-    e0_out[static_cast<size_t>(b) * nbe + n] = g >> 5;
+    __syncthreads();
+    const int count = min(width, nbe - n0) * 9;
+    for (int i = threadIdx.x; i < count; i += width)
+      vals[n0 * 9 + i] = tile_words[i];
+    __syncthreads();
   }
+  lap(5);
+  if (timed)
+    for (int k = 0; k < kEmitStats; ++k)
+      stats_out[b * kEmitStats + k] = st[k];
 }
 
 template <typename T>
@@ -183,20 +553,30 @@ __global__ void __launch_bounds__(kPackThreads)
 emit_pack_kernel(const T* __restrict__ coefs_in, int rows, int stride, int nb,
                  const int* __restrict__ scale_in,
                  const int* __restrict__ dc_code_in,
-                 const int* __restrict__ dc_bits_in,
+                 const int* __restrict__ dc_bits_in, int vec,
                  int* __restrict__ streams_out, int* __restrict__ bbits_out) {
-  __shared__ int qd[63];
-  __shared__ float qrcp[63];
+  extern __shared__ __align__(16) int tile_words[];
+  __shared__ EmitTables tables;
+  __shared__ uint32_t windows[8 * kPackThreads];
+  T* tile = reinterpret_cast<T*>(tile_words);
   const int b = blockIdx.y;
   const T* coefs = coefs_in + static_cast<size_t>(b) * rows * stride;
-  load_divisors(qd, qrcp, scale_in[b]);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n0 = blockIdx.x * kPackThreads;
+  stage_tile<kPackThreads>(tile, coefs, stride, n0, kPackThreads, vec != 0);
+  load_tables(tables, scale_in[b]);
+  cp_async_wait();
+  __syncthreads();
+  const int column = lane_column(threadIdx.x, kPackThreads);
+  const int n = n0 + column;
   if (n >= nb) return;
   const size_t i = static_cast<size_t>(b) * nb + n;
+  WindowSink sink{windows + threadIdx.x, kPackThreads};
+  const int bits = emit_block<kPackThreads>(
+      tile + column, 0, dc_bits_in[i], static_cast<uint32_t>(dc_code_in[i]),
+      tables, sink);
+  bbits_out[i] = bits;
   uint32_t acc[8];
-  bbits_out[i] = emit_block(coefs, stride, n, dc_bits_in[i],
-                            static_cast<uint32_t>(dc_code_in[i]), qd, qrcp,
-                            acc);
+  load_windows(acc, sink.at, kPackThreads, bits);
   int4* out = reinterpret_cast<int4*>(streams_out + i * 16);
 #pragma unroll
   for (int k = 0; k < 4; ++k)
@@ -206,24 +586,85 @@ emit_pack_kernel(const T* __restrict__ coefs_in, int rows, int stride, int nb,
                        static_cast<int>(acc[2 * k + 1] & 0xFFFFu));
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kTailThreads)
+emit_tail_kernel(const T* __restrict__ coefs_in, int rows, int stride, int nb,
+                 const int* __restrict__ scale_in,
+                 const int* __restrict__ dc_code_in,
+                 const int* __restrict__ dc_bits_in,
+                 const int* __restrict__ bbits_in, int cap32, int cap_words,
+                 int* out32, int* count) {
+  // nb block totals, then offsets; the list of long blocks
+  extern __shared__ __align__(16) int goff[];
+  __shared__ EmitTables tables;
+  __shared__ int scratch[32];
+  __shared__ int n_long;
+
+  const int b = blockIdx.x;
+  const int* bbits = bbits_in + static_cast<size_t>(b) * nb;
+  int any = 0;
+  for (int n = threadIdx.x; n < nb; n += blockDim.x)
+    any |= bbits[n] > kWindowBits;
+  if (!__syncthreads_or(any)) return;
+
+  int* list = goff + nb;
+  if (threadIdx.x == 0) {
+    atomicAdd(count, 1);
+    n_long = 0;
+  }
+  load_tables(tables, scale_in[b]);
+  for (int n = threadIdx.x; n < nb; n += blockDim.x) {
+    const int o = bbits[n];
+    goff[n] = o;
+    if (o > kWindowBits) list[atomicAdd(&n_long, 1)] = n;
+  }
+  __syncthreads();
+  block_exclusive_scan(goff, nb, scratch);
+
+  const T* coefs = coefs_in + static_cast<size_t>(b) * rows * stride;
+  for (int j = threadIdx.x; j < n_long; j += blockDim.x) {
+    const int n = list[j];
+    const int g = goff[n];
+    if (g + kWindowBits >= cap_words * 16) continue;  // all of it drops
+    const size_t i = static_cast<size_t>(b) * nb + n;
+    TailSink sink{out32 + static_cast<size_t>(b) * cap32, g, cap_words};
+    emit_block<0>(coefs + n, stride, dc_bits_in[i],
+                  static_cast<uint32_t>(dc_code_in[i]), tables, sink);
+  }
+}
+
 }  // namespace
 
+// ``threads``: the CTA's width, a multiple of 96 up to 960 (the wrapper
+// spreads the frame's blocks evenly over its trips); ``coefs`` is 16-byte
+// aligned and nb_pad a multiple of 8; ``stats``: null, or (batch, 8) ints
+// that receive the last warp's SM cycles per frame
+// (ops/bs_cuda.py:EMIT_STAT_NAMES).
 extern "C" int psx_emit_prep(const void* coefs, int batch, int nb_pad,
                              int nb, const void* scale, const void* dc_code,
-                             const void* dc_bits, int eof, void* vals32,
-                             void* e0, void* block_bits, void* total_bits,
+                             const void* dc_bits, int eof, int threads,
+                             void* vals32, void* e0, void* block_bits,
+                             void* total_bits, void* stats,
                              void* stream) {
-  const size_t smem = static_cast<size_t>(nb + 1) * sizeof(int);
-  cudaFuncSetAttribute(emit_prep_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (batch == 0) return 0;
+  if (threads < 96 || threads > kMaxThreads || threads % 96 || nb_pad % 8 ||
+      reinterpret_cast<uintptr_t>(coefs) % 16)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  // The raw windows wait in shared memory where a frame's fit.
+  const size_t tile = static_cast<size_t>(63) * kTileStride * sizeof(int16_t);
+  const size_t offsets = (static_cast<size_t>(nb + 1) + 3) / 4 * 16;
+  const size_t parked = (static_cast<size_t>(9 * nb + 1) + 3) / 4 * 16;
+  const bool park_global = parked + tile > 220 * 1024;
+  const size_t smem = (park_global ? offsets : parked) + tile;
+  auto kernel = park_global ? emit_prep_kernel<true> : emit_prep_kernel<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  emit_prep_kernel<<<batch, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(coefs), nb_pad, nb,
       static_cast<const int*>(scale), static_cast<const int*>(dc_code),
       static_cast<const int*>(dc_bits), eof, static_cast<int*>(vals32),
       static_cast<int*>(e0), static_cast<int*>(block_bits),
-      static_cast<int*>(total_bits));
+      static_cast<int*>(total_bits), static_cast<int*>(stats));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,7 +674,8 @@ extern "C" int psx_emit_prep(const void* coefs, int batch, int nb_pad,
 extern "C" int psx_emit_pack(const void* coefs, int coefs_int16, int batch,
                              int rows, int stride, int nb, const void* scale,
                              const void* dc_code, const void* dc_bits,
-                             void* streams, void* block_bits, void* stream) {
+                             void* streams, void* block_bits,
+                             void* stream) {
   if (batch == 0 || nb == 0) return 0;
   const dim3 grid((nb + kPackThreads - 1) / kPackThreads, batch);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -242,13 +684,55 @@ extern "C" int psx_emit_pack(const void* coefs, int coefs_int16, int batch,
   const int* dcb = static_cast<const int*>(dc_bits);
   int* out = static_cast<int*>(streams);
   int* bb = static_cast<int*>(block_bits);
+  // 16-byte copies where every row starts on a 16-byte boundary.
+  const size_t elem = coefs_int16 ? sizeof(int16_t) : sizeof(int);
+  const int vec = reinterpret_cast<uintptr_t>(coefs) % 16 == 0 &&
+                  stride * elem % 16 == 0;
+  const size_t smem = 63 * kPackThreads * elem;
   if (coefs_int16)
-    emit_pack_kernel<int16_t><<<grid, kPackThreads, 0, s>>>(
+    emit_pack_kernel<int16_t><<<grid, kPackThreads, smem, s>>>(
         static_cast<const int16_t*>(coefs), rows, stride, nb, sc, dcc, dcb,
-        out, bb);
+        vec, out, bb);
   else
-    emit_pack_kernel<int><<<grid, kPackThreads, 0, s>>>(
-        static_cast<const int*>(coefs), rows, stride, nb, sc, dcc, dcb, out,
-        bb);
+    emit_pack_kernel<int><<<grid, kPackThreads, smem, s>>>(
+        static_cast<const int*>(coefs), rows, stride, nb, sc, dcc, dcb, vec,
+        out, bb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ORs into ``out32`` (batch, cap32) the bits at or past in-block bit 256 of
+// every block whose ``block_bits`` entry is over 256, at the offsets the
+// exclusive scan of ``block_bits`` gives; adds to ``count`` the number of
+// frames with such a block. Coefficient forms as psx_emit_pack.
+extern "C" int psx_emit_tail(const void* coefs, int coefs_int16, int batch,
+                             int rows, int stride, int nb, const void* scale,
+                             const void* dc_code, const void* dc_bits,
+                             const void* block_bits, int cap32,
+                             int cap_words, void* out32, void* count,
+                             void* stream) {
+  if (batch == 0 || nb == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(2 * nb) * sizeof(int);
+  const int* sc = static_cast<const int*>(scale);
+  const int* dcc = static_cast<const int*>(dc_code);
+  const int* dcb = static_cast<const int*>(dc_bits);
+  const int* bb = static_cast<const int*>(block_bits);
+  int* out = static_cast<int*>(out32);
+  int* cnt = static_cast<int*>(count);
+  if (coefs_int16) {
+    cudaFuncSetAttribute(emit_tail_kernel<int16_t>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    emit_tail_kernel<int16_t><<<batch, kTailThreads, smem, s>>>(
+        static_cast<const int16_t*>(coefs), rows, stride, nb, sc, dcc, dcb,
+        bb, cap32, cap_words, out, cnt);
+  } else {
+    cudaFuncSetAttribute(emit_tail_kernel<int>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    emit_tail_kernel<int><<<batch, kTailThreads, smem, s>>>(
+        static_cast<const int*>(coefs), rows, stride, nb, sc, dcc, dcb, bb,
+        cap32, cap_words, out, cnt);
+  }
   return static_cast<int>(cudaGetLastError());
 }

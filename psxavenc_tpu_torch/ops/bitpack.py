@@ -32,11 +32,20 @@ def pack_bits(codes, bits, *, capacity_words):
     lengths (0 = skip). Returns (words (R, capacity_words) int64 holding
     u16 values, total_bits (R,) int64). Bits past the capacity drop.
     """
+    bits = bits.to(torch.int64)
+    offsets = torch.cumsum(bits, dim=1) - bits
+    return (pack_bits_at(codes, bits, offsets, capacity_words=capacity_words),
+            offsets[:, -1] + bits[:, -1])
+
+
+def pack_bits_at(codes, bits, offsets, *, capacity_words):
+    """:func:`pack_bits` at given bit offsets: (R, S) codes of ``bits``
+    bits (0 = skip, at most 32) whose first bit sits at ``offsets``, with
+    no two of them sharing a bit -> (R, capacity_words) int64 u16 words."""
     codes = codes.to(torch.int64)
     bits = bits.to(torch.int64)
+    offsets = offsets.to(torch.int64)
     R = codes.shape[0]
-    offsets = torch.cumsum(bits, dim=1) - bits
-    total_bits = offsets[:, -1] + bits[:, -1]
     end = offsets + bits
 
     # One spare column collects dropped writes.
@@ -62,7 +71,7 @@ def pack_bits(codes, bits, *, capacity_words):
         idx = torch.where(valid & (w < capacity_words), w, capacity_words)
         # Bit ranges are disjoint, so add == or.
         words.scatter_add_(1, idx, val)
-    return words[:, :capacity_words], total_bits
+    return words[:, :capacity_words]
 
 
 def streams_to_u32(streams, goff):

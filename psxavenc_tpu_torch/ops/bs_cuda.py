@@ -1,4 +1,5 @@
-"""Wrappers and plain versions of the BS kernels K1-K3, K6 and K7.
+"""Wrappers and plain versions of the BS kernels K1-K3, K6 and K7, and
+of the tail emission of blocks longer than the 256-bit window.
 
 Counterpart of ``psxavenc_tpu/ops/bs_pallas.py``. Each kernel has:
 
@@ -23,7 +24,7 @@ from . import bitpack as bitpack_ops
 TILE = 512  # coefficient lane padding, as psxavenc_tpu's select kernel
 
 LAUNCHES = {"select_scale_pix": 0, "dc_stage": 0, "emit_prep": 0,
-            "select_scale": 0, "emit_pack": 0}
+            "select_scale": 0, "emit_pack": 0, "emit_tail": 0}
 
 
 def _on_cuda(t, name):
@@ -560,14 +561,50 @@ def _emit_args(coefs, scale, dc_code, dc_bits, name):
     return scale, dc_code, dc_bits
 
 
-def emit_prep(coefs, scale, dc_code, dc_bits, *, eof):
-    """K3 (``csrc/bs_emit.cu``): see :func:`emit_prep_plain`."""
+EMIT_MAX_THREADS = 960     # ten groups of EMIT_GROUP
+EMIT_GROUP = 96            # whole warps that hold each of a macroblock's six
+                           # kinds of block equally often
+# K3's statistics per frame, SM cycles on the clock of the CTA's last warp
+# (a warp of luma blocks, whose lanes meet around each pass): starting the
+# first tile's copy and loading the tables; its own blocks' find and walk
+# passes; the CTA's whole emission (tiles, passes, parking); the scan; the
+# shift and store; and, inside the emission, its waits for the trips' tiles
+# and for the trips' slowest warps. The CTA's whole time is columns 0, 3, 4
+# and 5 together.
+EMIT_STAT_NAMES = ("tables_cycles", "find_cycles", "walk_cycles",
+                   "emit_cycles", "scan_cycles", "store_cycles",
+                   "tile_wait_cycles", "warp_wait_cycles")
+
+
+def emit_threads(nb):
+    """K3's CTA width for a frame of ``nb`` blocks: the blocks spread
+    evenly over as few trips as EMIT_MAX_THREADS allow, in whole groups
+    of EMIT_GROUP."""
+    trips = max(1, -(-nb // EMIT_MAX_THREADS))
+    per_trip = -(-nb // trips)
+    return max(EMIT_GROUP, -(-per_trip // EMIT_GROUP) * EMIT_GROUP)
+
+
+def emit_prep(coefs, scale, dc_code, dc_bits, *, eof, stats_out=None):
+    """K3 (``csrc/bs_emit.cu``): see :func:`emit_prep_plain`.
+    ``stats_out``: optional (B, 8) int32 tensor the kernel fills with its
+    sections' cycles per frame (``EMIT_STAT_NAMES``); the CPU path zeroes
+    it."""
+    if stats_out is not None:
+        _require(stats_out, torch.int32, 2, "emit_prep stats_out")
+        if stats_out.shape != (coefs.shape[0], len(EMIT_STAT_NAMES)) \
+                or stats_out.device != coefs.device:
+            raise ValueError(f"emit_prep: stats_out must be (B, "
+                             f"{len(EMIT_STAT_NAMES)}) on {coefs.device}")
     if not _on_cuda(coefs, "emit_prep"):
+        if stats_out is not None:
+            stats_out.zero_()
         return emit_prep_plain(coefs, scale, dc_code, dc_bits, eof=eof)
     _require(coefs, torch.int16, 3, "emit_prep coefs")
     B, P, nb_pad = coefs.shape
-    if P != 64:
-        raise ValueError("emit_prep: coefs must be (B, 64, nb_pad)")
+    if P != 64 or nb_pad % 8 or coefs.data_ptr() % 16:
+        raise ValueError("emit_prep: coefs must be (B, 64, nb_pad) with "
+                         "nb_pad a multiple of 8, 16-byte aligned")
     scale, dc_code, dc_bits = _emit_args(coefs, scale, dc_code, dc_bits,
                                          "emit_prep")
     nb = dc_code.shape[1]
@@ -579,8 +616,9 @@ def emit_prep(coefs, scale, dc_code, dc_bits, *, eof):
     LAUNCHES["emit_prep"] += 1
     _build.launch("psx_emit_prep", coefs, _build.ptr(coefs), B, nb_pad, nb,
                   _build.ptr(scale), _build.ptr(dc_code), _build.ptr(dc_bits),
-                  int(eof), _build.ptr(vals32), _build.ptr(e0),
-                  _build.ptr(block_bits), _build.ptr(total))
+                  int(eof), emit_threads(nb), _build.ptr(vals32),
+                  _build.ptr(e0), _build.ptr(block_bits), _build.ptr(total),
+                  _opt_ptr(stats_out))
     return vals32, e0, block_bits, total
 
 
@@ -608,12 +646,7 @@ def emit_pack(coefs, scale, dc_code, dc_bits):
     """K7 (``csrc/bs_emit.cu``): see :func:`emit_pack_plain`."""
     if not _on_cuda(coefs, "emit_pack"):
         return emit_pack_plain(coefs, scale, dc_code, dc_bits)
-    form = (coefs.dtype, coefs.shape[1] if coefs.ndim == 3 else None)
-    if form not in ((torch.int16, 64), (torch.int32, 63)):
-        raise ValueError("emit_pack: coefs must be (B, 64, nb_pad) int16 or "
-                         f"(B, 63, NB) int32, got {coefs.dtype} "
-                         f"{tuple(coefs.shape)}")
-    _require(coefs, coefs.dtype, 3, "emit_pack coefs")
+    int16_form = _coef_form(coefs, "emit_pack")
     scale, dc_code, dc_bits = _emit_args(coefs, scale, dc_code, dc_bits,
                                          "emit_pack")
     B, rows, stride = coefs.shape
@@ -622,7 +655,107 @@ def emit_pack(coefs, scale, dc_code, dc_bits):
     block_bits = torch.empty((B, nb), dtype=torch.int32, device=coefs.device)
     LAUNCHES["emit_pack"] += 1
     _build.launch("psx_emit_pack", coefs, _build.ptr(coefs),
-                  int(coefs.dtype == torch.int16), B, rows, stride, nb,
+                  int16_form, B, rows, stride, nb,
                   _build.ptr(scale), _build.ptr(dc_code), _build.ptr(dc_bits),
                   _build.ptr(streams), _build.ptr(block_bits))
     return streams, block_bits
+
+
+# ------------------------------------------------- the tail emission
+
+WINDOW_BITS = 16 * bitpack_ops.BLOCK_CAP_WORDS
+
+
+def _coef_form(coefs, name):
+    """Checks an emission kernel's coefficient form; returns 1 for
+    (B, 64, nb_pad) int16, 0 for (B, 63, NB) int32."""
+    form = (coefs.dtype, coefs.shape[1] if coefs.ndim == 3 else None)
+    if form not in ((torch.int16, 64), (torch.int32, 63)):
+        raise ValueError(f"{name}: coefs must be (B, 64, nb_pad) int16 or "
+                         f"(B, 63, NB) int32, got {coefs.dtype} "
+                         f"{tuple(coefs.shape)}")
+    _require(coefs, coefs.dtype, 3, f"{name} coefs")
+    return int(coefs.dtype == torch.int16)
+
+
+def _tail_args(out32, block_bits, dc_code, capacity_words, count, name):
+    B, nb = dc_code.shape
+    cap32 = bitpack_ops.cap32_of(capacity_words)
+    _require(out32, torch.int32, 2, f"{name} out32")
+    _require(block_bits, torch.int32, 2, f"{name} block_bits")
+    if out32.shape != (B, cap32) or block_bits.shape != (B, nb) \
+            or block_bits.device != out32.device:
+        raise ValueError(f"{name}: expected out32 (B, {cap32}) and "
+                         "block_bits (B, NB) on one device")
+    if count is None:
+        return torch.zeros((1,), dtype=torch.int32, device=out32.device)
+    _require(count, torch.int32, 1, f"{name} count")
+    if count.shape != (1,) or count.device != out32.device:
+        raise ValueError(f"{name}: count must be (1,) on {out32.device}")
+    return count
+
+
+def emit_tail_plain(out32, coefs, scale, dc_code, dc_bits, block_bits, *,
+                    capacity_words, count=None):
+    """The tail emission (plain torch): the bits at or past in-block bit
+    256 of every block whose ``block_bits`` is over 256, ORed into the
+    placed words at the block's frame-global bit offset (the exclusive
+    sum of ``block_bits``), as the exact flat packer lays them.
+
+    out32: (B, cap32) int32 placed u32 words (K4's or K8's output, which
+    holds every block's first 256 bits); coefs, scale, dc_code, dc_bits:
+    the emission's inputs, either coefficient form; block_bits: (B, NB)
+    int32 uncut block totals (K3's or K7's). u16 words at or past
+    ``capacity_words`` drop. Returns (the words, a new tensor; ``count``,
+    a (1,) int32 tensor on the words' device or a new zero if None, with
+    the number of frames that have such a block added in place)."""
+    count = _tail_args(out32, block_bits, dc_code, capacity_words, count,
+                       "emit_tail")
+    B, nb = dc_code.shape
+    c = coefs[:, :63, :nb].to(torch.int32)
+    codes, bits = bs_ops.emit_symbols_at(
+        c, scale.to(device=c.device, dtype=torch.int32) - 1, dc_bits,
+        dc_code)
+    end = torch.cumsum(bits, dim=2)                  # in-block end offsets
+    keep = (end - WINDOW_BITS).clamp(min=0).minimum(bits)
+    codes = codes & (torch.bitwise_left_shift(torch.ones_like(keep), keep)
+                     - 1)
+    bb = block_bits.to(torch.int64)
+    goff = torch.cumsum(bb, dim=1) - bb
+    at = goff[:, :, None] + end - keep
+    words = bitpack_ops.pack_bits_at(
+        codes.reshape(B, -1), keep.reshape(B, -1), at.reshape(B, -1),
+        capacity_words=capacity_words)
+    pad = 2 * out32.shape[1] - capacity_words
+    pairs = torch.nn.functional.pad(words, (0, pad)).reshape(B, -1, 2)
+    tail32 = bitpack_ops.u32_to_i32(pairs[..., 0] | (pairs[..., 1] << 16))
+    count += (block_bits > WINDOW_BITS).any(dim=1).sum(dtype=torch.int32)
+    return out32 | tail32, count
+
+
+def emit_tail(out32, coefs, scale, dc_code, dc_bits, block_bits, *,
+              capacity_words, count=None):
+    """The tail emission (``csrc/bs_emit.cu``): see
+    :func:`emit_tail_plain`. On the card ``out32`` is updated in place and
+    returned, and ``count`` (a (1,) int32 tensor on the same device; a new
+    zero if None) is added to in place and returned: nothing waits for the
+    device."""
+    if not _on_cuda(out32, "emit_tail"):
+        return emit_tail_plain(out32, coefs, scale, dc_code, dc_bits,
+                               block_bits, capacity_words=capacity_words,
+                               count=count)
+    int16_form = _coef_form(coefs, "emit_tail")
+    if coefs.device != out32.device:
+        raise ValueError("emit_tail: coefs and out32 are on two devices")
+    scale, dc_code, dc_bits = _emit_args(coefs, scale, dc_code, dc_bits,
+                                         "emit_tail")
+    count = _tail_args(out32, block_bits, dc_code, capacity_words, count,
+                       "emit_tail")
+    B, rows, stride = coefs.shape
+    LAUNCHES["emit_tail"] += 1
+    _build.launch("psx_emit_tail", coefs, _build.ptr(coefs), int16_form, B,
+                  rows, stride, dc_code.shape[1], _build.ptr(scale),
+                  _build.ptr(dc_code), _build.ptr(dc_bits),
+                  _build.ptr(block_bits), out32.shape[1],
+                  int(capacity_words), _build.ptr(out32), _build.ptr(count))
+    return out32, count

@@ -19,6 +19,9 @@ from psxavenc_tpu_torch.ops import bitpack_cuda
 from psxavenc_tpu_torch.ops import bs as tbs
 from psxavenc_tpu_torch.ops import bs_cuda
 
+from torch_emit_cases import (EDGE_BITS, code_table_inputs, edge_inputs,
+                              select_form)
+
 pytestmark = pytest.mark.requires_cuda
 
 W, H = 320, 240
@@ -324,6 +327,234 @@ def test_place_vals_gather_writes_only_its_rows(dev):
     want = bitpack_cuda.place_vals_plain(vals32, e0,
                                          capacity_words=2 * cap32)
     assert torch.equal(out[:B], want)
+
+
+# ------------------------------------------- K3, K7 and the tail emission
+
+BIG_NB = 40 * 30 * 6            # 640x480: K3 parks its windows in vals32
+
+
+def _edge(dev, nb, form="int16"):
+    """The hand-made blocks of torch_emit_cases on the card, in either
+    coefficient form; the int32 form with magnitudes over 16 bits."""
+    c, scale, dc_code, dc_bits = edge_inputs(nb)
+    if form == "int32":
+        c[1, 5, nb - 1], c[1, 9, nb - 2] = -70000, 131071
+    coefs = c if form == "int32" else select_form(c)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (coefs, scale, dc_code, dc_bits)]
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nb", [6, 222, 585, BIG_NB])
+def test_emit_prep_on_edge_blocks(dev, nb):
+    """K3 == its plain version on the hand-made blocks (an escape across
+    bit 256, 256 and 257 bits, 63 clamped levels, runs over 31), on frames
+    of one trip, of an uneven last trip, and too large to park in shared
+    memory."""
+    args = _edge(dev, nb)
+    got = bs_cuda.emit_prep(*args, eof=0x3FF)
+    _same(got, bs_cuda.emit_prep_plain(*args, eof=0x3FF))
+    assert got[2][0, :6].tolist() == EDGE_BITS
+
+
+@pytest.mark.parametrize("form", ["int16", "int32"])
+@pytest.mark.parametrize("nb", [6, 222, 585, BIG_NB])
+def test_emit_pack_on_edge_blocks(dev, nb, form):
+    """K7 == its plain version on the same blocks, either coefficient
+    form; the int32 form's rows start on no 16-byte boundary where NB is
+    not a multiple of four."""
+    args = _edge(dev, nb, form)
+    got = bs_cuda.emit_pack(*args)
+    _same(got, bs_cuda.emit_pack_plain(*args))
+    assert got[1][0, :6].tolist() == EDGE_BITS
+
+
+@pytest.mark.parametrize("form", ["int16", "int32"])
+def test_emit_kernels_on_every_code(dev, form):
+    """K3 and K7, whose CTAs make their code tables themselves, == their
+    plain versions (the closed-form codes of ops/bs.py) on blocks that
+    hold one level each: every (run, level) with a variable-length code,
+    both signs, and the escapes around them."""
+    c, scale, dc_code, dc_bits = code_table_inputs()
+    coefs = c if form == "int32" else select_form(c)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (coefs, scale, dc_code, dc_bits)]
+    _same(bs_cuda.emit_pack(*args), bs_cuda.emit_pack_plain(*args))
+    if form == "int16":
+        _same(bs_cuda.emit_prep(*args, eof=0x1FF),
+              bs_cuda.emit_prep_plain(*args, eof=0x1FF))
+
+
+def _placed_edge(dev, nb, form, cap):
+    """The tail emission's inputs: K4's words of K3's prep, the emission's
+    arguments in ``form``, K7's block totals."""
+    prep = bs_cuda.emit_prep_plain(*_edge(dev, nb), eof=0x1FF)
+    placed = bitpack_cuda.place_vals_plain(prep[0], prep[1],
+                                           capacity_words=cap)
+    args = _edge(dev, nb, form)
+    return placed, args, bs_cuda.emit_pack_plain(*args)[1]
+
+
+@pytest.mark.parametrize("form", ["int16", "int32"])
+@pytest.mark.parametrize("nb,cap", [(6, 400), (6, 33), (222, 20000),
+                                    (222, 2001), (585, 20001),
+                                    (BIG_NB, 250000), (BIG_NB, 90001)])
+def test_emit_tail_on_edge_blocks(dev, nb, cap, form):
+    """The tail emission == its plain version, with capacities that hold
+    everything, that cut a frame inside a long block (odd and even) and
+    that end before the first tail; with the int16 form the words equal
+    the exact flat packer's."""
+    from psxavenc_tpu_torch import api
+
+    placed, args, block_bits = _placed_edge(dev, nb, form, cap)
+    count = torch.tensor([5], dtype=torch.int32, device=dev)
+    before = bs_cuda.LAUNCHES["emit_tail"]
+    got, n = bs_cuda.emit_tail(placed.clone(), *args, block_bits,
+                               capacity_words=cap, count=count)
+    assert bs_cuda.LAUNCHES["emit_tail"] == before + 1 and n is count
+    want, _ = bs_cuda.emit_tail_plain(placed, *args, block_bits,
+                                      capacity_words=cap)
+    _same((got,), (want,))
+    assert int(count) == 5 + int((block_bits > 256).any(dim=1).sum()) >= 6
+    if form == "int16":
+        flat = api._overflow_words(args[0], args[1] - 1, args[3], args[2],
+                                   0x1FF, cap)
+        assert torch.equal(tbp.words_u16(got, cap), flat)
+
+
+def test_emit_kernels_write_only_their_rows(dev):
+    """K3, K7 and the tail emission leave a guard row after every output
+    untouched; the tail emission changes no word of a frame without a long
+    block and no count when there is none."""
+    nb = 222
+    coefs, scale, dc_code, dc_bits = _edge(dev, nb)
+    want = bs_cuda.emit_prep_plain(coefs, scale, dc_code, dc_bits, eof=0x1FF)
+    B, nbe = 2, nb + 1
+
+    def guarded(*shape):
+        return torch.full((B + 1, *shape), 0x5A5A5A5A, dtype=torch.int32,
+                          device=dev)
+
+    outs = [guarded(nbe, 9), guarded(nbe), guarded(nb), guarded()]
+    stats = guarded(len(bs_cuda.EMIT_STAT_NAMES))
+    _build.launch("psx_emit_prep", coefs, _build.ptr(coefs), B,
+                  coefs.shape[2], nb, _build.ptr(scale), _build.ptr(dc_code),
+                  _build.ptr(dc_bits), 0x1FF, bs_cuda.emit_threads(nb),
+                  *[_build.ptr(t) for t in outs], _build.ptr(stats))
+    torch.cuda.synchronize()
+    for t, w in zip(outs, want):
+        assert torch.equal(t[:B], w) and (t[B] == 0x5A5A5A5A).all()
+    assert (stats[B] == 0x5A5A5A5A).all() and (stats[:B, :6] > 0).all()
+
+    streams, bbits = guarded(nb, 16), guarded(nb)
+    _build.launch("psx_emit_pack", coefs, _build.ptr(coefs), 1, B, 64,
+                  coefs.shape[2], nb, _build.ptr(scale), _build.ptr(dc_code),
+                  _build.ptr(dc_bits), _build.ptr(streams), _build.ptr(bbits))
+    torch.cuda.synchronize()
+    pack = bs_cuda.emit_pack_plain(coefs, scale, dc_code, dc_bits)
+    for t, w in zip((streams, bbits), pack):
+        assert torch.equal(t[:B], w) and (t[B] == 0x5A5A5A5A).all()
+
+    # Frame 1 at scale 40 has no long block: its words stay as they were.
+    scale = torch.tensor([1, 40], dtype=torch.int32, device=dev)
+    block_bits = bs_cuda.emit_pack_plain(coefs, scale, dc_code, dc_bits)[1]
+    assert int(block_bits[1].max()) <= 256 < int(block_bits[0].max())
+    cap32 = 3000
+    out = guarded(cap32)
+    count = guarded()[:2]
+    for batch, frames in ((B, slice(0, 2)), (1, slice(1, 2))):
+        before = out.clone(), count.clone()
+        _build.launch("psx_emit_tail", coefs, _build.ptr(coefs[frames]), 1,
+                      batch, 64, coefs.shape[2], nb, _build.ptr(scale[frames]),
+                      _build.ptr(dc_code[frames]), _build.ptr(dc_bits[frames]),
+                      _build.ptr(block_bits[frames]), cap32, 2 * cap32,
+                      _build.ptr(out), _build.ptr(count))
+        torch.cuda.synchronize()
+        if batch == B:
+            assert not torch.equal(out[0], before[0][0])
+            assert torch.equal(out[1:], before[0][1:])
+            assert count.tolist() == [0x5A5A5A5A + 1, 0x5A5A5A5A]
+        else:
+            assert torch.equal(out, before[0])
+            assert torch.equal(count, before[1])
+
+
+def test_emit_refused_launch_raises(dev, monkeypatch):
+    """A launch the kernels do not take is an error, not a fallback: K3
+    with a CTA width that is no multiple of 96, the tail emission on a
+    frame whose block totals do not fit shared memory."""
+    args = _edge(dev, 222)
+    monkeypatch.setattr(bs_cuda, "emit_threads", lambda nb: 100)
+    with pytest.raises(RuntimeError):
+        bs_cuda.emit_prep(*args, eof=0x1FF)
+    monkeypatch.undo()
+    nb = 40000
+    coefs = torch.zeros((1, 64, bs_cuda.nb_padded(nb)), dtype=torch.int16,
+                        device=dev)
+    ints = torch.ones((1, nb), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        bs_cuda.emit_tail(torch.zeros((1, 50), dtype=torch.int32, device=dev),
+                          coefs, ints[:, 0], ints, ints, 300 * ints,
+                          capacity_words=100)
+    torch.cuda.synchronize()
+
+
+def test_fused_noise_batch_runs_no_plain_packing(dev, monkeypatch):
+    """fused_mxu and fused_gather on noise frames at generous budgets (low
+    scales: every frame has blocks over 256 bits; the last is unfittable
+    and runs past the capacity) == the flat packer, with the plain
+    packing functions removed and every operation that waits for the
+    device an error; the device counter holds the number of such
+    frames."""
+    from psxavenc_tpu_torch import api
+
+    rng = np.random.default_rng(21)
+    budgets = [150000, 110000, 80000, 60000, 18144, 200]
+    frames = torch.from_numpy(rng.integers(
+        0, 256, (len(budgets), W * H * 3 // 2)).astype(np.uint8)).to(dev)
+    budgets = torch.tensor(budgets, dtype=torch.int32, device=dev)
+    kw = dict(codec=0, width=W, height=H, capacity_words=(150000 - 8) // 2)
+    flat = api.bs_encode_frames_packed(frames, budgets, packer="flat", **kw)
+    sel = api._select_pixels(frames, budgets, 0, W, H, api._KERNELS)
+    block_bits = bs_cuda.emit_pack_plain(sel["c"], sel["scale_idx"] + 1,
+                                         sel["dc_code"], sel["dc_bits"])[1]
+    long_frames = int((block_bits > 256).any(dim=1).sum())
+    assert flat["scale"].tolist()[-1] == 64 and 4 <= long_frames < 6
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain packing on the card")
+
+    for packer in ("fused_mxu", "fused_gather"):
+        api.bs_encode_frames_packed(frames, budgets, packer=packer, **kw)
+        torch.cuda.synchronize()                         # warm
+        api.COUNTERS["overflow_frames"] = 0
+        before = dict(bs_cuda.LAUNCHES)
+        with monkeypatch.context() as m:
+            m.setattr(api, "_overflow_words", forbidden)
+            m.setattr(tbs, "emit_symbols_at", forbidden)
+            m.setattr(tbp, "pack_bits", forbidden)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = api.bs_encode_frames_packed(frames, budgets,
+                                                  packer=packer, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in bs_cuda.LAUNCHES.items()
+               if v - before[k]}
+        assert ran == {"select_scale_pix": 1, "emit_prep": 1, "emit_tail": 1}
+        assert api.COUNTERS["overflow_frames"] == long_frames
+        assert api.COUNTERS["overflow_frames"] == long_frames   # read once
+        for k in ("scale", "nz_count", "words"):
+            assert torch.equal(got[k], flat[k]), (packer, k)
+        assert torch.equal(got["total_bits"][:-1], flat["total_bits"][:-1])
 
 
 @pytest.mark.parametrize("filter_count,shift_range",
