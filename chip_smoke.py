@@ -7,8 +7,9 @@ Phases, one or more lines each:
 1. the card and toolchain;
 2. the kernel build (nvcc, one process per source in
    psxavenc_tpu_torch/csrc, started together), and what ptxas reports for
-   the functions of bs_select.cu and bs_emit.cu: registers, stack and spill
-   bytes;
+   the functions of bs_select.cu, bs_emit.cu, bs_dc.cu and
+   bitpack_streams.cu: registers, stack and spill bytes (K2 and K10 must
+   not spill);
 3. each BS kernel (K1-K4, and the tail emission of the blocks over 256
    bits, also held to the exact flat packer) against its plain PyTorch
    version at the video path's shapes (BS 320x240, 128 frames, 18,144-byte
@@ -23,7 +24,11 @@ Phases, one or more lines each:
    the batch's last scale as every frame's seed and with the answers as
    seeds, run on frames whose subsample misleads it (so that the ladder
    gallops and bisects), and on 640x480 frames, whose rows do not fit
-   shared memory;
+   shared memory. K2 is also checked and timed on v3, on the same DCs made
+   all ties (every step depends on the last) and on 640x480 frames, beside
+   the floor of a launch (an empty kernel, one CTA and K2's grid), and
+   both with ten calls in one graph (the replay's host cost spread over
+   them);
 4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
    and v3dc, each codec's bytes equal to its committed digest, K1-K4 and
    the tail emission launched, the frames with a block over 256 bits
@@ -33,11 +38,15 @@ Phases, one or more lines each:
 6. frames/s on video, on video with every eighth frame noise and on a
    batch of noise frames (no block over 256 bits): the device step as the
    median of seven medians with the least and the greatest, end to end and
-   the plain path on the card, with a torch.profiler breakdown of the
-   device step, which must hold no operation that waits for the device
-   (nonzero, item) and launch the tail emission; and what K1's search
-   would do if every batch were seeded with the scale of the frame before
-   it (the encoder does not: the statistics say what that would buy);
+   the plain path on the card; the step's busy share: the device time of
+   each hand-written kernel it launched (each call timed in a CUDA graph
+   on the step's own inputs, as in phase 3) and of the whole step timed
+   the same way, over the step's CUDA-event time; a torch.profiler list of the
+   step's device operations, which must hold no operation that waits for
+   the device (nonzero, item) and launch the tail emission; and what K1's
+   search would do if every batch were seeded with the scale of the frame
+   before it (the encoder does not: the statistics say what that would
+   buy);
 7. K5 against its plain version on 4,096 streams x 64 units for
    (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8), timed as
    in phase 3;
@@ -54,7 +63,11 @@ Phases, one or more lines each:
    versions on phase 4's first 128 frames (video+noise, one frame's
    budget cut to 200 bytes: unfittable), timed as in phase 3; the tail
    emission on the same frames (the unfittable one runs past the
-   capacity), both coefficient forms; K6's seed
+   capacity), both coefficient forms; K10's achieved GB/s, and K10 on
+   adversarial rows (tests/torch_dc_pack_cases.py: codes with their top
+   bit set or garbage above their length, 0-bit symbols between, rows of
+   256, 257 and far over 256 bits, all-zero rows; S = 65, 17, 130 and
+   600); K6's seed
    cases as K1's in phase 3, K6 on the misleading frames, on 640x480
    frames and on a frame with a coefficient over 16 bits; every packer of
    api.bs_encode_frames_packed with the kernel sweep and without on
@@ -409,11 +422,13 @@ def time_ms(torch, fn, reps=10):
     return statistics.median(times)
 
 
-def graph_ms(torch, fn, reps=20):
-    """Mean device milliseconds of fn's work: one call captured as a CUDA
-    graph, replayed ``reps`` times back to back between CUDA events, so
-    the host's work per call (argument checks, allocation, the launch
-    itself) is not in it."""
+def graph_ms(torch, fn, reps=20, calls=1):
+    """Mean device milliseconds of fn's work: one call (or ``calls`` calls,
+    and then the time of one) captured as a CUDA graph, replayed ``reps``
+    times back to back between CUDA events, so the host's work per call
+    (argument checks, allocation, the launch itself) is not in it. Where
+    the work is shorter than the replay's own host cost (5-8 us a replay
+    on the card's host, PERF.md), one call a graph times that cost."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -422,7 +437,8 @@ def graph_ms(torch, fn, reps=20):
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -432,7 +448,7 @@ def graph_ms(torch, fn, reps=20):
         graph.replay()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return a.elapsed_time(b) / (reps * calls)
 
 
 def max_abs_err(torch, got, want, name):
@@ -710,7 +726,7 @@ def ptxas_report(log, source, entries):
     each function of ``source`` (from the build's ``-Xptxas -v`` output):
     the kernels named in ``entries`` (a template's instance with its
     argument: a flag, int32 or int16), and the functions they call but do
-    not inline."""
+    not inline. Returns {short name: spill bytes (stores + loads)}."""
     import re
 
     section = log.partition(f"== {source}\n")[2].partition("\n== ")[0]
@@ -722,6 +738,7 @@ def ptxas_report(log, source, entries):
         raise AssertionError(f"no ptxas report for {source} in the build's "
                              "output")
     kernel = ""
+    spills = {}
     for name, stack, stores, loads, regs in found:
         entry = next((k for k in entries if k in name), None)
         if entry:
@@ -737,6 +754,8 @@ def ptxas_report(log, source, entries):
         used = f"{regs} registers, " if regs else ""
         say(f"[2] ptxas {source} {short}: {used}{stack} bytes stack frame, "
             f"{stores} bytes spill stores, {loads} bytes spill loads")
+        spills[short] = int(stores) + int(loads)
+    return spills
 
 
 def emit_stats_line(torch, tag, coefs, emit_args, eof, card):
@@ -849,10 +868,7 @@ def check_kernels(torch, np, synth, card):
         if codec == bs_ops.BS_V2:
             dc_bits, dc_code = bs_ops._dc_stage(dc_q, codec)
         else:
-            dc_bits, dc_code = check(
-                "dc_stage", label, lambda: bs_cuda.dc_stage(dc_q, codec),
-                lambda: bs_cuda.dc_stage_plain(dc_q, codec), (dc_q,),
-                lambda out: B * nb * OPS_DC_BLOCK)
+            dc_bits, dc_code = check_dc(torch, results, card, dc_q)
         thr = bs_ops.ac_threshold(
             budgets, dc_bits.sum(dim=1, dtype=torch.int32), nb)
         scale, _, _, coefs = check(
@@ -891,7 +907,59 @@ def check_kernels(torch, np, synth, card):
                           (sidx, dc_code, dc_bits), block_bits, eof, card):
             raise AssertionError("phase 3: no frame has a block over 256 "
                                  "bits")
+    dc_checks(torch, np, synth, card, results["dc_stage"], dc_q)
     return results
+
+
+def check_dc(torch, results, card, dc_q):
+    """Phase 3: K2 on v3dc == its plain version on the DCs ``dc_q``; its
+    row goes into ``results``."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    return compare(torch, results, 3, "dc_stage", "v3dc",
+                   lambda: bs_cuda.dc_stage(dc_q, bs_ops.BS_V3DC),
+                   lambda: bs_cuda.dc_stage_plain(dc_q, bs_ops.BS_V3DC),
+                   (dc_q,), lambda out: dc_q.numel() * OPS_DC_BLOCK, card)
+
+
+def dc_checks(torch, np, synth, card, row, dc_q):
+    """Phase 3, K2 beyond its row (v3dc on the batch's DCs): both codecs
+    on the same DCs, on them made all ties (every DC 2 mod 4, so each step
+    of a chain depends on the one before) and on 640x480 frames, each equal
+    to its plain version and timed; and the floor of a launch, an empty
+    kernel of one CTA and of K2's grid, which goes into K2's ``row``."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    pixb, _ = big_frames(torch, np, synth)
+    cases = (("320x240", dc_q), ("320x240 all ties", (dc_q & ~3) | 2),
+             (f"{BIG_W}x{BIG_H}", bs_ops.dc_quant_from_pixrows(pixb)))
+    for label, dc in cases:
+        for codec, name in ((bs_ops.BS_V3, "v3"), (bs_ops.BS_V3DC, "v3dc")):
+            err = max_abs_err(torch, bs_cuda.dc_stage(dc, codec),
+                              bs_cuda.dc_stage_plain(dc, codec), "dc_stage")
+            ms = graph_ms(torch, lambda: bs_cuda.dc_stage(dc, codec))
+            say(f"[3] dc_stage {label} {name}, {dc.shape[0]} frames of "
+                f"{dc.shape[1]} blocks: max |kernel - plain| = {err}; kernel "
+                f"{ms:.4f} ms on the device (graph replay) on {card}")
+            if err:
+                raise AssertionError(f"dc_stage {label} {name}: kernel "
+                                     "disagrees with its plain version")
+    grid = (dc_q.shape[0], bs_cuda.DC_PARTS * 32)
+    row["floor_ms"] = graph_ms(torch, lambda: bs_cuda.empty_launch(dc_q))
+    row["floor_grid_ms"] = graph_ms(
+        torch, lambda: bs_cuda.empty_launch(dc_q, *grid))
+    ten = [graph_ms(torch, fn, calls=10) for fn in (
+        lambda: bs_cuda.dc_stage(dc_q, bs_ops.BS_V3DC),
+        lambda: bs_cuda.empty_launch(dc_q, *grid))]
+    say(f"[3] dc_stage {row['ms']:.4f} ms (B={B}, {W}x{H}, v3dc; the target "
+        f"is 0.010); the floor of a launch: an empty kernel of 1 CTA "
+        f"{row['floor_ms']:.4f} ms, of K2's grid ({grid[0]} CTAs of "
+        f"{grid[1]} threads) {row['floor_grid_ms']:.4f} ms; K2 is "
+        f"{row['ms'] - row['floor_grid_ms']:.4f} ms above the latter; ten "
+        f"calls a graph: K2 {ten[0]:.4f} ms a call, the empty kernel of "
+        f"K2's grid {ten[1]:.4f}, on {card}")
 
 
 def bound_evals(torch, scale):
@@ -1040,11 +1108,11 @@ HOST_WAITS = ("aten::nonzero", "aten::item", "aten::_local_scalar_dense",
               "aten::is_nonzero")
 
 
-def profile_step(torch, step, label, step_ms, card, out_dir, reps=5):
-    """Device time by kernel over ``reps`` steps (torch.profiler), against
-    the step's CUDA-event time; the full table goes to
-    <out_dir>/profile_<label>.txt. The step must hold no operation of
-    HOST_WAITS."""
+def profile_step(torch, step, label, card, out_dir, reps=5):
+    """The step's device operations over ``reps`` steps (torch.profiler;
+    the table goes to <out_dir>/profile_<label>.txt): it must hold no
+    operation of HOST_WAITS. The profiler's device times are not used:
+    late in this long process they read about 0.6 of the truth."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1055,21 +1123,61 @@ def profile_step(torch, step, label, step_ms, card, out_dir, reps=5):
         torch.cuda.synchronize()
     rows = prof.key_averages()
     with open(os.path.join(out_dir, f"profile_{label}.txt"), "w") as f:
-        f.write(rows.table(sort_by="self_device_time_total", row_limit=40))
+        f.write(rows.table(sort_by="count", row_limit=60))
     waits = sorted(e.key for e in rows if e.key in HOST_WAITS)
     kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1000 / reps
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:5]
-    say(f"[6] profile {label}: kernels busy {busy_ms:.3f} ms per step "
-        f"({100 * busy_ms / step_ms:.1f}% of the {step_ms:.3f} ms step); "
-        "top: " + "; ".join(
-            f"{e.key[:48]} {e.self_device_time_total / 1000 / reps:.3f} ms"
-            for e in top) + f"; operations that wait for the device "
-        f"({', '.join(HOST_WAITS)}): {waits or 'none'} (on {card})")
+    say(f"[6] profile {label}: {sum(e.count for e in kernels) / reps:.0f} "
+        f"device operations a step, of {len(kernels)} kinds; operations "
+        f"that wait for the device ({', '.join(HOST_WAITS)}): "
+        f"{waits or 'none'} (on {card})")
     if waits:
         raise AssertionError(f"the {label} device step waits for the "
                              f"device in {waits}")
+
+
+def busy_share(torch, step, label, step_ms, card):
+    """The device step's busy share: each hand-written kernel that one call
+    of ``step`` launches (the stages of api._KERNELS, recorded as they are
+    called) timed by graph_ms on the step's own inputs, summed, and the
+    whole step timed by graph_ms (kernels and glue with no host between
+    them), each over ``step_ms``, the step's CUDA-event time."""
+    from psxavenc_tpu_torch import api
+
+    stages = api._KERNELS
+    saved = dict(vars(stages))
+    calls = []
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, fn, args, kw))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(stages, name, recorder(name, fn))
+    try:
+        step()
+    finally:
+        for name, fn in saved.items():
+            setattr(stages, name, fn)
+    times = {}
+    for name, fn, args, kw in calls:
+        if name == "emit_tail":     # ORs into its first argument, counts
+            args = (args[0].clone(),) + args[1:]
+            kw = dict(kw, count=torch.zeros_like(kw["count"]))
+        times[name] = times.get(name, 0.0) + graph_ms(
+            torch, lambda: fn(*args, **kw))
+    kernels_ms = sum(times.values())
+    whole_ms = graph_ms(torch, step)
+    say(f"[6] {label} busy share of the {step_ms:.4f} ms step (CUDA events): "
+        f"its hand-written kernels {kernels_ms:.4f} ms = "
+        f"{100 * kernels_ms / step_ms:.1f}% ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + f"; each call timed in a CUDA graph); the whole step in one CUDA "
+        f"graph {whole_ms:.4f} ms = "
+        f"{100 * whole_ms / step_ms:.1f}% (kernels and glue, no host between "
+        f"them) on {card}")
 
 
 STEP_REPEATS = 7
@@ -1117,7 +1225,8 @@ def throughput(torch, np, synth, card, out_dir):
             f"steps, least {runs[0]:.4f}, greatest {runs[-1]:.4f}; kernels + "
             f"glue, no H2D; {overflow} of {B} frames have a block over 256 "
             f"bits, counted on the device) on {card}")
-        profile_step(torch, step, label.replace("+", "_"), ms, card, out_dir)
+        busy_share(torch, step, label, ms, card)
+        profile_step(torch, step, label.replace("+", "_"), card, out_dir)
         plain_ms = time_ms(torch, lambda: step(False), reps=3)
         say(f"[6] {label} plain path on the card: "
             f"{B / plain_ms * 1000:.1f} frames/s ({plain_ms:.4f} ms per "
@@ -1311,22 +1420,12 @@ def block_stream_kernels(torch, np, synth, card):
     forms), K9 and K10 == their plain versions on phase 4's first 128
     frames, one of them unfittable. Returns the rows of the kernel
     table."""
-    from psxavenc_tpu_torch import api
     from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
     from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
     from psxavenc_tpu_torch.ops import bs as bs_ops
 
-    dev = torch.device("cuda", 0)
-    frames = torch.from_numpy(phase4_frames(np, synth)[:B]).to(dev)
-    budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
-    budgets[UNFIT_FRAME] = UNFIT_BUDGET
-    sel = bs_ops.encode_frames_symbols(api._frames_to_coefs(frames, W, H),
-                                       budgets, codec=0, kernel_sweep=False,
-                                       emit=False)
-    c, dc_bits, dc_code = sel["c"], sel["dc_bits"], sel["dc_code"]
+    frames, c, thr, dc_bits, dc_code = symbol_inputs(torch, np, synth)
     nb = c.shape[2]
-    thr = bs_ops.ac_threshold(budgets, dc_bits.sum(dim=1, dtype=torch.int32),
-                              nb)
     results = {}
 
     def check(*args, **kw):
@@ -1389,15 +1488,109 @@ def block_stream_kernels(torch, np, synth, card):
           lambda out: B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD),
           library_fn=lib_fn if same else None)
 
+    check_pack(torch, results, card, c, emit_args)
+    return results, (c64, sidx, dc_code, dc_bits)
+
+
+def symbol_inputs(torch, np, synth):
+    """Phase 10's frames (phase 4's first 128, one of them unfittable) on
+    the card and the symbols API's selection inputs: (frames, the (B, 63,
+    NB) int32 coefficients, the thresholds, the DC bits and codes)."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    dev = torch.device("cuda", 0)
+    frames = torch.from_numpy(phase4_frames(np, synth)[:B]).to(dev)
+    budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
+    budgets[UNFIT_FRAME] = UNFIT_BUDGET
+    sel = bs_ops.encode_frames_symbols(api._frames_to_coefs(frames, W, H),
+                                       budgets, codec=0, kernel_sweep=False,
+                                       emit=False)
+    c, dc_bits, dc_code = sel["c"], sel["dc_bits"], sel["dc_code"]
+    thr = bs_ops.ac_threshold(budgets, dc_bits.sum(dim=1, dtype=torch.int32),
+                              c.shape[2])
+    return frames, c, thr, dc_bits, dc_code
+
+
+def check_pack(torch, results, card, c, emit_args):
+    """Phase 10: K10 == its plain version on the symbols of ``c`` at the
+    scales of ``emit_args`` ((B, NB + 1, 65) int32), its GB/s and cycle
+    sections, and on the adversarial rows; its row goes into
+    ``results``."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
+    from psxavenc_tpu_torch.ops import bitpack_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    sidx, dc_code, dc_bits = emit_args
     codes, bits = bs_ops.emit_symbols_at(c, sidx - 1, dc_bits, dc_code)
     codes, bits = api._with_eof_symbols(codes, bits, 0x1FF)
     codes = bitpack_ops.u32_to_i32(codes)
     bits = bits.to(torch.int32)
-    check("pack_block_streams", "(B, NB + 1, 65)",
-          lambda: bitpack_cuda.pack_block_streams(codes, bits),
-          lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
-          (codes, bits), lambda out: codes.numel() * OPS_PACK_SYMBOL)
-    return results, (c64, sidx, dc_code, dc_bits)
+    out = compare(torch, results, 10, "pack_block_streams", "(B, NB + 1, 65)",
+                  lambda: bitpack_cuda.pack_block_streams(codes, bits),
+                  lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
+                  (codes, bits), lambda out: codes.numel() * OPS_PACK_SYMBOL,
+                  card)
+    row = results["pack_block_streams"]
+    say(f"[10] pack_block_streams {tuple(codes.shape)} int32: "
+        f"{nbytes(codes, bits, *out) / row['ms'] / 1e6:.0f} GB/s moved, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound (target "
+        f"50%) on {card}")
+    pack_stats_line(torch, codes, bits, card)
+    pack_adversarial(torch, codes.device, card)
+
+
+def pack_stats_line(torch, codes, bits, card):
+    """K10's cycle sections (its ``stats_out``), means over its CTAs."""
+    from psxavenc_tpu_torch.ops import bitpack_cuda
+
+    names = bitpack_cuda.PACK_STAT_NAMES
+    sms = torch.cuda.get_device_properties(codes.device).multi_processor_count
+    stats = torch.full((8 * sms, len(names)), -1, dtype=torch.int32,
+                       device=codes.device)
+    bitpack_cuda.pack_block_streams(codes, bits, stats_out=stats)
+    torch.cuda.synchronize()
+    st = stats[stats[:, 0] >= 0].to(torch.float64)
+    mean = dict(zip(names, st.mean(dim=0).tolist()))
+    say(f"[10] pack_block_streams SM cycles per CTA (thread 0's clock, "
+        f"means over {len(st)} CTAs, {mean['per_sm']:.0f} an SM): "
+        + ", ".join(f"{k[:-7]} {mean[k]:.0f}" for k in names
+                    if k.endswith("_cycles"))
+        + f"; {mean['tiles']:.1f} tiles a CTA; slowest CTA "
+        f"{float(st[:, 4].max()):.0f} cycles (on {card})")
+    if len(st) != int(mean["grid"]) or not (st[:, [0, 2, 4]] > 0).all():
+        raise AssertionError("pack_block_streams: a CTA wrote no cycle "
+                             "sections")
+
+
+def pack_adversarial(torch, dev, card):
+    """Phase 10: K10 == its plain version on the adversarial rows of
+    tests/torch_dc_pack_cases.py, 111 rows each (the last tile ragged),
+    int64 codes, S = 65, 17, 130 and 600 (rows read from global
+    memory)."""
+    from psxavenc_tpu_torch.ops import bitpack_cuda
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_dc_pack_cases import PACK_CASES, PACK_SYMBOLS, pack_case
+
+    err = 0
+    sizes = PACK_SYMBOLS + (600,)
+    for nsym in sizes:
+        for case in PACK_CASES:
+            codes, bits = pack_case(case, 3, 37, nsym)
+            c = torch.from_numpy(codes).to(dev)
+            b = torch.from_numpy(bits).to(dev)
+            err = max(err, max_abs_err(
+                torch, bitpack_cuda.pack_block_streams(c, b),
+                bitpack_cuda.pack_block_streams_plain(c, b),
+                "pack_block_streams"))
+    say(f"[10] pack_block_streams on adversarial rows ({'; '.join(PACK_CASES)}"
+        f"; S = {', '.join(map(str, sizes))}; 111 rows each): max |kernel - "
+        f"plain| = {err} on {card}")
+    if err:
+        raise AssertionError("pack_block_streams disagrees with its plain "
+                             "version on the adversarial rows")
 
 
 def select_checks(torch, np, synth, card, results, c, thr, scale, pix):
@@ -1752,6 +1945,13 @@ def main():
                  ("select_pix_kernel", "select_kernel"))
     ptxas_report(_build.build_log, "bs_emit.cu",
                  ("emit_prep_kernel", "emit_pack_kernel", "emit_tail_kernel"))
+    spills = ptxas_report(_build.build_log, "bs_dc.cu",
+                          ("dc_chain_kernel", "empty_kernel"))
+    spills.update(ptxas_report(_build.build_log, "bitpack_streams.cu",
+                               ("pack_kernel", "place_streams_kernel")))
+    if spills.get("dc_chain_kernel", 1) or spills.get("pack_kernel", 1):
+        raise AssertionError("K2 or K10 spills (or ptxas did not report "
+                             "them)")
 
     rows = check_kernels(torch, np, synth, card)
     video = main_path(torch, np, synth, digests)

@@ -1,6 +1,6 @@
 // Shared device code of the BS and block-stream kernels: the islow FDCT,
-// the quantizer divide, the closed-form MDEC Huffman tables, and the
-// block-stream window packing and placement.
+// the quantizer divide, the closed-form MDEC Huffman tables, bulk copies
+// that report to an mbarrier, and the block-stream placement.
 //
 // Every function computes the same integers as its namesake in
 // psxavenc_tpu_torch/ops/bs.py and ops/fdct.py (the plain versions the
@@ -8,10 +8,22 @@
 // leaves larger ones undefined where XLA defines them as 0.
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace psx {
+
+// The current device's SM count (read once; host code).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
 
 // ----------------------------------------------------------------- tables
 
@@ -243,27 +255,49 @@ __device__ __forceinline__ void dc_bits_code(bool is_y, int key, int& bits,
   code = (pv << (db + 1)) | suffix;
 }
 
-// ------------------------------------------------------- block streams
+// ------------------------------------------------ asynchronous copies
 
-// OR a ``b``-bit code (1 <= b <= 32, no bits above b) into eight MSB-first
-// u32 windows at in-block bit offset ``o`` (bs_pallas.py:
-// _emit_chunk_windows place(), with its shift clips). Bits past the 256th
-// are dropped, as ops/bitpack.py:_pack_block_streams cuts them. Every
-// window index is a compile-time constant, so ``acc`` stays in registers.
-__device__ __forceinline__ void place_code(uint32_t (&acc)[8], int o, int b,
-                                           uint32_t code) {
-  const int q = o >> 5;
-  const int sbits = 64 - (o & 31) - b;
-  const int sh = min(max(sbits - 32, 0), 31);
-  const int sl = min(max(32 - sbits, 0), 31);
-  const uint32_t hi = sbits >= 32 ? code << sh : code >> sl;
-  const uint32_t lo = sbits < 32 ? code << min(max(sbits, 0), 31) : 0u;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    if (k == q) acc[k] |= hi;
-    if (k == q + 1) acc[k] |= lo;
-  }
+// Bulk copies (the card's copy engine moves a whole row per instruction) that
+// report to a barrier in shared memory: the barrier's phase ends when the
+// one expected arrival has come and every expected byte has landed.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+      shared_addr(bar)));
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// ``bytes``: a multiple of 16, both addresses on 16-byte boundaries.
+__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(shared_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+// Waits for the end of the barrier's phase of parity ``phase``.
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, int phase) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(shared_addr(bar)), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+// ------------------------------------------------------- block streams
 
 // One block's placed u32 words (ops/bitpack.py:streams_to_u32): its 16
 // MSB-first u16 stream words ``w`` shifted to the sub-word part of global

@@ -101,45 +101,11 @@ __device__ __forceinline__ void prefetch_l2(const void* gmem, int bytes) {
                "r"(bytes));
 }
 
-// Bulk copies (the card's copy engine moves a whole row per instruction) that
-// report to a barrier in shared memory: the barrier's phase ends when the
-// one expected arrival has come and every expected byte has landed.
-__device__ __forceinline__ unsigned shared_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void barrier_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-      shared_addr(bar)));
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void barrier_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   shared_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// ``bytes``: a multiple of 16, both addresses on 16-byte boundaries.
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(shared_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(shared_addr(bar))
-      : "memory");
-}
-// Waits for the end of the barrier's phase of parity ``phase``.
-__device__ __forceinline__ void barrier_wait(uint64_t* bar, int phase) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(shared_addr(bar)), "r"(phase)
-        : "memory");
-  } while (!done);
-}
+// Bulk copies reporting to an mbarrier: bs_common.cuh.
+using psx::barrier_expect;
+using psx::barrier_init;
+using psx::barrier_wait;
+using psx::bulk_copy;
 // ---- end of the asynchronous copies
 
 // Starts the copy of a tile: rows[p * stride + n0 + t] for p < 63 and

@@ -33,6 +33,7 @@ _SIGNATURES = {
     "psx_select_scale_pix": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P],
     "psx_dc_stage": [_P, _I, _I, _I, _P, _P, _P],
+    "psx_empty_launch": [_I, _I, _P],
     "psx_emit_prep": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                       _P],
     "psx_place_vals": [_P, _P, _I, _I, _I, _P, _P],
@@ -43,7 +44,7 @@ _SIGNATURES = {
     "psx_emit_tail": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P,
                       _P],
     "psx_place_streams": [_P, _P, _I, _I, _I, _P, _P],
-    "psx_pack_block_streams": [_P, _P, _I, _I, _P, _P, _P],
+    "psx_pack_block_streams": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     "psx_adpcm_encode_units": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                _P, _P],
 }

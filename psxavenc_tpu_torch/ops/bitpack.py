@@ -173,9 +173,10 @@ def pack_frames_blocks(codes, bits, *, capacity_words,
     codes: (B, NBe, S) u32 code values (int64 or int32 bit patterns);
     bits: (B, NBe, S) bit lengths, 0 to 32 (0 = skip). Symbols pack into
     bcap-word block streams (``_pack_block_streams``, or K10
-    ``bitpack_cuda.pack_block_streams`` with ``kernel_pack``), then the
-    streams are placed (``_place_streams``, or K9
-    ``bitpack_cuda.place_streams`` with ``kernel_place``). A frame with a
+    ``bitpack_cuda.pack_block_streams`` with ``kernel_pack``, whose block
+    bit counts are used as they come), then the streams are placed
+    (``_place_streams``, or K9 ``bitpack_cuda.place_streams`` with
+    ``kernel_place``). A frame with a
     block over 16 * bcap bits is packed by :func:`pack_bits` instead
     (psxavenc_tpu sends its whole batch there; every frame's words are
     the same either way).
@@ -186,20 +187,21 @@ def pack_frames_blocks(codes, bits, *, capacity_words,
     from . import bitpack_cuda
 
     B, nbe, S = codes.shape
-    bits64 = bits.to(torch.int64)
-    offs = torch.cumsum(bits64, dim=2) - bits64
-    block_bits = offs[..., -1] + bits64[..., -1]
-    goff = torch.cumsum(block_bits, dim=1) - block_bits
-    total_bits = goff[:, -1] + block_bits[:, -1]
     if kernel_pack:
         if bcap != BLOCK_CAP_WORDS:
             raise ValueError("pack_frames_blocks: the kernel packs "
                              f"{BLOCK_CAP_WORDS}-word block streams")
-        streams, _ = bitpack_cuda.pack_block_streams(codes, bits)
+        streams, block_bits = bitpack_cuda.pack_block_streams(codes, bits)
+        block_bits = block_bits.to(torch.int64)
     else:
+        bits64 = bits.to(torch.int64)
+        offs = torch.cumsum(bits64, dim=2) - bits64
+        block_bits = offs[..., -1] + bits64[..., -1]
         streams = _pack_block_streams(
             codes.reshape(-1, S), bits64.reshape(-1, S), offs.reshape(-1, S),
             bcap=bcap).reshape(B, nbe, bcap)
+    goff = torch.cumsum(block_bits, dim=1) - block_bits
+    total_bits = goff[:, -1] + block_bits[:, -1]
     if kernel_place:
         words = bitpack_cuda.place_streams(
             streams.to(torch.int32), goff.to(torch.int32),

@@ -21,7 +21,7 @@ kernel for CUDA tensors; ``LAUNCHES`` counts the launches.
 import torch
 
 from . import _build, bitpack
-from .bs_cuda import _on_cuda, _require
+from .bs_cuda import _on_cuda, _opt_ptr, _require
 
 LAUNCHES = {"place_vals": 0, "place_vals_gather": 0, "place_streams": 0,
             "pack_block_streams": 0}
@@ -171,12 +171,92 @@ def pack_block_streams_plain(codes, bits):
             (offs[..., -1] + bits64[..., -1]).to(torch.int32))
 
 
-def pack_block_streams(codes, bits):
+def _lane_or(x):
+    """The OR over the last axis (32 lanes) in five halving steps; every
+    lane ends with the whole OR."""
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        x = x | x[..., lane ^ off]
+    return x
+
+
+def pack_block_streams_lanes_plain(codes, bits):
+    """K10's decomposition step for step (a plain model for the tests;
+    nothing on the main path runs it): equal to
+    :func:`pack_block_streams_plain`.
+
+    A block is a warp's row: lane l takes symbols l, l + 32, ... in rounds
+    of 32; a Hillis-Steele scan of the bit lengths in each round, plus the
+    rounds before, gives each symbol's offset o. The symbol's code, masked
+    to its b bits (0 bits: skipped), lies MSB-first at bits [o, o + b) of
+    eight u32 windows, so in at most two: window o >> 5 and the next
+    (bits past the 256th drop). The windows are the OR of every symbol's
+    two (the kernel ORs them into shared memory), and word 2k of the
+    stream is window k >> 16, word 2k + 1 window k & 0xFFFF."""
+    B, nbe, S = codes.shape
+    rounds = -(-S // 32)
+    pad = (0, 32 * rounds - S)
+    c = torch.nn.functional.pad(codes.reshape(-1, S).to(torch.int64)
+                                & bitpack.U32_MASK, pad)
+    b = torch.nn.functional.pad(bits.reshape(-1, S).to(torch.int64), pad)
+    c, b = c.reshape(-1, rounds, 32), b.reshape(-1, rounds, 32)
+    incl = b
+    off = 1
+    while off < 32:
+        incl = incl + torch.nn.functional.pad(incl[..., :-off], (off, 0))
+        off *= 2
+    carry = torch.cumsum(incl[..., -1], dim=1) - incl[..., -1]
+    o = carry[..., None] + incl - b
+    code = c & torch.where(
+        b >= 32, bitpack.U32_MASK,
+        bitpack._shl(torch.ones_like(b), b.clamp(0, 31)) - 1)
+    # The 64-bit field of windows q and q + 1 holds the code at bits
+    # [64 - s - b, 64 - s), s = o & 31 (``place_shared`` in
+    # csrc/bitpack_streams.cu).
+    sbits = 64 - (o & 31) - b
+    hi = torch.where(sbits >= 32,
+                     bitpack._shl(code, (sbits - 32).clamp(0, 31)),
+                     code >> (32 - sbits).clamp(0, 31)) & bitpack.U32_MASK
+    lo = torch.where(sbits < 32, bitpack._shl(code, sbits.clamp(0, 31)),
+                     0) & bitpack.U32_MASK
+    q = o >> 5
+    on = b > 0
+    windows = []
+    for k in range(8):
+        part = (torch.where(on & (q == k), hi, 0)
+                | torch.where(on & (q + 1 == k), lo, 0))
+        lane_acc = part[:, 0]
+        for r in range(1, rounds):
+            lane_acc = lane_acc | part[:, r]
+        windows.append(_lane_or(lane_acc)[:, 0])
+    w = torch.stack(windows, dim=1)
+    streams = torch.stack([w >> 16, w & 0xFFFF], dim=2).reshape(B, nbe, BCAP)
+    total = (carry[:, -1] + incl[:, -1, -1]).reshape(B, nbe)
+    return streams.to(torch.int32), total.to(torch.int32)
+
+
+# K10's statistics, per CTA (``stats_out`` of :func:`pack_block_streams`):
+# tiles packed; SM cycles waiting for them, packing (warp 0's rows), at each
+# tile's closing barrier, and in all (thread 0's clock); the grid, CTAs an
+# SM, the SM.
+PACK_STAT_NAMES = ("tiles", "wait_cycles", "pack_cycles", "barrier_cycles",
+                   "all_cycles", "grid", "per_sm", "sm")
+
+
+def pack_block_streams(codes, bits, stats_out=None):
     """K10 (``csrc/bitpack_streams.cu``): see
     :func:`pack_block_streams_plain`. int64 codes go to the kernel as
-    int32 bit patterns."""
+    int32 bit patterns. ``stats_out``: optional (n, len(PACK_STAT_NAMES))
+    int32 on the card, filled for the first n CTAs (rows past the grid are
+    left as they are); measurement only."""
     if not _on_cuda(codes, "pack_block_streams"):
         return pack_block_streams_plain(codes, bits)
+    if stats_out is not None:
+        _require(stats_out, torch.int32, 2, "pack_block_streams stats_out")
+        if stats_out.shape[1] != len(PACK_STAT_NAMES) \
+                or stats_out.device != codes.device:
+            raise ValueError("pack_block_streams: stats_out must be (n, "
+                             f"{len(PACK_STAT_NAMES)}) on {codes.device}")
     codes32 = (bitpack.u32_to_i32(codes) if codes.dtype == torch.int64
                else codes.to(torch.int32).contiguous())
     bits32 = bits.to(device=codes.device, dtype=torch.int32).contiguous()
@@ -190,5 +270,6 @@ def pack_block_streams(codes, bits):
     LAUNCHES["pack_block_streams"] += 1
     _build.launch("psx_pack_block_streams", codes32, _build.ptr(codes32),
                   _build.ptr(bits32), B * nbe, S, _build.ptr(streams),
-                  _build.ptr(block_bits))
+                  _build.ptr(block_bits), _opt_ptr(stats_out),
+                  0 if stats_out is None else stats_out.shape[0])
     return streams, block_bits

@@ -238,6 +238,18 @@ def _shift_right(x, k, fill):
     return torch.cat([pad, x[..., :-k]], dim=-1)
 
 
+def dc_steps(d):
+    """Each DC's map of ``last`` (a multiple of 4) as a threshold function
+    x -> a if x < t else b: (t, a, b). A DC that is 2 mod 4 is a tie of the
+    rounding (t = dc, a = dc + 2, b = dc - 2); any other is a constant
+    (t = _NEG_INF, a = b)."""
+    r = d & 3
+    const = where(r == 0, d, where(r == 1, d - 1, d + 1))
+    on_half = r == 2
+    return (where(on_half, d, _NEG_INF), where(on_half, d + 2, const),
+            where(on_half, d - 2, const))
+
+
 def dc_chain(dc, codec):
     """BS v3/v3dc DC delta chain (mdec.c:455-480) over a batch.
 
@@ -260,12 +272,7 @@ def dc_chain(dc, codec):
     d[:, 1, :mb] = grid[:, :, 1]
     d[:, 2, :] = grid[:, :, 2:].reshape(B, L)
 
-    r = d & 3
-    const = where(r == 0, d, where(r == 1, d - 1, d + 1))
-    on_half = r == 2
-    t = where(on_half, d, _NEG_INF)
-    a = where(on_half, d + 2, const)
-    b = where(on_half, d - 2, const)
+    t, a, b = dc_steps(d)
     k = 1
     while k < L:
         # compose(p = element i-k, q = element i): threshold of p,

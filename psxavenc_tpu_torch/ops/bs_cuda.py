@@ -452,6 +452,100 @@ def dc_stage_plain(dc_q, codec):
     return bs_ops._dc_stage(dc_q, codec)
 
 
+DC_PARTS = 6  # K2's warps a frame: Cr, Cb and the Y chain in quarters
+
+
+def _apply(f, x):
+    t, a, b, ident = f
+    return torch.where(ident, x, torch.where(x < t, a, b))
+
+
+def _compose(p, q):
+    """p, then q, on (t, a, b, identity flag) tensors."""
+    pt, pa, pb, pid = p
+    qt, qa, qb, qid = q
+    t = torch.where(qid, pt, torch.where(pid, qt, pt))
+    a = torch.where(qid, pa, torch.where(pid, qa, _apply(q, pa)))
+    b = torch.where(qid, pb, torch.where(pid, qb, _apply(q, pb)))
+    return t, a, b, pid & qid
+
+
+def _lanes_up(f, off):
+    """f of the lane ``off`` below (``__shfl_up_sync``), the identity for
+    the first ``off`` lanes."""
+    def shift(x, fill):
+        pad = torch.full(x.shape[:-1] + (off,), fill, dtype=x.dtype,
+                         device=x.device)
+        return torch.cat([pad, x[..., :-off]], dim=-1)
+    t, a, b, ident = f
+    return shift(t, 0), shift(a, 0), shift(b, 0), shift(ident, True)
+
+
+def dc_stage_segmented_plain(dc_q, codec, lanes=32):
+    """K2's decomposition step for step (a plain model for the tests;
+    nothing on the main path runs it): equal to :func:`dc_stage_plain`.
+
+    Each frame's chains in chain order (Cr, Cb, then the Y chain) are cut
+    into ``DC_PARTS`` parts of NB / 6 blocks, a warp each; lane l of a part
+    takes its blocks [l * seg, (l + 1) * seg), seg = ceil(NB / 6 / lanes),
+    and composes their threshold functions into one (the identity for a
+    lane past the part's end). A Hillis-Steele scan over the lanes and a
+    shift by one give each lane the composition of the lanes before it;
+    the Y quarters start from the earlier quarters' totals applied to 0.
+    Each lane then walks its blocks again from its entry ``last``."""
+    B, nb = dc_q.shape
+    mb = nb // 6
+    d = dc_q.to(torch.int32).reshape(B, mb, 6)
+    chain = torch.cat([d[:, :, 0], d[:, :, 1], d[:, :, 2:].reshape(B, -1)],
+                      dim=1)
+    seg = -(-mb // lanes)
+    dp = torch.nn.functional.pad(chain.reshape(B, DC_PARTS, mb),
+                                 (0, lanes * seg - mb))
+    dp = dp.reshape(B, DC_PARTS, lanes, seg)
+    live = (torch.arange(lanes * seg, device=d.device) < mb).reshape(
+        lanes, seg)
+    te, ae, be = bs_ops.dc_steps(dp)
+
+    # Pass 1: each lane's segment composed.
+    t, a, b = te[..., 0], ae[..., 0], be[..., 0]
+    for j in range(1, seg):
+        step = (te[..., j], ae[..., j], be[..., j], ~live[:, j])
+        a, b = _apply(step, a), _apply(step, b)
+    f = (t, a, b, (~live[:, 0]).expand(t.shape))
+    # The scan over the lanes, then the exclusive prefix.
+    off = 1
+    while off < lanes:
+        f = _compose(_lanes_up(f, off), f)
+        off *= 2
+    before = _lanes_up(f, 1)
+    totals = tuple(x[..., -1] for x in f)                     # (B, parts)
+    entry = [torch.zeros(B, dtype=torch.int32, device=d.device)] * 3
+    for p in range(3, DC_PARTS):
+        entry.append(_apply(tuple(x[:, p - 1] for x in totals),
+                            entry[p - 1]))
+    last = _apply(before, torch.stack(entry, dim=1)[..., None])
+
+    # Pass 2: the deltas.
+    deltas = torch.zeros_like(dp)
+    for j in range(seg):
+        nxt = _apply((te[..., j], ae[..., j], be[..., j], ~live[:, j]), last)
+        deltas[..., j] = (nxt - last) >> 2
+        last = nxt
+    deltas = deltas.reshape(B, DC_PARTS * lanes * seg)
+    deltas = deltas.reshape(B, DC_PARTS, -1)[:, :, :mb]
+    deltas = torch.cat([deltas[:, 0, :, None], deltas[:, 1, :, None],
+                        deltas[:, 2:].reshape(B, mb, 4)], dim=2).reshape(
+        B, nb)
+    if codec == bs_ops.BS_V3DC:
+        deltas = torch.where(deltas < -0x80, deltas + 0x100, deltas)
+        deltas = torch.where(deltas > 0x80, deltas - 0x100, deltas)
+    types = (torch.arange(nb, dtype=torch.int32, device=d.device)
+             % 6).clamp(max=2)
+    bits, code = bs_ops.dc_bits_code_closed_form(types[None, :],
+                                                 deltas & 0x1FF)
+    return bits.to(torch.int32), code.to(torch.int32)
+
+
 def dc_stage(dc_q, codec):
     """K2 (``csrc/bs_dc.cu``): see :func:`dc_stage_plain`; v3/v3dc only."""
     if codec not in (bs_ops.BS_V3, bs_ops.BS_V3DC):
@@ -469,6 +563,12 @@ def dc_stage(dc_q, codec):
                   int(codec == bs_ops.BS_V3DC), _build.ptr(bits),
                   _build.ptr(code))
     return bits, code
+
+
+def empty_launch(t, grid=1, threads=32):
+    """Launches an empty kernel of ``grid`` CTAs on ``t``'s CUDA device:
+    the floor of a launch, against which K2's time is read."""
+    _build.launch("psx_empty_launch", t, grid, threads)
 
 
 # ------------------------------------------------------------------- K3

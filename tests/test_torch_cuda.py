@@ -19,6 +19,8 @@ from psxavenc_tpu_torch.ops import bitpack_cuda
 from psxavenc_tpu_torch.ops import bs as tbs
 from psxavenc_tpu_torch.ops import bs_cuda
 
+from torch_dc_pack_cases import (DC_CASES, DC_SHAPES, PACK_CASES,
+                                 PACK_SYMBOLS, dc_case, pack_case)
 from torch_emit_cases import (EDGE_BITS, code_table_inputs, edge_inputs,
                               select_form)
 
@@ -618,3 +620,72 @@ def test_encoder_matches_native(dev, codec):
         assert info["quant_scale"] == nat["scale"][j]
         payload = nat["words"][j].astype("<u2").tobytes()
         assert buf[8:].tobytes() == payload[:budgets[j] - 8]
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        assert torch.equal(g, w.to(g.device))
+
+
+@pytest.mark.parametrize("codec", [tbs.BS_V3, tbs.BS_V3DC])
+@pytest.mark.parametrize("nb,batch", DC_SHAPES)
+@pytest.mark.parametrize("case", DC_CASES)
+def test_dc_stage_on_adversarial_dcs(dev, case, nb, batch, codec):
+    """K2 == its plain version: every step depending on the last, tie runs
+    across the lanes' segments, the range's ends and the v3dc wrap; NB = 6
+    to 640x480."""
+    dc = torch.from_numpy(dc_case(case, batch, nb)).to(dev)
+    before = bs_cuda.LAUNCHES["dc_stage"]
+    got = bs_cuda.dc_stage(dc, codec)
+    assert bs_cuda.LAUNCHES["dc_stage"] == before + 1
+    _equal(got, bs_cuda.dc_stage_plain(dc, codec))
+
+
+@pytest.mark.parametrize("nb,batch", [(6, 1000), (1800, 300), (7200, 200)])
+def test_dc_stage_many_frames_a_cta(dev, nb, batch):
+    """Batches larger than the SM count put several frames in a CTA."""
+    assert batch > torch.cuda.get_device_properties(dev).multi_processor_count
+    dc = torch.from_numpy(dc_case("tie runs", batch, nb)).to(dev)
+    _equal(bs_cuda.dc_stage(dc, tbs.BS_V3DC),
+           bs_cuda.dc_stage_plain(dc, tbs.BS_V3DC))
+
+
+def test_dc_empty_launch_runs(dev):
+    x = torch.zeros(1, device=dev)
+    bs_cuda.empty_launch(x)
+    bs_cuda.empty_launch(x, grid=128, threads=192)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("nsym", PACK_SYMBOLS + (600,))
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_block_streams_on_adversarial_rows(dev, case, nsym):
+    """K10 == its plain version on 111 rows (a ragged last tile whose
+    bytes are no multiple of 16): codes with their top bit set or garbage
+    above their length, 0-bit symbols between, rows of 256, 257 and far
+    over 256 bits, all-zero rows; S = 600 reads its rows from global
+    memory."""
+    codes, bits = pack_case(case, 3, 37, nsym)
+    c, b = torch.from_numpy(codes).to(dev), torch.from_numpy(bits).to(dev)
+    before = bitpack_cuda.LAUNCHES["pack_block_streams"]
+    got = bitpack_cuda.pack_block_streams(c, b)
+    assert bitpack_cuda.LAUNCHES["pack_block_streams"] == before + 1
+    _equal(got, bitpack_cuda.pack_block_streams_plain(c, b))
+
+
+@pytest.mark.parametrize("rows", [1, 4, 32, 33, 4096 + 7])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pack_block_streams_tiles_and_alignment(dev, rows, offset):
+    """Row counts on and off the tile, and tensors that do not start on a
+    16-byte boundary (plain loads in place of the bulk copies)."""
+    codes, bits = pack_case("0-bit symbols between", 1, rows + offset, 65)
+    c = tbp.u32_to_i32(torch.from_numpy(codes)).to(dev).reshape(-1)
+    b = torch.from_numpy(bits).to(dev).reshape(-1)
+    n = rows * 65
+    c = c[offset * 65:offset * 65 + n].view(1, rows, 65)
+    b = b[offset * 65:offset * 65 + n].view(1, rows, 65)
+    assert (c.data_ptr() % 16 == 0) == (offset == 0)
+    _equal(bitpack_cuda.pack_block_streams(c, b),
+           bitpack_cuda.pack_block_streams_plain(c, b))

@@ -1,7 +1,7 @@
 """The port stands alone: no module of psxavenc_tpu_torch, and neither
-chip_smoke.py, the bench of the emission kernels nor the card tests' input
-helper, imports JAX or the JAX package (psxavenc_tpu). Each file is parsed
-with ``ast``, so imports inside functions count too."""
+chip_smoke.py, the benches of the kernels nor the card tests' input
+helpers, imports JAX or the JAX package (psxavenc_tpu). Each file is
+parsed with ``ast``, so imports inside functions count too."""
 
 import ast
 import pathlib
@@ -9,10 +9,11 @@ import pathlib
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted(p.relative_to(REPO).as_posix()
-               for p in (REPO / "psxavenc_tpu_torch").rglob("*.py")) + \
-    ["chip_smoke.py", "tools/torch_emit_bench.py",
-     "tests/torch_emit_cases.py"]
+FILES = sorted(p.relative_to(REPO).as_posix() for p in [
+    *(REPO / "psxavenc_tpu_torch").rglob("*.py"),
+    *(REPO / "tools").glob("torch_*.py")]) + \
+    ["chip_smoke.py", "tests/torch_emit_cases.py",
+     "tests/torch_dc_pack_cases.py"]
 FORBIDDEN = ("psxavenc_tpu", "jax")
 
 

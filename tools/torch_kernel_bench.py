@@ -1,0 +1,133 @@
+"""Device times of the port's redesigned BS kernels on one CUDA card,
+through chip_smoke.py's own inputs and checks, without the rest of the
+smoke.
+
+    python tools/torch_kernel_bench.py [--kernels dc,pack,emit] [--reps N]
+
+dc: K2 on phase 3's batch (BS 320x240, 128 frames, v3dc) and chip_smoke's
+further K2 cases (v3, all ties, 640x480) beside the floor of a launch.
+pack: K10 on phase 10's symbols (128 frames of 1,801 blocks of 65 symbols,
+int32), its GB/s and cycle sections, and the adversarial rows. emit: K3
+(with its cycle sections), K7 in both coefficient forms and the tail
+emission on phase 3's and phase 4's video+noise batches, on noise frames
+and on video frames without noise. Each kernel is held to its plain version
+as chip_smoke holds it (a mismatch raises) and timed as its rows are
+(``chip_smoke.graph_ms``); chip_smoke's lines are printed as they come, and
+one JSON line per case and repetition holds the case's rows. Exits 1
+without a CUDA device. To compare two commits, run each one's own
+chip_smoke.py in one chip call.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def dc_rows(torch, np, synth, cs, card):
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    frames = torch.from_numpy(cs.smoke_frames(np, synth, cs.B, seed=5))
+    dc_q = bs_ops.dc_quant_from_pixrows(
+        bs_ops.rearrange_nv21_rows(frames.cuda(), cs.W, cs.H))
+    rows = {}
+    cs.check_dc(torch, rows, card, dc_q)
+    cs.dc_checks(torch, np, synth, card, rows["dc_stage"], dc_q)
+    yield "phase 3", rows
+
+
+def pack_rows(torch, np, synth, cs, card):
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    _, c, thr, dc_bits, dc_code = cs.symbol_inputs(torch, np, synth)
+    scale = bs_cuda.select_scale(c, thr)[0]
+    rows = {}
+    cs.check_pack(torch, rows, card, c,
+                  (torch.where(scale <= 63, scale, 1), dc_code, dc_bits))
+    yield "phase 10", rows
+
+
+def emit_rows(torch, np, synth, cs, card):
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    rng = np.random.default_rng(3)
+    mixes = {
+        "video+noise (phase 3)": cs.smoke_frames(np, synth, cs.B, seed=5),
+        "video+noise (phase 4)": cs.phase4_frames(np, synth)[:cs.B],
+        "all noise": rng.integers(0, 256, (cs.B, cs.W * cs.H * 3 // 2))
+        .astype(np.uint8),
+        "video": cs.smoke_frames(np, synth, cs.B, seed=14, noise_every=0),
+    }
+    budgets = torch.full((cs.B,), cs.BUDGET, dtype=torch.int32,
+                         device="cuda")
+    for label, host in mixes.items():
+        pix, thr = cs.select_inputs(torch, torch.from_numpy(host).cuda(),
+                                    budgets)
+        dc_bits, dc_code = bs_ops._dc_stage(bs_ops.dc_quant_from_pixrows(pix),
+                                            bs_ops.BS_V2)
+        scale, _, _, c64 = bs_cuda.select_scale_pix(pix, thr)
+        sidx = torch.where(scale <= 63, scale, 1)
+        nb = pix.shape[2]
+        args = (sidx, dc_code, dc_bits)
+        rows = {}
+        vals32, e0, block_bits, _ = cs.compare(
+            torch, rows, "bench", "emit_prep", label,
+            lambda: bs_cuda.emit_prep(c64, *args, eof=0x1FF),
+            lambda: bs_cuda.emit_prep_plain(c64, *args, eof=0x1FF),
+            (c64, *args), lambda out: cs.emit_ops(torch, c64, sidx, nb), card)
+        cs.emit_stats_line(torch, "bench", c64, args, 0x1FF, card)
+        c63 = c64[:, :63, :nb].to(torch.int32).contiguous()
+        for form, c in (("(63, NB) int32", c63), ("(64, nb_pad) int16", c64)):
+            row = {}
+            cs.compare(torch, row, "bench", "emit_pack", f"{label}, {form}",
+                       lambda: bs_cuda.emit_pack(c, *args),
+                       lambda: bs_cuda.emit_pack_plain(c, *args), (c, *args),
+                       lambda out: cs.emit_ops(torch, c, sidx, nb), card)
+            rows[f"emit_pack {form}"] = row["emit_pack"]
+        placed = bitpack_cuda.place_vals(vals32, e0,
+                                         capacity_words=cs.CAP_WORDS)
+        cs.check_tail(torch, rows, "bench", label, placed, c64, args,
+                      block_bits, 0x1FF, card)
+        yield label, rows
+
+
+GROUPS = {"dc": dc_rows, "pack": pack_rows, "emit": emit_rows}
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", default=",".join(GROUPS),
+                        help="comma-separated groups of " + ", ".join(GROUPS))
+    parser.add_argument("--reps", type=int, default=3)
+    args = parser.parse_args()
+    groups = args.kernels.split(",")
+    if not set(groups) <= set(GROUPS):
+        parser.error(f"--kernels: choose from {', '.join(GROUPS)}")
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_bench: no CUDA device", file=sys.stderr)
+        return 1
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from psxavenc_tpu_torch.ops import _build
+    from psxavenc_tpu_torch.utils import synth
+
+    card = cs.card_line()
+    _build.lib()
+    for rep in range(args.reps):
+        for group in groups:
+            for case, rows in GROUPS[group](torch, np, synth, cs, card):
+                print(json.dumps({"rep": rep, "group": group, "case": case,
+                                  "card": card, "rows": rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
