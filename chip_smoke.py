@@ -7,8 +7,8 @@ Phases, one or more lines each:
 1. the card and toolchain;
 2. the kernel build (nvcc, one process per source in
    psxavenc_tpu_torch/csrc, started together), and what ptxas reports for
-   the functions of bs_select.cu, bs_emit.cu, bs_dc.cu and
-   bitpack_streams.cu: registers, stack and spill bytes (K2 and K10 must
+   the functions of bs_select.cu, bs_emit.cu, bs_dc.cu, bitpack_streams.cu
+   and bitpack_place.cu: registers, stack and spill bytes (K2 and K10 must
    not spill);
 3. each BS kernel (K1-K4, and the tail emission of the blocks over 256
    bits, also held to the exact flat packer) against its plain PyTorch
@@ -28,7 +28,16 @@ Phases, one or more lines each:
    all ties (every step depends on the last) and on 640x480 frames, beside
    the floor of a launch (an empty kernel, one CTA and K2's grid), and
    both with ten calls in one graph (the replay's host cost spread over
-   them);
+   them). Every other row under 0.03 ms, and every case of K4 and of the
+   tail emission, is also read at ten calls a graph beside an empty launch
+   of the kernel's own grid. K4 is also checked against one scatter_add_ on
+   one frame, 300 frames, the batch with frame 5 unfittable (its words run
+   past cap32), 640x480 frames and 16 frames of offsets that tie
+   (tests/torch_place_cases.py), with the count of its ranges' starts that
+   fall inside a block's nine words; the tail emission on noise frames (no
+   long block) and on tests/torch_emit_cases.py's edge_inputs, and on every
+   case also launched with 1, 2 and 5 CTAs a frame, its count of frames
+   with a long block held to theirs;
 4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
    and v3dc, each codec's bytes equal to its committed digest, K1-K4 and
    the tail emission launched, the frames with a block over 256 bits
@@ -422,6 +431,12 @@ def time_ms(torch, fn, reps=10):
     return statistics.median(times)
 
 
+# Rows whose one call a graph reads under this are read again at ten calls
+# a graph (small_row): below it the replay's own host cost is a large part
+# of what one call a graph reads.
+SMALL_MS = 0.03
+
+
 def graph_ms(torch, fn, reps=20, calls=1):
     """Mean device milliseconds of fn's work: one call (or ``calls`` calls,
     and then the time of one) captured as a CUDA graph, replayed ``reps``
@@ -464,8 +479,36 @@ def max_abs_err(torch, got, want, name):
     return err
 
 
+def small_row(torch, tag, name, label, kernel_fn, grid, card,
+              library_fn=None):
+    """A row under SMALL_MS read again at ten calls a graph, where the
+    replay's host cost is spread over ten calls: the kernel, one PyTorch
+    call (``library_fn``, where given) and, where ``grid`` (CTAs, threads a
+    CTA) is given, an empty kernel of that grid at one and at ten calls a
+    graph. Returns the row's new keys."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    row = {"ten_ms": graph_ms(torch, kernel_fn, calls=10)}
+    text = f"kernel {row['ten_ms']:.4f} ms a call"
+    if library_fn:
+        row["library_ten_ms"] = graph_ms(torch, library_fn, calls=10)
+        text += f", one PyTorch call {row['library_ten_ms']:.4f}"
+    if grid:
+        t = torch.empty(0, device="cuda")
+        row["empty_ms"] = graph_ms(
+            torch, lambda: bs_cuda.empty_launch(t, *grid))
+        row["empty_ten_ms"] = graph_ms(
+            torch, lambda: bs_cuda.empty_launch(t, *grid), calls=10)
+        text += (f"; an empty kernel of its grid ({grid[0]} CTAs of "
+                 f"{grid[1]} threads) {row['empty_ten_ms']:.4f} ms a call "
+                 f"(one call a graph: {row['empty_ms']:.4f})")
+    say(f"[{tag}] {name} {label}, ten calls a graph: {text} on {card}")
+    return row
+
+
 def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
-            ops_fn, card, library_fn=None, bytes_fn=None):
+            ops_fn, card, library_fn=None, bytes_fn=None, grid=None,
+            size=f"B={B}, {W}x{H}", ten=False):
     """The kernel == its plain version, exactly; prints and keeps (the
     first time per name) the wrapper's device time (``graph_ms``), the
     wrapper call's and the plain version's times (CUDA events, median)
@@ -473,7 +516,9 @@ def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
     ``ops_fn(out)``. ``library_fn`` is one PyTorch call computing the same
     function, timed as the wrapper is. ``bytes_fn(out)``: the bytes this
     run's data makes the function move, where that is not all of the
-    inputs and outputs."""
+    inputs and outputs. A kernel under SMALL_MS (any, with ``ten``) is
+    also read by ``small_row``, beside an empty launch of ``grid`` where
+    given."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -489,13 +534,17 @@ def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
     say(f"[{tag}] {name} {label}: max |kernel - plain| = {err}; kernel "
         f"{ms:.4f} ms on the device (graph replay; one wrapper call "
         f"{call_ms:.4f} ms with its host work), plain {plain_ms:.4f} ms{lib}, "
-        f"bound {bound_ms:.4f} ms ({bound_by}) (B={B}, {W}x{H}) on {card}")
+        f"bound {bound_ms:.4f} ms ({bound_by}) ({size}) on {card}")
     if err:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              "version")
-    results.setdefault(name, {"max_abs_err": err, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": library_ms})
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    if ten or ms < SMALL_MS:
+        row.update(small_row(torch, tag, name, label, kernel_fn, grid, card,
+                             library_fn))
+    results.setdefault(name, row)
     return got
 
 
@@ -797,15 +846,29 @@ def emit_stats_line(torch, tag, coefs, emit_args, eof, card):
         raise AssertionError("emit_prep: a cycle section is empty")
 
 
+def tail_launch(torch, out32, coefs, emit_args, block_bits, ctas, count):
+    """The tail emission's kernel launched with ``ctas`` CTAs a frame
+    (the wrapper picks its own: ops/bs_cuda.py:tail_ctas), ORing into
+    ``out32`` and adding to ``count``; not counted in LAUNCHES."""
+    from psxavenc_tpu_torch.ops import _build
+
+    scale, _, dc_bits = emit_args
+    b, rows, stride = coefs.shape
+    _build.launch("psx_emit_tail", coefs, _build.ptr(coefs),
+                  int(coefs.dtype == torch.int16), b, rows, stride,
+                  block_bits.shape[1], _build.ptr(scale), _build.ptr(dc_bits),
+                  _build.ptr(block_bits), ctas, out32.shape[1], CAP_WORDS,
+                  _build.ptr(out32), _build.ptr(count))
+
+
 def check_tail(torch, results, tag, label, placed, coefs, emit_args,
-               block_bits, eof, card):
+               block_bits, eof, card, size=f"B={B}, {W}x{H}"):
     """The tail emission on ``placed`` (the placement kernel's words, which
     hold every block's first 256 bits) == its plain version and, as u16
     words, == the exact flat packer on the same frames; it counts the
-    frames that have a block over 256 bits. Timed as the other kernels:
-    the replayed launch ORs the same bits into its words again. The bound
-    counts the block totals read once and, per long block, its column of
-    coefficients and the words its tail touches."""
+    frames that have a block over 256 bits, once each, also when its
+    kernel is launched with 1, 2 and 5 CTAs a frame. Timed by
+    ``tail_compare``, at one and at ten calls a graph."""
     from psxavenc_tpu_torch import api
     from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
     from psxavenc_tpu_torch.ops import bs_cuda
@@ -814,7 +877,6 @@ def check_tail(torch, results, tag, label, placed, coefs, emit_args,
     long_blocks = block_bits > 256
     n_long = int(long_blocks.sum())
     n_frames = int(long_blocks.any(dim=1).sum())
-    tail_bytes = int((block_bits - 256).clamp(min=0).sum()) // 8
     first, counted = bs_cuda.emit_tail(placed.clone(), coefs, *emit_args,
                                        block_bits, **kw)
     flat = api._overflow_words(coefs, emit_args[0] - 1, emit_args[2],
@@ -830,21 +892,53 @@ def check_tail(torch, results, tag, label, placed, coefs, emit_args,
     if not same or int(counted) != n_frames:
         raise AssertionError("emit_tail: the words differ from the flat "
                              "packer's, or the frames were miscounted")
+    grid = bs_cuda.emit_tail_grid(block_bits.shape[0])
+    agree = []
+    for ctas in (1, 2, 5):
+        out = placed.clone()
+        count = torch.zeros((1,), dtype=torch.int32, device=placed.device)
+        tail_launch(torch, out, coefs, emit_args, block_bits, ctas, count)
+        torch.cuda.synchronize()
+        agree.append(torch.equal(out, first) and int(count) == n_frames)
+    say(f"[{tag}] emit_tail {label}: the wrapper launches "
+        f"{grid[0] // block_bits.shape[0]} CTAs a frame; launched with 1, 2 "
+        f"and 5 CTAs a frame, the same words and count: {agree}")
+    if not all(agree):
+        raise AssertionError("emit_tail: the words or the count depend on "
+                             "the CTAs a frame")
+    tail_compare(torch, results, tag, label, placed, coefs, emit_args,
+                 block_bits, card, grid, size)
+    return n_frames
+
+
+def tail_compare(torch, results, tag, label, placed, coefs, emit_args,
+                 block_bits, card, grid, size=f"B={B}, {W}x{H}"):
+    """The tail emission on ``placed`` == its plain version, timed by
+    ``compare`` (the launch of ``grid``): the replayed launch ORs the same
+    bits into its words again. The bound counts the block totals read once
+    and, per long block, its column of coefficients and the words its tail
+    touches."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    kw = dict(capacity_words=CAP_WORDS)
+    long_blocks = block_bits > 256
+    n_long = int(long_blocks.sum())
+    tail_bytes = int((block_bits - 256).clamp(min=0).sum()) // 8
     scratch = placed.clone()
     count = torch.zeros((1,), dtype=torch.int32, device=placed.device)
-    compare(torch, results, tag, "emit_tail", label,
-            lambda: bs_cuda.emit_tail(scratch, coefs, *emit_args, block_bits,
-                                      count=count, **kw)[0],
-            lambda: bs_cuda.emit_tail_plain(placed, coefs, *emit_args,
-                                            block_bits, **kw)[0],
-            (), lambda out: (block_bits.numel() * OPS_TAIL_BLOCK
-                             + emit_ops(torch, coefs, emit_args[0],
-                                        block_bits.shape[1], long_blocks)),
-            card, bytes_fn=lambda out: (
-                nbytes(block_bits, emit_args[0])
-                + n_long * (63 * coefs.element_size() + 8)
-                + 2 * (tail_bytes + 8 * n_long)))
-    return n_frames
+    return compare(
+        torch, results, tag, "emit_tail", label,
+        lambda: bs_cuda.emit_tail(scratch, coefs, *emit_args, block_bits,
+                                  count=count, **kw)[0],
+        lambda: bs_cuda.emit_tail_plain(placed, coefs, *emit_args,
+                                        block_bits, **kw)[0],
+        (), lambda out: (block_bits.numel() * OPS_TAIL_BLOCK
+                         + emit_ops(torch, coefs, emit_args[0],
+                                    block_bits.shape[1], long_blocks)),
+        card, bytes_fn=lambda out: (
+            nbytes(block_bits, emit_args[0])
+            + n_long * (63 * coefs.element_size() + 8)
+            + 2 * (tail_bytes + 8 * n_long)), grid=grid, size=size, ten=True)
 
 
 def check_kernels(torch, np, synth, card):
@@ -899,16 +993,150 @@ def check_kernels(torch, np, synth, card):
             lambda: bitpack_cuda.place_vals_plain(
                 vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
             lambda out: vals32.numel() * OPS_PLACE_WORD,
-            library_fn=lib_fn)
+            library_fn=lib_fn, grid=bitpack_cuda.place_vals_grid(
+                B, CAP_WORDS))
         if not torch.equal(lib_words, placed):
             raise AssertionError("one scatter_add_ on prepared indices "
                                  "differs from K4")
+        if codec == bs_ops.BS_V2:
+            place_cases(torch, np, synth, card, vals32, e0,
+                        (pix, budgets, dc_bits, dc_code))
         if not check_tail(torch, results, 3, label, placed, coefs,
                           (sidx, dc_code, dc_bits), block_bits, eof, card):
             raise AssertionError("phase 3: no frame has a block over 256 "
                                  "bits")
+    tail_cases(torch, np, synth, card, results)
     dc_checks(torch, np, synth, card, results["dc_stage"], dc_q)
     return results
+
+
+def place_case(torch, card, label, vals32, e0, capacity_words):
+    """K4 on one case == its plain version and one scatter_add_, exactly,
+    timed by ``compare`` (one and ten calls a graph, an empty launch of its
+    grid); prints its ranges, how many range starts fall inside a block's
+    nine words and where the longest frame's last block starts against
+    cap32. Returns that start less cap32."""
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_place_cases import boundaries_inside
+
+    b, nbe = e0.shape
+    cap32 = (capacity_words + 1) // 2
+    kw = dict(capacity_words=capacity_words)
+    lib_fn, lib_words = scatter_add_call(torch, vals32, e0, capacity_words)
+    got = compare(torch, {}, 3, "place_vals", label,
+                  lambda: bitpack_cuda.place_vals(vals32, e0, **kw),
+                  lambda: bitpack_cuda.place_vals_plain(vals32, e0, **kw),
+                  (vals32, e0), lambda out: vals32.numel() * OPS_PLACE_WORD,
+                  card, library_fn=lib_fn,
+                  grid=bitpack_cuda.place_vals_grid(b, capacity_words),
+                  size=f"B={b}, NBe={nbe}, cap32={cap32}", ten=True)
+    words = bitpack_cuda.place_range_words(
+        b, capacity_words, bs_cuda.sm_count(e0.device))
+    inside = boundaries_inside(e0.cpu().numpy(), cap32, words)
+    past = int(e0[:, -1].max()) - cap32
+    same = torch.equal(got, lib_words)
+    say(f"[3] place_vals {label}: ranges of {words} words, "
+        f"{-(-cap32 // words)} a frame; {inside} range starts fall inside "
+        f"a block's nine words; the longest frame's last block starts "
+        f"{abs(past)} words {'past' if past >= 0 else 'before'} cap32; "
+        f"equal to one scatter_add_: {same}")
+    if not same:
+        raise AssertionError(f"place_vals {label}: K4 differs from one "
+                             "scatter_add_")
+    return past
+
+
+def place_cases(torch, np, synth, card, vals32, e0, v2_inputs):
+    """Phase 3, K4 beyond its row (phase 3's v2 batch): that batch's range
+    starts inside blocks, and ``place_case`` on its first frame alone, on
+    300 frames (its frames over again), on it with frame 5 unfittable (its
+    words run past cap32), on 640x480 frames (frame 1 unfittable) and on
+    16 frames of hand-made offsets that tie (tests/torch_place_cases.py).
+    ``v2_inputs``: the batch's pixel rows, budgets, DC bits and codes."""
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_place_cases import boundaries_inside, tied_frames
+
+    def prep(pix, thr, dc_bits, dc_code):
+        scale, _, _, coefs = bs_cuda.select_scale_pix(pix, thr)
+        sidx = torch.where(scale <= 63, scale, 1)
+        return bs_cuda.emit_prep(coefs, sidx, dc_code, dc_bits,
+                                 eof=0x1FF)[:2]
+
+    pix, budgets, dc_bits, dc_code = v2_inputs
+    b, nbe = e0.shape
+    words = bitpack_cuda.place_range_words(b, CAP_WORDS,
+                                           bs_cuda.sm_count(e0.device))
+    if not boundaries_inside(e0.cpu().numpy(), (CAP_WORDS + 1) // 2, words):
+        raise AssertionError("phase 3: no range start of K4 falls inside a "
+                             "block")
+    budgets_u = budgets.clone()
+    budgets_u[UNFIT_FRAME] = UNFIT_BUDGET
+    thr_u = bs_ops.ac_threshold(
+        budgets_u, dc_bits.sum(dim=1, dtype=torch.int32), nbe - 1)
+    pixb, thrb = big_frames(torch, np, synth)
+    big_bits, big_code = bs_ops._dc_stage(bs_ops.dc_quant_from_pixrows(pixb),
+                                          bs_ops.BS_V2)
+    tv, te = tied_frames(16, nbe)
+    te_max = int(te.max())
+    cases = (
+        ("one frame", vals32[:1], e0[:1], CAP_WORDS, False),
+        ("300 frames", torch.cat([vals32] * 3)[:300].contiguous(),
+         torch.cat([e0] * 3)[:300].contiguous(), CAP_WORDS, False),
+        ("frame 5 unfittable", *prep(pix, thr_u, dc_bits, dc_code),
+         CAP_WORDS, True),
+        (f"{BIG_W}x{BIG_H}, frame 1 unfittable",
+         *prep(pixb, thrb, big_bits, big_code), (4 * BUDGET - 7) // 2, True),
+        ("16 frames of offsets that tie",
+         torch.from_numpy(tv).to(e0.device), torch.from_numpy(te).to(
+             e0.device), 2 * te_max + 20, False))
+    for label, v, e, cap, unfit in cases:
+        if place_case(torch, card, label, v, e, cap) <= 0 and unfit:
+            raise AssertionError(f"place_vals {label}: no frame runs past "
+                                 "cap32")
+
+
+def tail_cases(torch, np, synth, card, results):
+    """Phase 3, the tail emission beyond its rows: ``check_tail`` on noise
+    frames (no block over 256 bits: every CTA leaves after reading its
+    totals) and on tests/torch_emit_cases.py's edge_inputs at 320x240 (a
+    block of exactly 256 bits, one of 257, an escape across bit 256, all 63
+    levels clamped, runs over 31; frame 0 at scale 1 runs past the
+    capacity, so its later tails drop whole)."""
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_emit_cases import edge_inputs, select_form
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    noise = torch.from_numpy(rng.integers(
+        0, 256, (B, W * H * 3 // 2)).astype(np.uint8)).to(dev)
+    budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
+    pix, thr = select_inputs(torch, noise, budgets)
+    dc_bits, dc_code = bs_ops._dc_stage(bs_ops.dc_quant_from_pixrows(pix),
+                                        bs_ops.BS_V2)
+    scale, _, _, coefs = bs_cuda.select_scale_pix(pix, thr)
+    c, sc, dcc, dcb = edge_inputs(pix.shape[2])
+    edge = [torch.from_numpy(a).to(dev) for a in (select_form(c), sc, dcc,
+                                                  dcb)]
+    cases = (("noise", coefs, (torch.where(scale <= 63, scale, 1), dc_code,
+                               dc_bits), 0),
+             ("edge_inputs", edge[0], tuple(edge[1:]), 2))
+    for label, c64, args, frames in cases:
+        vals32, e0, block_bits, _ = bs_cuda.emit_prep(c64, *args, eof=0x1FF)
+        placed = bitpack_cuda.place_vals(vals32, e0, capacity_words=CAP_WORDS)
+        n = check_tail(torch, results, 3, label, placed, c64, args,
+                       block_bits, 0x1FF, card,
+                       size=f"B={block_bits.shape[0]}, {W}x{H}")
+        if n != frames:
+            raise AssertionError(f"emit_tail {label}: {n} frames with a "
+                                 f"block over 256 bits, expected {frames}")
 
 
 def check_dc(torch, results, card, dc_q):
@@ -1013,13 +1241,13 @@ def select_pix_checks(torch, np, synth, card, results, pix, budgets, dc_bits,
               card)
 
 
-def scatter_add_call(torch, vals32, e0):
+def scatter_add_call(torch, vals32, e0, capacity_words=CAP_WORDS):
     """One scatter_add_ computes K4's, K8's and K9's placement from the
     placed u32 words (int32 bit patterns) and their prepared, clipped
     indices (a spare column takes the dropped words): the words are
     bit-disjoint, so add == or. Returns (the call, for timing; the (B,
     cap32) words of one call on a zeroed output)."""
-    cap32 = (CAP_WORDS + 1) // 2
+    cap32 = (capacity_words + 1) // 2
     b = vals32.shape[0]
     vals = vals32.to(torch.int32).reshape(b, -1)
     idx = (e0.to(torch.int64)[..., None]
@@ -1486,7 +1714,8 @@ def block_stream_kernels(torch, np, synth, card):
               streams, goff, total, capacity_words=CAP_WORDS),
           (streams, goff),
           lambda out: B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD),
-          library_fn=lib_fn if same else None)
+          library_fn=lib_fn if same else None,
+          grid=bitpack_cuda.place_streams_grid(B, nbe))
 
     check_pack(torch, results, card, c, emit_args)
     return results, (c64, sidx, dc_code, dc_bits)
@@ -1737,7 +1966,8 @@ def gather_kernel(torch, k3_inputs, card):
                   lambda: bitpack_cuda.place_vals_gather_plain(
                       vals32, e0, capacity_words=CAP_WORDS),
                   (vals32, e0), lambda out: vals32.numel() * OPS_PLACE_WORD,
-                  card, library_fn=lib_fn)
+                  card, library_fn=lib_fn,
+                  grid=bitpack_cuda.place_vals_gather_grid(B, CAP_WORDS))
     k4 = bitpack_cuda.place_vals(vals32, e0, capacity_words=CAP_WORDS)
     past = int(e0[UNFIT_FRAME, -1]) - (CAP_WORDS + 1) // 2
     if not (torch.equal(got, k4) and torch.equal(got, lib_words)):
@@ -1949,6 +2179,7 @@ def main():
                           ("dc_chain_kernel", "empty_kernel"))
     spills.update(ptxas_report(_build.build_log, "bitpack_streams.cu",
                                ("pack_kernel", "place_streams_kernel")))
+    ptxas_report(_build.build_log, "bitpack_place.cu", ("place_kernel",))
     if spills.get("dc_chain_kernel", 1) or spills.get("pack_kernel", 1):
         raise AssertionError("K2 or K10 spills (or ptxas did not report "
                              "them)")

@@ -7,8 +7,10 @@
 // emit_pack_pallas (_emit_pack_kernel); plain version: ops/bs_cuda.py::
 // emit_pack_plain. The tail emission has no TPU kernel behind it: it
 // replaces the flat re-pack that psxavenc_tpu/api.py:212-235 leaves to XLA;
-// plain version: ops/bs_cuda.py::emit_tail_plain. All three run emit_block
-// below.
+// plain version: ops/bs_cuda.py::emit_tail_plain, the plain model of its
+// decomposition ops/bs_cuda.py::emit_tail_lanes_plain. K3 and K7 run
+// emit_block below, a thread a block; the tail emission runs a warp a block
+// (emit_tail_block).
 //
 // emit_block, per block at the frame's chosen scale, in two passes:
 //  A. find: the 63 AC positions are read once (no divide) and a 63-bit
@@ -25,17 +27,14 @@
 // Word w of a block holds its bits [32w, 32w + 32). The window sink stores
 // words 0..7 (the 256-bit window) in shared memory as they are finished
 // (later words are dropped, block_bits counts them; eight registers chosen
-// by a run-time index would cost sixteen instructions a word); the tail sink
-// takes words 8 and up and ORs them into the frame's placed words at the
-// block's frame-global bit offset.
+// by a run-time index would cost sixteen instructions a word).
 //
 // K3 and K7 read the coefficients from a tile in shared memory, 63 rows by
 // one block per thread, that the CTA fills asynchronously (no register held
 // meanwhile): a thread that loads its own column from global memory waits
 // for each of the 63 rows in turn. K3 fills its tile with 63 bulk copies of a
 // row each, K7, whose rows may start on any boundary, with 16-byte cp.async
-// copies or element by element. The tail emission reads global memory: its
-// blocks are few.
+// copies or element by element.
 //
 // K3, one CTA per frame (a frame's blocks in as few even trips as 960
 // threads allow, a tile per trip; the next trip's rows are asked into L2
@@ -57,15 +56,40 @@
 // int32 rows; blocks at or past the true NB (dc_code's width) emit
 // nothing.
 //
-// The tail emission, one CTA per frame after the placement kernel: a frame
-// without a block over 256 bits leaves after reading its block totals;
-// otherwise the CTA counts the frame, scans the totals for the offsets,
-// lists its long blocks and walks them, a thread each.
+// The tail emission, a launch after the placement kernel, ORs into the
+// placed words the bits at or past in-block bit 256 of every block longer
+// than that. A frame has ``ctas`` CTAs of 16 warps (grid: frames x ctas).
+// Each reads the frame's block totals, coalesced: a frame without a long
+// block leaves there. Otherwise the CTA copies the AC code table made at
+// compile time (ac_codes.cuh) into shared memory and computes the 63
+// divisors, reciprocals and thresholds of its frame's scale, while one pass
+// over contiguous segments of the totals with two warp scans (totals and
+// counts of long blocks) gives every long block's frame-global bit offset
+// and its rank among the long blocks, in block order, so that every CTA of
+// the frame lists them alike. The frame's warps take every (ctas x 16)-th
+// of them, CTA c's warp w starting at rank 16c + w; the first CTA counts
+// the frame. A warp emits a long block as a whole (emit_tail_block): lane
+// l takes scan positions l and l + 32, loads both coefficients up front
+// (for four blocks at a time, so that their loads are in flight together),
+// tests them against the thresholds, and two ballots give the 63-bit mask
+// of nonzero levels. Each lane quantizes its nonzero levels with the exact
+// div_floor, takes each run from the mask (the highest set bit below its
+// position) and looks its code up in the table (else the 22-bit escape).
+// One inclusive warp scan of the two lengths, packed into one int, gives
+// each code's in-block end; DC (at most 16 bits) ends far inside the
+// window, the 2-bit EOB ends at the block's total. A code ending past bit
+// 256 ORs its last min(end - 256, bits) bits into the placed words at the
+// block's offset, one global atomicOr a touched u32 word (those words are
+// shared with the placed windows and with the neighbouring blocks); u16
+// words at or past the capacity drop. The critical path of a block is a
+// round of loads, two of lookups in shared memory and a five-step scan.
 //
 // What bounds them on the H100: K3 the walk's dependent integer work and
 // the arrival of a frame's first tile, during which nothing computes; K7 the
-// bytes of its coefficients and streams. See PERF.md for the sections'
-// cycles (K3's stats output).
+// bytes of its coefficients and streams; the tail emission the latency of
+// a warp's rounds of loads, as its bytes are few. See PERF.md for the
+// sections' cycles (K3's stats output).
+#include "ac_codes.cuh"
 #include "bs_common.cuh"
 
 namespace {
@@ -75,7 +99,9 @@ constexpr int kPackThreads = 96;   // K7
 // A tile's row stride is a constant, so that the 63 row offsets of a
 // column are immediates and not 63 registers.
 constexpr int kTileStride = kMaxThreads;
-constexpr int kTailThreads = 256;
+constexpr int kTailWarps = 16;
+constexpr int kTailThreads = 32 * kTailWarps;
+constexpr int kTailGroup = 4;      // long blocks a warp loads at once
 constexpr int kWindowBits = 256;
 constexpr int kEmitStats = 8;  // ops/bs_cuda.py:EMIT_STAT_NAMES
 
@@ -253,29 +279,6 @@ __device__ __forceinline__ void load_windows(uint32_t (&acc)[8],
   for (int k = 0; k < 8; ++k) acc[k] = k < words ? at[k * step] : 0u;
 }
 
-// Words 8 and up of a block, ORed into the frame's placed u32 words
-// (MSB-first u16 words as little-endian pairs, ops/bitpack.py:
-// streams_to_u32) at the block's frame-global bit offset ``g``. u16 words
-// at or past ``cap_words`` drop.
-struct TailSink {
-  int* out;
-  int g, cap_words;
-  __device__ __forceinline__ void word(int w, uint32_t v) {
-    if (w < 8 || v == 0) return;
-    const int bit = g + 32 * w;
-    const int k = bit >> 4;
-    // The word's 32 bits inside the three u16 words k, k + 1, k + 2.
-    const uint64_t t = static_cast<uint64_t>(v) << (16 - (bit & 15));
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const uint32_t h = static_cast<uint32_t>(t >> (32 - 16 * i)) & 0xFFFFu;
-      const int ki = k + i;
-      if (h && ki < cap_words)
-        atomicOr(out + (ki >> 1), static_cast<int>(h << ((ki & 1) * 16)));
-    }
-  }
-};
-
 // The column of a ``width``-wide tile (a multiple of 96) that thread ``t``
 // takes: a warp's lanes get blocks of one kind (a macroblock is Cr, Cb and
 // four Y blocks in a row, and chroma blocks are the emptier), so that its
@@ -286,21 +289,19 @@ __device__ __forceinline__ int lane_column(int t, int width) {
 }
 
 // Emission of one block, whose coefficient at scan position p + 1 is
-// ``col[p * kStride]`` (``stride`` where kStride is 0), into ``sink``;
-// returns its bits (DC + ACs + EOB, uncut). The lanes of ``meet`` (all of
-// the warp's lanes that make this call, or 0) meet after pass A, and
-// ``find_end``, where not null, receives the clock there.
+// ``col[p * kStride]``, into ``sink``; returns its bits (DC + ACs + EOB,
+// uncut). The lanes of ``meet`` (all of the warp's lanes that make this
+// call, or 0) meet after pass A, and ``find_end``, where not null,
+// receives the clock there.
 template <int kStride, typename T, typename Sink>
-__device__ __forceinline__ int emit_block(const T* __restrict__ col,
-                                          int stride, int dcb, uint32_t dcc,
-                                          const EmitTables& t, Sink& sink,
-                                          unsigned meet = 0,
+__device__ __forceinline__ int emit_block(const T* __restrict__ col, int dcb,
+                                          uint32_t dcc, const EmitTables& t,
+                                          Sink& sink, unsigned meet = 0,
                                           long long* find_end = nullptr) {
-  if (kStride) stride = kStride;
   uint32_t half[2] = {0, 0};
 #pragma unroll
   for (int p = 0; p < 63; ++p) {
-    const int c = col[p * stride];
+    const int c = col[p * kStride];
     const uint32_t nz = (c < 0 ? -c : c) >= t.thr[p];
     half[p >> 5] |= nz << (p & 31);
   }
@@ -315,7 +316,7 @@ __device__ __forceinline__ int emit_block(const T* __restrict__ col,
     while (mask) {
       const int p = 32 * h + __ffs(static_cast<int>(mask)) - 1;
       mask &= mask - 1;
-      const int c = col[p * stride];
+      const int c = col[p * kStride];
       const int2 dv = t.div[p];
       const int mag = psx::div_floor((c < 0 ? -c : c) + (dv.x >> 1), dv.x,
                                      __int_as_float(dv.y));
@@ -448,7 +449,7 @@ emit_prep_kernel(const int16_t* __restrict__ coefs_in, int nb_pad, int nb,
       WindowSink sink{park + n * park_n, park_k};
       long long ta = 0, tb = 0;
       if (timed) ta = clock64();
-      const int o = emit_block<kTileStride>(tile + column, 0, dcb, dcc,
+      const int o = emit_block<kTileStride>(tile + column, dcb, dcc,
                                             tables, sink, meet,
                                             timed ? &tb : nullptr);
       if (meet) __syncwarp(meet);
@@ -538,7 +539,7 @@ emit_pack_kernel(const T* __restrict__ coefs_in, int rows, int stride, int nb,
   const size_t i = static_cast<size_t>(b) * nb + n;
   WindowSink sink{windows + threadIdx.x, kPackThreads};
   const int bits = emit_block<kPackThreads>(
-      tile + column, 0, dc_bits_in[i], static_cast<uint32_t>(dc_code_in[i]),
+      tile + column, dc_bits_in[i], static_cast<uint32_t>(dc_code_in[i]),
       tables, sink);
   bbits_out[i] = bits;
   uint32_t acc[8];
@@ -552,50 +553,247 @@ emit_pack_kernel(const T* __restrict__ coefs_in, int rows, int stride, int nb,
                        static_cast<int>(acc[2 * k + 1] & 0xFFFFu));
 }
 
+// The long blocks of a frame that has one, in block order: list[i] =
+// (block, frame-global bit offset) of the i-th block over the 256-bit
+// window; returns their count to every thread. Thread t takes the totals
+// [t * seg, (t + 1) * seg): it sums them and counts its long blocks, two
+// warp scans and the warps' sums give its segment's offset and rank, and
+// it walks its segment again to list its long blocks. ``scratch``: 64
+// ints.
+__device__ int list_long_blocks(const int* __restrict__ bbits, int nb,
+                                int2* list, int* scratch) {
+  const int seg = (nb + blockDim.x - 1) / blockDim.x;
+  const int beg = min(static_cast<int>(threadIdx.x) * seg, nb);
+  const int end = min(beg + seg, nb);
+  int sum = 0, cnt = 0;
+#pragma unroll 4
+  for (int i = beg; i < end; ++i) {
+    const int o = bbits[i];
+    sum += o;
+    cnt += o > kWindowBits;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int xs = sum, xc = cnt;  // inclusive scans within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ys = __shfl_up_sync(0xFFFFFFFFu, xs, off);
+    const int yc = __shfl_up_sync(0xFFFFFFFFu, xc, off);
+    if (lane >= off) {
+      xs += ys;
+      xc += yc;
+    }
+  }
+  if (lane == 31) {
+    scratch[warp] = xs;
+    scratch[32 + warp] = xc;
+  }
+  __syncthreads();
+  int g = xs - sum, rank = xc - cnt, n_long = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    if (w < warp) {
+      g += scratch[w];
+      rank += scratch[32 + w];
+    }
+    n_long += scratch[32 + w];
+  }
+  for (int i = beg; i < end; ++i) {
+    const int o = bbits[i];
+    if (o > kWindowBits) list[rank++] = make_int2(i, g);
+    g += o;
+  }
+  __syncthreads();
+  return n_long;
+}
+
+// The frame's tables in shared memory: the AC codes (a copy of the table
+// made at compile time, ac_codes.cuh) and, per scan position, the divisor at
+// the frame's scale, its f32 reciprocal and the zero test's threshold
+// (position 63, which no lane's second half has, never passes it).
+struct TailTables {
+  uint32_t code[psx::kAcLow + psx::kAcHigh];
+  int d[64], thr[64];
+  float rcp[64];
+};
+
+// Starts the copy of the code table (cp_async_wait completes it).
+__device__ __forceinline__ void stage_tail_codes(TailTables& t) {
+  for (int i = threadIdx.x; i < psx::kAcLow + psx::kAcHigh; i += blockDim.x)
+    cp_async(t.code + i, psx::kAcCodes + i, 4);
+}
+
+// The divisors, reciprocals and thresholds at the frame's scale ``s``.
+__device__ __forceinline__ void load_tail_divisors(TailTables& t, int s) {
+  if (threadIdx.x < 64) {
+    const int p = threadIdx.x;
+    const int d = p < 63 ? psx::kQuantZZ[p] * s : 1;
+    t.d[p] = d;
+    t.rcp[p] = 1.0f / static_cast<float>(d);
+    t.thr[p] = p < 63 ? (d + 1) >> 1 : 0x7FFFFFFF;
+  }
+}
+
+// A lane's scan position of a long block: its divisor, reciprocal and
+// threshold from the frame's tables.
+struct LanePos {
+  int d, thr;
+  float rcp;
+  __device__ __forceinline__ LanePos(const TailTables& t, int p)
+      : d(t.d[p]), thr(t.thr[p]), rcp(t.rcp[p]) {}
+  // The quantized level of a coefficient whose level is nonzero.
+  __device__ __forceinline__ int level(int c) const {
+    const int mag = psx::div_floor((c < 0 ? -c : c) + (d >> 1), d, rcp);
+    return min(max(c < 0 ? -mag : mag, -0x200), 0x1FE);
+  }
+};
+
+// (bits, code) of the nonzero level ``ac`` at run ``r`` from the frame's
+// copy of the table made at compile time (ac_codes.cuh), or the 22-bit
+// escape.
+__device__ __forceinline__ void table_code(const TailTables& t, int r, int ac,
+                                           int& bits, uint32_t& code) {
+  const int a = ac < 0 ? -ac : ac;
+  const bool low = a <= 7;
+  const bool listed = low ? r < 32 : (a <= 40 && r < 2);
+  const uint32_t e =
+      listed ? t.code[low ? ((a - 1) << 5) + r : psx::kAcLow + r * 33 + a - 8]
+             : 0u;
+  if (e) {
+    bits = static_cast<int>(e >> 24);
+    code = (e & 0xFFFFFFu) | (ac < 0 ? 1u : 0u);
+  } else {
+    bits = 22;
+    code = (1u << 16) | static_cast<uint32_t>((r << 10) | (ac & 0x3FF));
+  }
+}
+
+// ORs the part at or past in-block bit 256 of a ``bits``-bit code that ends
+// at in-block bit ``end`` into a frame's placed u32 words ``out`` (MSB-first
+// u16 words as little-endian pairs, ops/bitpack.py:streams_to_u32), the
+// block starting at frame bit ``g``: its last keep = min(end - 256, bits)
+// bits at frame bits [g + end - keep, g + end). They lie in at most three
+// u16 words, so in at most two u32 words, one atomicOr each; u16 words at
+// or past ``cap_words`` drop.
+__device__ __forceinline__ void or_tail(int* out, int g, int end, int bits,
+                                        uint32_t code, int cap_words) {
+  const int keep = min(end - kWindowBits, bits);
+  if (keep <= 0) return;
+  const int p = g + end - keep;
+  const int k = p >> 4;
+  // The kept bits, MSB-first, in the 48-bit window of u16 words k..k + 2.
+  const uint64_t t = static_cast<uint64_t>(code & ((1u << keep) - 1u))
+                     << (48 - (p & 15) - keep);
+  uint64_t pairs = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    if (k + i < cap_words)
+      pairs |= ((t >> (32 - 16 * i)) & 0xFFFFu) << (16 * i);
+  // u16 word k + i is half (k + i) & 1 of u32 word (k + i) >> 1.
+  pairs <<= 16 * (k & 1);
+  const uint32_t lo = static_cast<uint32_t>(pairs);
+  const uint32_t hi = static_cast<uint32_t>(pairs >> 32);
+  if (lo) atomicOr(out + (k >> 1), static_cast<int>(lo));
+  if (hi) atomicOr(out + (k >> 1) + 1, static_cast<int>(hi));
+}
+
+// One long block, emitted by a whole warp from its coefficients at the
+// lane's positions (``ca`` at position lane, ``cb`` at lane + 32; 0 where
+// none) and its DC code's length ``dcb``; its tail goes into ``out`` at
+// frame bit ``g``.
+__device__ __forceinline__ void emit_tail_block(int ca, int cb, int dcb,
+                                                int g, const TailTables& t,
+                                                const LanePos& pa,
+                                                const LanePos& pb, int* out,
+                                                int cap_words) {
+  const int lane = threadIdx.x & 31;
+  const bool nza = (ca < 0 ? -ca : ca) >= pa.thr;
+  const bool nzb = (cb < 0 ? -cb : cb) >= pb.thr;
+  const unsigned lo = __ballot_sync(0xFFFFFFFFu, nza);
+  const unsigned hi = __ballot_sync(0xFFFFFFFFu, nzb);
+  const unsigned below = (1u << lane) - 1u;
+  // The nonzero position before each of the lane's own.
+  const int prev_a = (lo & below) ? 31 - __clz(lo & below) : -1;
+  const int prev_b = (hi & below) ? 63 - __clz(hi & below)
+                                  : (lo ? 31 - __clz(lo) : -1);
+  int bits_a = 0, bits_b = 0;
+  uint32_t code_a = 0, code_b = 0;
+  if (nza) table_code(t, lane - prev_a - 1, pa.level(ca), bits_a, code_a);
+  if (nzb) table_code(t, lane + 31 - prev_b, pb.level(cb), bits_b, code_b);
+  // Both lengths in one int: a half's sum is at most 32 x 22 bits.
+  int x = bits_a | (bits_b << 16);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, off);
+    if (lane >= off) x += y;
+  }
+  const int all = __shfl_sync(0xFFFFFFFFu, x, 31);
+  const int half = dcb + (all & 0xFFFF);  // DC and positions 0..31
+  if (nza) or_tail(out, g, dcb + (x & 0xFFFF), bits_a, code_a, cap_words);
+  if (nzb) or_tail(out, g, half + (x >> 16), bits_b, code_b, cap_words);
+  if (lane == 31) or_tail(out, g, half + (all >> 16) + 2, 2, 0x2u, cap_words);
+}
+
+// Dynamic shared memory: the frame's long blocks, an int2 each (at most
+// nb). ``ctas``: the CTAs of a frame, blockIdx.x = frame * ctas + part.
 template <typename T>
 __global__ void __launch_bounds__(kTailThreads)
 emit_tail_kernel(const T* __restrict__ coefs_in, int rows, int stride, int nb,
                  const int* __restrict__ scale_in,
-                 const int* __restrict__ dc_code_in,
                  const int* __restrict__ dc_bits_in,
-                 const int* __restrict__ bbits_in, int cap32, int cap_words,
-                 int* out32, int* count) {
-  // nb block totals, then offsets; the list of long blocks
-  extern __shared__ __align__(16) int goff[];
-  __shared__ EmitTables tables;
-  __shared__ int scratch[32];
-  __shared__ int n_long;
+                 const int* __restrict__ bbits_in, int ctas, int cap32,
+                 int cap_words, int* out32, int* count) {
+  extern __shared__ __align__(16) int2 list[];
+  __shared__ TailTables tables;
+  __shared__ int scratch[64];
 
-  const int b = blockIdx.x;
-  const int* bbits = bbits_in + static_cast<size_t>(b) * nb;
+  const int b = blockIdx.x / ctas;
+  const int part = blockIdx.x - b * ctas;
+  const int* bbits = bbits_in + b * nb;
+  // The code table is on its way while the totals are read. A frame
+  // without a long block leaves after one coalesced read of its totals.
+  stage_tail_codes(tables);
   int any = 0;
+#pragma unroll 4
   for (int n = threadIdx.x; n < nb; n += blockDim.x)
     any |= bbits[n] > kWindowBits;
-  if (!__syncthreads_or(any)) return;
+  const bool some = __syncthreads_or(any);
+  cp_async_wait();
+  if (!some) return;
+  if (part == 0 && threadIdx.x == 0) atomicAdd(count, 1);
+  // The scan's barriers order the tables before their use.
+  load_tail_divisors(tables, scale_in[b]);
+  const int n_long = list_long_blocks(bbits, nb, list, scratch);
 
-  int* list = goff + nb;
-  if (threadIdx.x == 0) {
-    atomicAdd(count, 1);
-    n_long = 0;
-  }
-  load_tables(tables, scale_in[b]);
-  for (int n = threadIdx.x; n < nb; n += blockDim.x) {
-    const int o = bbits[n];
-    goff[n] = o;
-    if (o > kWindowBits) list[atomicAdd(&n_long, 1)] = n;
-  }
-  __syncthreads();
-  block_exclusive_scan(goff, nb, scratch);
-
+  const int lane = threadIdx.x & 31;
+  const LanePos pa(tables, lane), pb(tables, lane + 32);
   const T* coefs = coefs_in + static_cast<size_t>(b) * rows * stride;
-  for (int j = threadIdx.x; j < n_long; j += blockDim.x) {
-    const int n = list[j];
-    const int g = goff[n];
-    if (g + kWindowBits >= cap_words * 16) continue;  // all of it drops
-    const size_t i = static_cast<size_t>(b) * nb + n;
-    TailSink sink{out32 + static_cast<size_t>(b) * cap32, g, cap_words};
-    emit_block<0>(coefs + n, stride, dc_bits_in[i],
-                  static_cast<uint32_t>(dc_code_in[i]), tables, sink);
+  const int* dcb_row = dc_bits_in + b * nb;
+  int* out = out32 + b * cap32;
+  const int cap_bits = cap_words * 16;
+  const int warps = ctas * kTailWarps;  // the frame's warps
+  for (int q0 = part * kTailWarps + (threadIdx.x >> 5); q0 < n_long;
+       q0 += kTailGroup * warps) {
+    int ca[kTailGroup], cb[kTailGroup], dcb[kTailGroup], g[kTailGroup];
+    bool on[kTailGroup];
+#pragma unroll
+    for (int i = 0; i < kTailGroup; ++i) {
+      const int q = q0 + i * warps;
+      const int2 e = q < n_long ? list[q] : make_int2(0, cap_bits);
+      // A tail that starts at or past the capacity drops whole.
+      on[i] = e.y + kWindowBits < cap_bits;
+      g[i] = e.y;
+      ca[i] = cb[i] = dcb[i] = 0;
+      if (on[i]) {
+        const T* col = coefs + e.x;
+        ca[i] = col[lane * stride];
+        if (lane < 31) cb[i] = col[(lane + 32) * stride];
+        dcb[i] = dcb_row[e.x];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTailGroup; ++i)
+      if (on[i])
+        emit_tail_block(ca[i], cb[i], dcb[i], g[i], tables, pa, pb, out,
+                        cap_words);
   }
 }
 
@@ -669,18 +867,19 @@ extern "C" int psx_emit_pack(const void* coefs, int coefs_int16, int batch,
 // ORs into ``out32`` (batch, cap32) the bits at or past in-block bit 256 of
 // every block whose ``block_bits`` entry is over 256, at the offsets the
 // exclusive scan of ``block_bits`` gives; adds to ``count`` the number of
-// frames with such a block. Coefficient forms as psx_emit_pack.
+// frames with such a block. ``ctas``: CTAs a frame (ops/bs_cuda.py:
+// tail_ctas); batch * ctas, batch * nb and batch * cap32 below 2^31.
+// Coefficient forms as psx_emit_pack.
 extern "C" int psx_emit_tail(const void* coefs, int coefs_int16, int batch,
                              int rows, int stride, int nb, const void* scale,
-                             const void* dc_code, const void* dc_bits,
-                             const void* block_bits, int cap32,
-                             int cap_words, void* out32, void* count,
-                             void* stream) {
+                             const void* dc_bits, const void* block_bits,
+                             int ctas, int cap32, int cap_words, void* out32,
+                             void* count, void* stream) {
   if (batch == 0 || nb == 0) return 0;
+  if (ctas <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(2 * nb) * sizeof(int);
+  const size_t smem = static_cast<size_t>(nb) * sizeof(int2);
   const int* sc = static_cast<const int*>(scale);
-  const int* dcc = static_cast<const int*>(dc_code);
   const int* dcb = static_cast<const int*>(dc_bits);
   const int* bb = static_cast<const int*>(block_bits);
   int* out = static_cast<int*>(out32);
@@ -689,15 +888,15 @@ extern "C" int psx_emit_tail(const void* coefs, int coefs_int16, int batch,
     cudaFuncSetAttribute(emit_tail_kernel<int16_t>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    emit_tail_kernel<int16_t><<<batch, kTailThreads, smem, s>>>(
-        static_cast<const int16_t*>(coefs), rows, stride, nb, sc, dcc, dcb,
-        bb, cap32, cap_words, out, cnt);
+    emit_tail_kernel<int16_t><<<batch * ctas, kTailThreads, smem, s>>>(
+        static_cast<const int16_t*>(coefs), rows, stride, nb, sc, dcb, bb,
+        ctas, cap32, cap_words, out, cnt);
   } else {
     cudaFuncSetAttribute(emit_tail_kernel<int>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    emit_tail_kernel<int><<<batch, kTailThreads, smem, s>>>(
-        static_cast<const int*>(coefs), rows, stride, nb, sc, dcc, dcb, bb,
+    emit_tail_kernel<int><<<batch * ctas, kTailThreads, smem, s>>>(
+        static_cast<const int*>(coefs), rows, stride, nb, sc, dcb, bb, ctas,
         cap32, cap_words, out, cnt);
   }
   return static_cast<int>(cudaGetLastError());

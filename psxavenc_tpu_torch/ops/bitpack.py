@@ -101,6 +101,17 @@ def streams_to_u32(streams, goff):
     return vals32, (goff >> 5).to(torch.int64)
 
 
+def or_scatter(n, idx, val):
+    """(n,) int64: the OR of the u32 values ``val`` at the word indices
+    ``idx`` (int64, one shape), bit plane by bit plane."""
+    out = torch.zeros(n, dtype=torch.int64, device=val.device)
+    for bit in range(32):
+        plane = torch.zeros(n, dtype=torch.int64, device=val.device)
+        plane.scatter_reduce_(0, idx, (val >> bit) & 1, "amax")
+        out |= plane << bit
+    return out
+
+
 def cap32_of(capacity_words):
     """u32 words that hold ``capacity_words`` u16 words."""
     return (capacity_words + 1) // 2

@@ -21,7 +21,7 @@ kernel for CUDA tensors; ``LAUNCHES`` counts the launches.
 import torch
 
 from . import _build, bitpack
-from .bs_cuda import _on_cuda, _opt_ptr, _require
+from .bs_cuda import _on_cuda, _opt_ptr, _require, sm_count
 
 LAUNCHES = {"place_vals": 0, "place_vals_gather": 0, "place_streams": 0,
             "pack_block_streams": 0}
@@ -58,17 +58,101 @@ def _check_place_args(vals32, e0, name):
     return B, nbe
 
 
+PLACE_THREADS = 256          # K4's CTA width (csrc/bitpack_place.cu)
+PLACE_RANGE_MIN = 64         # words a CTA owns, at least
+PLACE_RANGE_MAX = 4096       # and at most (its image in shared memory)
+
+
+def place_range_words(batch, capacity_words, sms):
+    """Words of a frame's output that one CTA of K4 owns: ranges enough
+    for about four CTAs an SM over the batch (``sms`` SMs), each a
+    multiple of 4 words between PLACE_RANGE_MIN and PLACE_RANGE_MAX."""
+    cap32 = cap32_of(capacity_words)
+    ranges = max(1, -(-4 * sms // max(batch, 1)))
+    words = min(max(-(-cap32 // ranges), PLACE_RANGE_MIN), PLACE_RANGE_MAX)
+    return -(-words // 4) * 4
+
+
+def place_vals_grid(batch, capacity_words, sms=None):
+    """K4's launch on the current CUDA device (or one of ``sms`` SMs):
+    (CTAs, threads a CTA), a CTA per range of a frame's words."""
+    sms = sm_count("cuda") if sms is None else sms
+    words = place_range_words(batch, capacity_words, sms)
+    return batch * -(-cap32_of(capacity_words) // words), PLACE_THREADS
+
+
 def place_vals(vals32, e0, *, capacity_words):
-    """K4 (``csrc/bitpack_place.cu``): see :func:`place_vals_plain`."""
+    """K4 (``csrc/bitpack_place.cu``): see :func:`place_vals_plain`.
+    Precondition: each frame's ``e0`` row is non-decreasing (K3's offsets
+    and a cumsum of block bits are); the kernel searches it. Each output
+    word is written once, so the output is not zero-filled first."""
     if not _on_cuda(vals32, "place_vals"):
         return place_vals_plain(vals32, e0, capacity_words=capacity_words)
     B, nbe = _check_place_args(vals32, e0, "place_vals")
     cap32 = cap32_of(capacity_words)
-    out = torch.zeros((B, cap32), dtype=torch.int32, device=vals32.device)
+    if B * nbe * 9 >= 2 ** 31 or B * cap32 >= 2 ** 31:
+        raise ValueError("place_vals: the batch is too large for the "
+                         "kernel's 32-bit indices")
+    words = place_range_words(B, capacity_words, sm_count(vals32.device))
+    out = torch.empty((B, cap32), dtype=torch.int32, device=vals32.device)
     LAUNCHES["place_vals"] += 1
     _build.launch("psx_place_vals", vals32, _build.ptr(vals32),
-                  _build.ptr(e0), B, nbe, cap32, _build.ptr(out))
+                  _build.ptr(e0), B, nbe, cap32, words, _build.ptr(out))
     return out
+
+
+def cta_lower_bound_plain(row, key, threads=PLACE_THREADS):
+    """K4's search (``cta_lower_bounds`` in csrc/bitpack_place.cu), round
+    by round, for one key: the first index of the non-decreasing 1-D
+    ``row`` whose entry is >= ``key`` (its length if none). Returns
+    (index, rounds). A round cuts the bracket into ``threads`` segments
+    and counts those whose last entry is below the key."""
+    lo, hi = 0, row.shape[0]
+    t = torch.arange(threads, device=row.device)
+    rounds = 0
+    while lo < hi:
+        step = -(-(hi - lo) // threads)
+        first = lo + t * step
+        last = (first + step).clamp(max=hi) - 1
+        below = (first < hi) & (row[last.clamp(0, hi - 1)] < key)
+        nxt = lo + int(below.sum()) * step
+        if nxt >= hi:
+            lo = hi
+        else:
+            lo, hi = nxt, min(nxt + step, hi) - 1
+        rounds += 1
+    return lo, rounds
+
+
+def place_vals_ranges_plain(vals32, e0, *, capacity_words, range_words,
+                            threads=PLACE_THREADS):
+    """K4's decomposition (a plain model for the tests; nothing on the
+    main path runs it): equal to :func:`place_vals_plain` where each
+    frame's ``e0`` row is non-decreasing.
+
+    A frame's (cap32,) words are cut into ranges of ``range_words`` words
+    (the last may be shorter). Each range is computed alone: the blocks
+    with start - 8 <= e0 < end, found by :func:`cta_lower_bound_plain`,
+    OR their slots that land in the range into a zeroed image; the images
+    are concatenated. Words at or past cap32 lie in no range."""
+    B, nbe, _ = vals32.shape
+    cap32 = cap32_of(capacity_words)
+    v = vals32.to(torch.int64) & bitpack.U32_MASK
+    e = e0.to(torch.int64)
+    slot = torch.arange(9, device=vals32.device)
+    rows = []
+    for b in range(B):
+        images = []
+        for start in range(0, cap32, range_words):
+            n = min(range_words, cap32 - start)
+            lo, _ = cta_lower_bound_plain(e[b], start - 8, threads)
+            hi, _ = cta_lower_bound_plain(e[b], start + n, threads)
+            w = (e[b, lo:hi, None] + slot - start).reshape(-1)
+            x = v[b, lo:hi].reshape(-1)
+            keep = (w >= 0) & (w < n) & (x != 0)
+            images.append(bitpack.or_scatter(n, w[keep], x[keep]))
+        rows.append(torch.cat(images))
+    return bitpack.u32_to_i32(torch.stack(rows))
 
 
 def place_streams_mxu(streams, goff, total_bits, *, capacity_words,
@@ -89,6 +173,12 @@ def place_vals_gather_plain(vals32, e0, *, capacity_words):
     """K8's plain version: K4's function, so :func:`place_vals_plain`'s
     scatter-add."""
     return place_vals_plain(vals32, e0, capacity_words=capacity_words)
+
+
+def place_vals_gather_grid(batch, capacity_words):
+    """K8's launch, (CTAs, threads a CTA), as ``psx_place_vals_gather``
+    makes it."""
+    return -(-cap32_of(capacity_words) // 256) * batch, 256
 
 
 def place_vals_gather(vals32, e0, *, capacity_words):
@@ -131,6 +221,12 @@ def place_streams_plain(streams, goff, total_bits, *, capacity_words):
     return bitpack._place_streams(streams, goff,
                                   capacity_words=capacity_words).to(
         torch.int32)
+
+
+def place_streams_grid(batch, nbe):
+    """K9's launch, (CTAs, threads a CTA), as ``psx_place_streams`` makes
+    it."""
+    return -(-batch * nbe // 256), 256
 
 
 def place_streams(streams, goff, total_bits, *, capacity_words):

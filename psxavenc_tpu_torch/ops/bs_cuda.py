@@ -46,6 +46,19 @@ def nb_padded(nb):
     return -(-nb // TILE) * TILE
 
 
+_SMS = {}
+
+
+def sm_count(device):
+    """The SM count of CUDA ``device`` (read once per device)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
 # ------------------------------------------------------------------- K1
 
 def _exact_totals(ca, s):
@@ -567,7 +580,8 @@ def dc_stage(dc_q, codec):
 
 def empty_launch(t, grid=1, threads=32):
     """Launches an empty kernel of ``grid`` CTAs on ``t``'s CUDA device:
-    the floor of a launch, against which K2's time is read."""
+    the floor of a launch, against which the short kernels' times are
+    read."""
     _build.launch("psx_empty_launch", t, grid, threads)
 
 
@@ -833,6 +847,176 @@ def emit_tail_plain(out32, coefs, scale, dc_code, dc_bits, block_bits, *,
     return out32 | tail32, count
 
 
+TAIL_WARPS = 16           # warps of a CTA of the tail emission
+TAIL_MAX_CTAS = 8         # CTAs a frame, at most
+AC_LOW = 7 * 32           # csrc/ac_codes.cuh: levels 1..7 at runs 0..31,
+AC_HIGH = 2 * 33          # then runs 0 and 1 at levels 8..40
+
+
+def tail_ctas(batch, sms):
+    """CTAs a frame of the tail emission: about four CTAs an SM over the
+    batch (``sms`` SMs), between 1 and TAIL_MAX_CTAS."""
+    return min(TAIL_MAX_CTAS, max(1, -(-4 * sms // max(batch, 1))))
+
+
+def emit_tail_grid(batch, sms=None):
+    """The tail emission's launch on the current CUDA device (or one of
+    ``sms`` SMs): (CTAs, threads a CTA)."""
+    sms = sm_count("cuda") if sms is None else sms
+    return batch * tail_ctas(batch, sms), 32 * TAIL_WARPS
+
+
+def ac_code_table(device=None):
+    """The AC code table that csrc/ac_codes.cuh holds, from the closed form
+    (ops/bs.py): (AC_LOW + AC_HIGH,) int64 entries (bits << 24) | the code
+    of the positive level, 0 for the 22-bit escape; index (level - 1) * 32
+    + run for levels 1..7 at runs 0..31, AC_LOW + run * 33 + level - 8 for
+    runs 0 and 1 at levels 8..40."""
+    i = torch.arange(AC_LOW + AC_HIGH, device=device)
+    j = i - AC_LOW
+    run = torch.where(i < AC_LOW, i & 31, j // 33)
+    level = torch.where(i < AC_LOW, (i >> 5) + 1, j % 33 + 8)
+    bits, code = bs_ops.ac_bits_code_closed_form(run, level)
+    return torch.where(bits == 22, 0, (bits.to(torch.int64) << 24)
+                       | code.to(torch.int64))
+
+
+def _table_code(table, run, ac):
+    """(bits, code) of nonzero levels ``ac`` at runs ``run`` as the tail
+    emission looks them up (``table_code`` in csrc/bs_emit.cu)."""
+    a = ac.abs()
+    low = a <= 7
+    listed = torch.where(low, run < 32, (a <= 40) & (run < 2))
+    at = torch.where(low, ((a - 1) << 5) + run, AC_LOW + run * 33 + a - 8)
+    e = torch.where(listed, table[at.clamp(0, AC_LOW + AC_HIGH - 1)], 0)
+    sign = (ac < 0).to(torch.int64)
+    escape = (1 << 16) | (run << 10) | (ac & 0x3FF)
+    return (torch.where(e != 0, e >> 24, 22),
+            torch.where(e != 0, (e & 0xFFFFFF) | sign, escape))
+
+
+def _msb(x):
+    """The index of the highest set bit of each non-negative int64 below
+    2^32, -1 for 0 (the kernel's 31 - __clz)."""
+    r = torch.zeros_like(x)
+    for step in (16, 8, 4, 2, 1):
+        up = (x >> (r + step)) != 0
+        r = r + step * up.to(x.dtype)
+    return torch.where(x > 0, r, -1)
+
+
+def _tail_words(g, end, bits, code, on, capacity_words):
+    """The kernel's ``or_tail`` for codes that end at in-block bit ``end``
+    of blocks at frame bit ``g`` (all int64, one shape; ``on`` marks the
+    codes that exist): (word index, u32 value) pairs of the two u32 words
+    each code's last min(end - 256, bits) bits touch, value 0 where none."""
+    keep = torch.minimum(end - WINDOW_BITS, bits)
+    on = on & (keep > 0)
+    keep = keep.clamp(1, 31)
+    p = g + end - keep
+    k = p >> 4
+    one = torch.ones_like(keep)
+    t = (code & (torch.bitwise_left_shift(one, keep) - 1)) \
+        << (48 - (p & 15) - keep)
+    pairs = torch.zeros_like(t)
+    for i in range(3):
+        half = (t >> (32 - 16 * i)) & 0xFFFF
+        pairs |= torch.where(k + i < capacity_words, half, 0) << (16 * i)
+    pairs = torch.where(on, pairs, 0)
+    lo = (pairs << (16 * (k & 1))) & bitpack_ops.U32_MASK
+    hi = (pairs << (16 * (k & 1))) >> 32
+    word = (k >> 1).clamp(min=0)
+    return torch.stack([word, word + 1]), torch.stack([lo, hi])
+
+
+def _lane_scan(x):
+    """Inclusive scan over the last axis (32 lanes) in five Hillis-Steele
+    steps, as a warp's __shfl_up_sync scan."""
+    off = 1
+    while off < 32:
+        x = x + torch.nn.functional.pad(x[..., :-off], (off, 0))
+        off *= 2
+    return x
+
+
+def emit_tail_lanes_plain(out32, coefs, scale, dc_code, dc_bits, block_bits,
+                          *, capacity_words, count=None, ctas=1,
+                          warps=TAIL_WARPS):
+    """The tail emission's decomposition (a plain model for the tests;
+    nothing on the main path runs it): equal to :func:`emit_tail_plain`.
+
+    A frame's long blocks (over 256 bits), ranked in block order, go to
+    its ``ctas`` x ``warps`` warps: rank q to CTA (q mod (ctas * warps))
+    // warps; CTA 0 counts the frame. Each CTA's blocks are emitted apart,
+    a warp a block: lane l holds scan positions l and l + 32 (63: none);
+    two ballots give the nonzero mask, each run is the lane's position
+    less the highest set bit below it, less one; codes come from the
+    table (:func:`ac_code_table`) or the escape; one scan of the two
+    lengths packed as bits_a | bits_b << 16 gives each code's end, after
+    the DC code; the EOB ends at the block's total. Each code's part past
+    bit 256 is ORed into at most two u32 words (u16 words at or past
+    ``capacity_words`` drop); a block whose offset + 256 reaches the
+    capacity is skipped whole."""
+    count = _tail_args(out32, block_bits, dc_code, capacity_words, count,
+                       "emit_tail")
+    B, nb = dc_code.shape
+    dev = out32.device
+    table = ac_code_table(dev)
+    out = out32.to(torch.int64) & bitpack_ops.U32_MASK
+    bb = block_bits.to(torch.int64)
+    goff = torch.cumsum(bb, dim=1) - bb
+    lane = torch.arange(32, device=dev)
+    pos = torch.stack([lane, lane + 32])                       # (2, 32)
+    quant = torch.cat([bs_ops.quant_zz(dev).to(torch.int64),
+                       torch.ones(1, dtype=torch.int64, device=dev)])
+    for b in range(B):
+        ranks = torch.nonzero(bb[b] > WINDOW_BITS)[:, 0]
+        if not ranks.numel():
+            continue
+        d = quant[pos] * int(scale[b])
+        thr = torch.where(pos < 63, (d + 1) >> 1, 2 ** 31 - 1)
+        c64 = torch.cat([coefs[b, :63, :nb].to(torch.int64),
+                         torch.zeros((1, nb), dtype=torch.int64,
+                                     device=dev)])
+        cta = (torch.arange(ranks.numel(), device=dev)
+               % (ctas * warps)) // warps
+        count += 1                          # by CTA 0, once for the frame
+        for part in range(ctas):
+            n = ranks[cta == part]
+            g = goff[b, n][:, None, None]
+            dcb = dc_bits[b, n].to(torch.int64)[:, None, None]
+            c = c64[pos][:, :, n].permute(2, 0, 1)             # (N, 2, 32)
+            nz = c.abs() >= thr
+            masks = (nz.to(torch.int64) << lane).sum(dim=2)    # (N, 2)
+            below = torch.bitwise_left_shift(torch.ones_like(lane), lane) - 1
+            prev_a = _msb(masks[:, :1] & below)
+            prev_hi = _msb(masks[:, 1:] & below)
+            prev_b = torch.where(prev_hi >= 0, 32 + prev_hi,
+                                 _msb(masks[:, :1]))
+            run = torch.stack([lane - prev_a - 1, lane + 31 - prev_b], 1)
+            mag = torch.div(c.abs() + (d >> 1), d, rounding_mode="floor")
+            ac = torch.where(c < 0, -mag, mag).clamp(-0x200, 0x1FE)
+            bits, code = _table_code(table, run.clamp(min=0), ac)
+            bits = torch.where(nz, bits, 0)
+            x = _lane_scan(bits[:, 0] | (bits[:, 1] << 16))    # (N, 32)
+            all_ = x[:, 31:]
+            half = dcb[:, 0] + (all_ & 0xFFFF)
+            end = torch.stack([dcb[:, 0] + (x & 0xFFFF), half + (x >> 16)],
+                              1)
+            eob = (half + (all_ >> 16) + 2)[:, None]           # (N, 1, 1)
+            on = (g + WINDOW_BITS < capacity_words * 16)
+            words, vals = _tail_words(g, end, bits, code, nz & on,
+                                      capacity_words)
+            eob_words, eob_vals = _tail_words(
+                g, eob, torch.full_like(eob, 2), torch.full_like(eob, 2),
+                on, capacity_words)
+            idx = torch.cat([words.reshape(-1), eob_words.reshape(-1)])
+            val = torch.cat([vals.reshape(-1), eob_vals.reshape(-1)])
+            hit = val != 0
+            out[b] |= bitpack_ops.or_scatter(out.shape[1], idx[hit], val[hit])
+    return bitpack_ops.u32_to_i32(out), count
+
+
 def emit_tail(out32, coefs, scale, dc_code, dc_bits, block_bits, *,
               capacity_words, count=None):
     """The tail emission (``csrc/bs_emit.cu``): see
@@ -852,10 +1036,14 @@ def emit_tail(out32, coefs, scale, dc_code, dc_bits, block_bits, *,
     count = _tail_args(out32, block_bits, dc_code, capacity_words, count,
                        "emit_tail")
     B, rows, stride = coefs.shape
+    nb = dc_code.shape[1]
+    ctas = tail_ctas(B, sm_count(out32.device))
+    if B * ctas >= 2 ** 31 or B * max(nb, out32.shape[1]) >= 2 ** 31:
+        raise ValueError("emit_tail: the batch is too large for the "
+                         "kernel's 32-bit indices")
     LAUNCHES["emit_tail"] += 1
     _build.launch("psx_emit_tail", coefs, _build.ptr(coefs), int16_form, B,
-                  rows, stride, dc_code.shape[1], _build.ptr(scale),
-                  _build.ptr(dc_code), _build.ptr(dc_bits),
-                  _build.ptr(block_bits), out32.shape[1],
+                  rows, stride, nb, _build.ptr(scale), _build.ptr(dc_bits),
+                  _build.ptr(block_bits), ctas, out32.shape[1],
                   int(capacity_words), _build.ptr(out32), _build.ptr(count))
     return out32, count

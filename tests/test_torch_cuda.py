@@ -23,6 +23,7 @@ from torch_dc_pack_cases import (DC_CASES, DC_SHAPES, PACK_CASES,
                                  PACK_SYMBOLS, dc_case, pack_case)
 from torch_emit_cases import (EDGE_BITS, code_table_inputs, edge_inputs,
                               select_form)
+from torch_place_cases import boundaries_inside, tied_frames
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -331,6 +332,109 @@ def test_place_vals_gather_writes_only_its_rows(dev):
     assert torch.equal(out[:B], want)
 
 
+def _place_case(dev, kind):
+    """(vals32, e0, capacity_words) of K4's cases: K3's prep (its plain
+    version) of one frame, of 128 and of 300 frames, of six 640x480
+    frames, of three frames of which scale 2's run past the capacity, and
+    16 frames of hand-made offsets that tie."""
+    rng = np.random.default_rng(11)
+    if kind == "ties":
+        vals, e0 = tied_frames(16, NB + 1)
+        return (torch.from_numpy(vals).to(dev), torch.from_numpy(e0).to(dev),
+                2 * int(e0.max()) + 20)
+    if kind == "unfittable":
+        return (*_placed(dev, [2, 31, 40]), 9068)
+    if kind == "640x480":
+        c64 = np.zeros((6, 64, bs_cuda.nb_padded(BIG_NB)), np.int16)
+        c64[:, :63, :BIG_NB] = rng.integers(-900, 900, (6, 63, BIG_NB))
+        dc_bits = rng.integers(2, 11, (6, BIG_NB)).astype(np.int32)
+        args = [torch.from_numpy(a).to(dev) for a in (
+            c64, np.array([5, 9, 20, 31, 50, 63], np.int32),
+            np.zeros_like(dc_bits), dc_bits)]
+        vals32, e0 = bs_cuda.emit_prep_plain(*args, eof=0x1FF)[:2]
+        return vals32, e0, 4 * 9068 + 4
+    frames = {"one frame": 1, "128 frames": 128, "300 frames": 300}[kind]
+    emit = _emit_inputs(rng, min(frames, 128), dev,
+                        [2 + 61 * (i % 7) // 6 for i in range(
+                            min(frames, 128))])
+    vals32, e0 = bs_cuda.emit_prep_plain(*emit, eof=0x1FF)[:2]
+    if frames == 300:
+        vals32 = torch.cat([vals32] * 3)[:300].contiguous()
+        e0 = torch.cat([e0] * 3)[:300].contiguous()
+    return vals32, e0, 9068
+
+
+PLACE_CASES = ["one frame", "128 frames", "300 frames", "640x480",
+               "unfittable", "ties"]
+
+
+@pytest.mark.parametrize("kind", PLACE_CASES)
+def test_place_vals_cases(dev, kind):
+    """K4 == its plain version on one, 128 and 300 frames, at 640x480, on
+    frames past cap32 and on offsets that tie; and range starts fall
+    inside blocks' nine words."""
+    vals32, e0, cap = _place_case(dev, kind)
+    before = bitpack_cuda.LAUNCHES["place_vals"]
+    got = bitpack_cuda.place_vals(vals32, e0, capacity_words=cap)
+    want = bitpack_cuda.place_vals_plain(vals32, e0, capacity_words=cap)
+    torch.cuda.synchronize()
+    assert bitpack_cuda.LAUNCHES["place_vals"] == before + 1
+    assert got.is_cuda and torch.equal(got, want) and want.any()
+    cap32 = tbp.cap32_of(cap)
+    words = bitpack_cuda.place_range_words(
+        e0.shape[0], cap, bs_cuda.sm_count(dev))
+    assert boundaries_inside(e0.cpu().numpy(), cap32, words) > 0
+    if kind == "unfittable":
+        assert int(e0[:, -1].max()) > cap32
+
+
+@pytest.mark.parametrize("range_words", [4, 64, 908, 4096])
+def test_place_vals_writes_only_its_rows(dev, range_words):
+    """K4 writes every word of its (B, cap32) output, zeros included, and
+    nothing after it, for ranges of any size: a guard row stays untouched
+    and a poisoned output is fully overwritten (cap32 = 4,534 is no
+    multiple of 4, so frames start off 16-byte boundaries)."""
+    vals32, e0 = _placed(dev, [2, 2, 40])
+    B, nbe, _ = vals32.shape
+    cap32 = 4534
+    out = torch.full((B + 1, cap32), -1, dtype=torch.int32, device=dev)
+    out[B] = 0x5A5A5A5A
+    _build.launch("psx_place_vals", vals32, _build.ptr(vals32),
+                  _build.ptr(e0), B, nbe, cap32, range_words,
+                  _build.ptr(out))
+    torch.cuda.synchronize()
+    assert int(e0[0, -1]) > cap32
+    assert (out[B] == 0x5A5A5A5A).all()
+    want = bitpack_cuda.place_vals_plain(vals32, e0,
+                                         capacity_words=2 * cap32)
+    assert torch.equal(out[:B], want)
+
+
+def test_place_vals_unaligned_input(dev):
+    """vals32 off a 16-byte boundary: plain loads take the bulk copies'
+    place."""
+    vals32, e0 = _placed(dev, [2, 31, 40])
+    flat = torch.empty(vals32.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(vals32.shape)
+    shifted.copy_(vals32)
+    assert shifted.data_ptr() % 16
+    got = bitpack_cuda.place_vals(shifted, e0, capacity_words=9068)
+    _same((got,), (bitpack_cuda.place_vals_plain(vals32, e0,
+                                                 capacity_words=9068),))
+
+
+def test_place_vals_refused_launch_raises(dev):
+    """A launch the kernel does not take is an error, not a fallback: a
+    range that is no multiple of 4 words."""
+    vals32, e0 = _placed(dev, [31, 31, 40])
+    out = torch.empty((3, 4534), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        _build.launch("psx_place_vals", vals32, _build.ptr(vals32),
+                      _build.ptr(e0), 3, e0.shape[1], 4534, 6,
+                      _build.ptr(out))
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------- K3, K7 and the tail emission
 
 BIG_NB = 40 * 30 * 6            # 640x480: K3 parks its windows in vals32
@@ -475,8 +579,8 @@ def test_emit_kernels_write_only_their_rows(dev):
         before = out.clone(), count.clone()
         _build.launch("psx_emit_tail", coefs, _build.ptr(coefs[frames]), 1,
                       batch, 64, coefs.shape[2], nb, _build.ptr(scale[frames]),
-                      _build.ptr(dc_code[frames]), _build.ptr(dc_bits[frames]),
-                      _build.ptr(block_bits[frames]), cap32, 2 * cap32,
+                      _build.ptr(dc_bits[frames]),
+                      _build.ptr(block_bits[frames]), 3, cap32, 2 * cap32,
                       _build.ptr(out), _build.ptr(count))
         torch.cuda.synchronize()
         if batch == B:
@@ -486,6 +590,68 @@ def test_emit_kernels_write_only_their_rows(dev):
         else:
             assert torch.equal(out, before[0])
             assert torch.equal(count, before[1])
+
+
+def _tail_case(dev, kind):
+    """(the placed words, the emission's int16 arguments, block_bits,
+    capacity_words) of the tail emission's cases: edge_inputs at 320x240
+    (frame 0 at scale 1 runs past the capacity, so its later tails drop
+    whole), an unfittable frame alone (noise at scale 1), and the noise
+    of edge_inputs at scales 40 and 63 (no block over 256 bits)."""
+    args = _edge(dev, NB)
+    cap = 9068
+    if kind == "unfittable":
+        args = [a[1:] for a in args]
+        args[1] = torch.ones_like(args[1])
+    elif kind == "no_long":
+        args[0][0, :, :6] = 0
+        args[1] = torch.tensor([40, 63], dtype=torch.int32, device=dev)
+    prep = bs_cuda.emit_prep_plain(*args, eof=0x1FF)
+    placed = bitpack_cuda.place_vals_plain(prep[0], prep[1],
+                                           capacity_words=cap)
+    return placed, args, prep[2], cap
+
+
+@pytest.mark.parametrize("ctas", [None, 1, 2, 5])
+@pytest.mark.parametrize("kind", ["edge", "unfittable", "no_long"])
+def test_emit_tail_cases(dev, kind, ctas):
+    """The tail emission == its plain version on edge_inputs, an
+    unfittable frame and a batch with no long block, through its wrapper
+    (None) and launched with 1, 2 and 5 CTAs a frame; the count comes out
+    once per frame with a long block."""
+    placed, args, block_bits, cap = _tail_case(dev, kind)
+    want, _ = bs_cuda.emit_tail_plain(placed, *args, block_bits,
+                                      capacity_words=cap)
+    frames = int((block_bits > 256).any(dim=1).sum())
+    assert (frames == 0) == (kind == "no_long")
+    got = placed.clone()
+    count = torch.tensor([7], dtype=torch.int32, device=dev)
+    if ctas is None:
+        bs_cuda.emit_tail(got, *args, block_bits, capacity_words=cap,
+                          count=count)
+    else:
+        coefs, scale, _, dc_bits = args
+        _build.launch("psx_emit_tail", coefs, _build.ptr(coefs), 1,
+                      coefs.shape[0], 64, coefs.shape[2], NB,
+                      _build.ptr(scale), _build.ptr(dc_bits),
+                      _build.ptr(block_bits), ctas, got.shape[1], cap,
+                      _build.ptr(got), _build.ptr(count))
+    _same((got,), (want,))
+    assert int(count) == 7 + frames
+
+
+def test_emit_tail_refused_launch_raises(dev):
+    """No CTA a frame is refused."""
+    placed, args, block_bits, cap = _tail_case(dev, "edge")
+    coefs, scale, _, dc_bits = args
+    count = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        _build.launch("psx_emit_tail", coefs, _build.ptr(coefs), 1, 2, 64,
+                      coefs.shape[2], NB, _build.ptr(scale),
+                      _build.ptr(dc_bits), _build.ptr(block_bits), 0,
+                      placed.shape[1], cap, _build.ptr(placed),
+                      _build.ptr(count))
+    torch.cuda.synchronize()
 
 
 def test_emit_refused_launch_raises(dev, monkeypatch):
