@@ -30,9 +30,11 @@ Phases, one or more lines each:
    both with ten calls in one graph (the replay's host cost spread over
    them). Every other row under 0.03 ms, and every case of K4 and of the
    tail emission, is also read at ten calls a graph beside an empty launch
-   of the kernel's own grid. K4 is also checked against one scatter_add_ on
-   one frame, 300 frames, the batch with frame 5 unfittable (its words run
-   past cap32), 640x480 frames and 16 frames of offsets that tie
+   of the kernel's own grid. K8 is also checked and timed on each codec's
+   batch beside K4, with its scatter_add_. K4 is also checked against one
+   scatter_add_ on one frame, 300 frames, the batch with frame 5
+   unfittable (its words run past cap32), 640x480 frames and 16 frames of
+   offsets that tie
    (tests/torch_place_cases.py), with the count of its ranges' starts that
    fall inside a block's nine words; the tail emission on noise frames (no
    long block) and on tests/torch_emit_cases.py's edge_inputs, and on every
@@ -52,7 +54,9 @@ Phases, one or more lines each:
    on the step's own inputs, as in phase 3) and of the whole step timed
    the same way, over the step's CUDA-event time; a torch.profiler list of the
    step's device operations, which must hold no operation that waits for
-   the device (nonzero, item) and launch the tail emission; and what K1's
+   the device (nonzero, item) and launch the tail emission, and the same
+   list for a fused_pallas step on video+noise (a stream route: K1, K7,
+   K9 and the tail emission); and what K1's
    search would do if every batch were seeded with the scale of the frame
    before it (the encoder does not: the statistics say what that would
    buy);
@@ -70,7 +74,9 @@ Phases, one or more lines each:
 10. the symbols API and the per-block-stream packers at the video path's
    width: K6, K7 (both coefficient forms), K9 and K10 against their plain
    versions on phase 4's first 128 frames (video+noise, one frame's
-   budget cut to 200 bytes: unfittable), timed as in phase 3; the tail
+   budget cut to 200 bytes: unfittable), timed as in phase 3 (K9 through
+   its u32 entry point, the placement that fused_pallas runs, against one
+   scatter_add_, and through its u16 wrapper, the JAX signature); the tail
    emission on the same frames (the unfittable one runs past the
    capacity), both coefficient forms; K10's achieved GB/s, and K10 on
    adversarial rows (tests/torch_dc_pack_cases.py: codes with their top
@@ -998,6 +1004,17 @@ def check_kernels(torch, np, synth, card):
         if not torch.equal(lib_words, placed):
             raise AssertionError("one scatter_add_ on prepared indices "
                                  "differs from K4")
+        gathered = compare(
+            torch, {}, 3, "place_vals_gather", label,
+            lambda: bitpack_cuda.place_vals_gather(
+                vals32, e0, capacity_words=CAP_WORDS),
+            lambda: bitpack_cuda.place_vals_gather_plain(
+                vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
+            lambda out: vals32.numel() * OPS_PLACE_WORD, card,
+            library_fn=lib_fn, grid=bitpack_cuda.place_vals_gather_grid(
+                B, CAP_WORDS), ten=True)
+        if not torch.equal(gathered, placed):
+            raise AssertionError("K8 differs from K4 on phase 3's batch")
         if codec == bs_ops.BS_V2:
             place_cases(torch, np, synth, card, vals32, e0,
                         (pix, budgets, dc_bits, dc_code))
@@ -1455,6 +1472,12 @@ def throughput(torch, np, synth, card, out_dir):
             f"bits, counted on the device) on {card}")
         busy_share(torch, step, label, ms, card)
         profile_step(torch, step, label.replace("+", "_"), card, out_dir)
+        if label == "video+noise":
+            # A stream route: K7, K9 and the tail emission.
+            profile_step(torch, lambda: api.bs_encode_frames_packed(
+                frames, budgets, codec=0, width=W, height=H,
+                capacity_words=CAP_WORDS, packer="fused_pallas"),
+                "video_noise_fused_pallas", card, out_dir)
         plain_ms = time_ms(torch, lambda: step(False), reps=3)
         say(f"[6] {label} plain path on the card: "
             f"{B / plain_ms * 1000:.1f} frames/s ({plain_ms:.4f} ms per "
@@ -1702,20 +1725,25 @@ def block_stream_kernels(torch, np, synth, card):
     vals32, e0 = bitpack_ops.streams_to_u32(streams, goff)
     lib_fn, lib_words = scatter_add_call(
         torch, bitpack_ops.u32_to_i32(vals32), e0)
-    same = torch.equal(
-        bitpack_ops.u16_values(lib_words, CAP_WORDS),
-        bitpack_cuda.place_streams(streams, goff, total,
-                                   capacity_words=CAP_WORDS))
-    say(f"[10] place_streams: one scatter_add_ on the prepared (words, "
-        f"indices) gives K9's words: {same}")
-    check("place_streams", "", lambda: bitpack_cuda.place_streams(
-              streams, goff, total, capacity_words=CAP_WORDS),
-          lambda: bitpack_cuda.place_streams_plain(
-              streams, goff, total, capacity_words=CAP_WORDS),
-          (streams, goff),
-          lambda out: B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD),
-          library_fn=lib_fn if same else None,
-          grid=bitpack_cuda.place_streams_grid(B, nbe))
+    kw = dict(capacity_words=CAP_WORDS)
+    k9_ops = B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD)
+    got = check("place_streams", "(u32 words)",
+                lambda: bitpack_cuda.place_streams_u32(streams, goff, **kw),
+                lambda: bitpack_cuda.place_streams_u32_plain(streams, goff,
+                                                             **kw),
+                (streams, goff), lambda out: k9_ops, library_fn=lib_fn,
+                grid=bitpack_cuda.place_streams_grid(B, CAP_WORDS), ten=True)
+    if not torch.equal(got, lib_words):
+        raise AssertionError("K9 differs from one scatter_add_ on the "
+                             "prepared (words, indices)")
+    say("[10] place_streams: one scatter_add_ on the prepared (words, "
+        "indices) gives K9's words")
+    compare(torch, {}, 10, "place_streams", "(u16 values: the u32 words "
+            "and u16_values, the JAX signature)",
+            lambda: bitpack_cuda.place_streams(streams, goff, total, **kw),
+            lambda: bitpack_cuda.place_streams_plain(streams, goff, total,
+                                                     **kw),
+            (streams, goff), lambda out: k9_ops, card, ten=True)
 
     check_pack(torch, results, card, c, emit_args)
     return results, (c64, sidx, dc_code, dc_bits)
@@ -2180,6 +2208,7 @@ def main():
     spills.update(ptxas_report(_build.build_log, "bitpack_streams.cu",
                                ("pack_kernel", "place_streams_kernel")))
     ptxas_report(_build.build_log, "bitpack_place.cu", ("place_kernel",))
+    ptxas_report(_build.build_log, "bitpack_gather.cu", ("gather_kernel",))
     if spills.get("dc_chain_kernel", 1) or spills.get("pack_kernel", 1):
         raise AssertionError("K2 or K10 spills (or ptxas did not report "
                              "them)")

@@ -15,7 +15,7 @@ Counterpart of ``psxavenc_tpu.api``:
     NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
     -> AC fit threshold -> FDCT + scale search (K1) -> emission +
     placement prep (K3) -> placement (K4) -> the tail emission of blocks
-    over 256 bits.
+    over 256 bits (which every ``fused*`` packer ends with).
 
 The device is the input tensors' device; on the CPU every kernel runs
 its plain version. No step of that path on the card waits for the
@@ -137,7 +137,7 @@ class _Stages:
             self.emit_tail = bs_cuda.emit_tail
             self.place = bitpack_cuda.place_vals
             self.place_gather = bitpack_cuda.place_vals_gather
-            self.place_streams = bitpack_cuda.place_streams
+            self.place_streams = bitpack_cuda.place_streams_u32
         else:
             self.dc_stage = bs_cuda.dc_stage_plain
             self.select = bs_cuda.select_scale_pix_plain
@@ -146,7 +146,7 @@ class _Stages:
             self.emit_tail = bs_cuda.emit_tail_plain
             self.place = bitpack_cuda.place_vals_plain
             self.place_gather = bitpack_cuda.place_vals_gather_plain
-            self.place_streams = bitpack_cuda.place_streams_plain
+            self.place_streams = bitpack_cuda.place_streams_u32_plain
 
 
 _KERNELS = _Stages(True)
@@ -175,9 +175,11 @@ def _with_eof_symbols(codes, bits, eof):
 def _overflow_words(coefs, scale_idx, dc_bits, dc_code, eof,
                     capacity_words):
     """Exact flat path for frames with a block stream over 256 bits
-    (api.py:212-235 of psxavenc_tpu): emit the symbols at the selected
-    scale and pack them with ``pack_bits``. ``coefs`` is either emission
-    input form. Returns (n, capacity_words) int16 words."""
+    (api.py:212-235 of psxavenc_tpu), kept as the reference that the
+    tests and chip_smoke.py hold the tail emission to; no packer calls
+    it. Emits the symbols at the selected scale and packs them with
+    ``pack_bits``. ``coefs`` is either emission input form. Returns (n,
+    capacity_words) int16 words."""
     n, nb = dc_code.shape
     c = coefs[:, :63, :nb].to(torch.int32)
     codes, bits = bs_ops.emit_symbols_at(c, scale_idx, dc_bits, dc_code)
@@ -229,49 +231,34 @@ def _select_pixels(frames, budgets, codec, width, height, st):
 
 
 def _fused_words(sel, packer, prep, eof, capacity_words, st):
-    """The fused packers after selection: emission and placement (with
-    ``prep``, K3's placement prep and K4, or K8 for ``fused_gather``; else
-    per-block streams), then the part of every block past the 256-bit
-    window: with ``prep`` the tail emission ORs it into the placed words;
-    on the stream routes the frames with such a block take the exact flat
-    path. Returns (B, capacity_words) int16 words."""
+    """The fused packers after selection: emission and placement into
+    (B, cap32) u32 words (with ``prep``, K3's placement prep and K4, or K8
+    for ``fused_gather``; else K7's per-block streams placed by the plain
+    stream placement, K9, or ``streams_to_u32`` and K4 or K8), then the
+    tail emission ORs the part of every block past the 256-bit window into
+    them and counts the frames that have such a block. Returns (B,
+    capacity_words) int16 words."""
     args = (sel["c"], sel["scale_idx"] + 1, sel["dc_code"], sel["dc_bits"])
+    place_vals = st.place_gather if packer == "fused_gather" else st.place
     if prep:
         vals32, e0, block_bits, _ = st.emit_prep(*args, eof=eof)
-        place = st.place_gather if packer == "fused_gather" else st.place
-        out32 = place(vals32, e0, capacity_words=capacity_words)
-        out32, _ = st.emit_tail(
-            out32, *args, block_bits, capacity_words=capacity_words,
-            count=COUNTERS.device_count(out32.device))
-        return bitpack_ops.words_u16(out32, capacity_words)
-
-    streams, block_bits = st.emit_pack(*args)
-    streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
-    goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
-    total = goff[:, -1] + bb[:, -1]
-    if packer == "fused":
-        place = bitpack_cuda.place_streams_plain    # the XLA stage
-    elif packer == "fused_pallas":
-        place = st.place_streams
-    elif packer == "fused_gather":
-        place = functools.partial(bitpack_cuda.place_streams_gather,
-                                  place=st.place_gather)
+        out32 = place_vals(vals32, e0, capacity_words=capacity_words)
     else:
-        place = functools.partial(bitpack_cuda.place_streams_mxu,
-                                  place=st.place)
-    words = bitpack_ops.u16_to_i16(
-        place(streams, goff, total, capacity_words=capacity_words))
-
-    # Frames with a block over the 256-bit window take the exact path;
-    # for every other frame both paths give the same words.
-    ovf = (block_bits > 16 * bitpack_ops.BLOCK_CAP_WORDS).any(dim=1)
-    idx = torch.nonzero(ovf)[:, 0]
-    if idx.numel():
-        COUNTERS.device_count(words.device).add_(idx.numel())
-        words[idx] = _overflow_words(
-            sel["c"][idx], sel["scale_idx"][idx], sel["dc_bits"][idx],
-            sel["dc_code"][idx], eof, capacity_words)
-    return words
+        streams, block_bits = st.emit_pack(*args)
+        streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
+        goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+        if packer == "fused":
+            place = bitpack_cuda.place_streams_u32_plain    # the XLA stage
+        elif packer == "fused_pallas":
+            place = st.place_streams
+        else:
+            place = functools.partial(bitpack_cuda.place_streams_mxu_u32,
+                                      place=place_vals)
+        out32 = place(streams, goff, capacity_words=capacity_words)
+    out32, _ = st.emit_tail(out32, *args, block_bits,
+                            capacity_words=capacity_words,
+                            count=COUNTERS.device_count(out32.device))
+    return bitpack_ops.words_u16(out32, capacity_words)
 
 
 def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
@@ -297,33 +284,31 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
 
     - ``fused_mxu``: K3 emission + placement prep, then K4 placement, then
       the tail emission; with ``kernel_sweep=False``, K7 emission, then
-      ``streams_to_u32`` + K4;
+      ``streams_to_u32`` + K4, then the tail emission;
     - ``fused_gather``: as ``fused_mxu`` with K8 in place of K4;
     - ``fused``: K7 emission, then the plain stream placement
-      (psxavenc_tpu's XLA ``_place_streams``);
-    - ``fused_pallas``: K7 emission, then K9 placement;
+      (psxavenc_tpu's XLA ``_place_streams``), then the tail emission;
+    - ``fused_pallas``: K7 emission, then K9 placement, then the tail
+      emission;
     - ``blocks``: K6 (or the sweep), plain symbol emission, then the
       plain per-block packer (``_pack_block_streams`` + ``_place_streams``);
     - ``blocks_pallas``: as ``blocks`` with K10 packing and K9 placement;
     - ``flat``: K6 (or the sweep), plain symbol emission, ``pack_bits``.
 
     The ``fused*`` packers with the kernel sweep run K1 (and K2 for
-    v3/v3dc) first. A block over 256 bits: ``fused_mxu`` and
-    ``fused_gather`` with the kernel sweep place every block's first 256
-    bits with K3 and K4 (K8) and the rest with the tail emission
-    (``ops.bs_cuda.emit_tail``, the same file as K3; its plain version on
-    the CPU and with ``use_kernels=False``), on the card with no plain
-    packing and no wait for the device. The stream routes (``fused``,
-    ``fused_pallas``, K7 without the kernel sweep) pack the frames that
-    have such a block by the exact flat path (``_overflow_words``), frame
-    by frame, which reads the frames' indices on the host (psxavenc_tpu
-    sends the whole batch there; the bytes are the same).
-    ``COUNTERS["overflow_frames"]`` counts those
-    frames either way. ``total_bits`` is the selection's for the
-    fused packers and the packer's for the others; they differ only on an
-    unfittable frame. ``use_kernels=False`` runs the plain versions on
-    any device (for measuring the plain path; never chosen
-    automatically).
+    v3/v3dc) first. A block over 256 bits: every ``fused*`` packer places
+    each block's first 256 bits (K3's placement prep, or K7's streams) and
+    ORs the rest into the placed words with the tail emission
+    (``ops.bs_cuda.emit_tail``, the same file as K3 and K7; its plain
+    version on the CPU and with ``use_kernels=False``), on the card with
+    no plain packing and no wait for the device (psxavenc_tpu sends the
+    batch through the flat packer instead; the bytes are the same). The
+    tail emission counts the frames that have such a block on their
+    device (``COUNTERS["overflow_frames"]``). ``total_bits`` is the
+    selection's for the fused packers and the packer's for the others;
+    they differ only on an unfittable frame. ``use_kernels=False`` runs
+    the plain versions on any device (for measuring the plain path; never
+    chosen automatically).
     """
     if packer is None:
         packer = "fused_mxu" if kernel_sweep else "blocks"

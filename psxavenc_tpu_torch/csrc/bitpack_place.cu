@@ -36,53 +36,19 @@
 // All index arithmetic is 32-bit (the wrapper checks the sizes).
 //
 // Precondition: each frame's e0 row is non-decreasing (K3's offsets and a
-// cumsum of block bits are); K8 (csrc/bitpack_gather.cu) has the same.
+// cumsum of block bits are); K8 and K9 have the same.
 //
 // What bounds it on the H100: memory traffic, each block's 40 bytes read
 // once and the (B, cap32) words written once (11.5 MB at 128 frames of
 // 320x240 and 18,144 bytes, 0.0034 ms at 3.35 TB/s); a CTA's own time is
 // the latency of its two search rounds and its copy.
-#include "bs_common.cuh"
+#include "place_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 512;               // blocks staged at a time
 constexpr int kStageWords = (kChunk + 4) * 9;  // a chunk and its slack
-
-// The first indices in [0, n) with e[i] >= key[q] (n where none), q = 0, 1,
-// of a non-decreasing row in global memory, found by every thread of the
-// CTA together. A round cuts each bracket into blockDim.x segments; thread
-// t tests the last entry of segment t, and since the row is sorted the
-// segments whose last entry is below the key are a prefix, whose length
-// (the count) names the segment that holds the answer.
-__device__ __forceinline__ void cta_lower_bounds(const int* __restrict__ e,
-                                                 int n, const int (&key)[2],
-                                                 int (&lo)[2]) {
-  int hi[2] = {n, n};  // the answer lies in [lo, hi]
-  lo[0] = lo[1] = 0;
-  while (lo[0] < hi[0] || lo[1] < hi[1]) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int span = hi[q] - lo[q];
-      const int step = (span + blockDim.x - 1) / blockDim.x;
-      const int first = lo[q] + static_cast<int>(threadIdx.x) * step;
-      const bool below =
-          span > 0 && first < hi[q] &&
-          __ldg(e + min(first + step, hi[q]) - 1) < key[q];
-      const int c = __syncthreads_count(below);
-      if (span > 0) {
-        const int next = lo[q] + c * step;
-        if (next >= hi[q]) {
-          lo[q] = hi[q];
-        } else {
-          hi[q] = min(next + step, hi[q]) - 1;
-          lo[q] = next;
-        }
-      }
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 place_kernel(const int* __restrict__ vals32, const int* __restrict__ e0,
@@ -100,8 +66,7 @@ place_kernel(const int* __restrict__ vals32, const int* __restrict__ e0,
   int* dst = out + b * cap32 + start;
   // Word k of the range at image[k], as far from a 16-byte boundary as
   // dst + k.
-  const int shift =
-      static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  const int shift = psx::quad_shift(dst);
   uint32_t* image = image_base + shift;
   for (int i = threadIdx.x; i < range_words + 4; i += kThreads)
     image_base[i] = 0;
@@ -111,29 +76,14 @@ place_kernel(const int* __restrict__ vals32, const int* __restrict__ e0,
   // before what follows.
   const int keys[2] = {start - 8, start + len};
   int j[2];
-  cta_lower_bounds(e, nbe, keys, j);
+  psx::cta_lower_bounds(e, nbe, keys, j);
 
   int phase = 0;
   for (int j0 = j[0]; j0 < j[1]; j0 += kChunk) {
     const int n = min(kChunk, j[1] - j0);
-    const int g = b * nbe + j0;  // the chunk's first block in the batch
-    const int ga = g & ~3;
-    const int lead = g - ga;
-    const int na = (lead + n + 3) & ~3;
-    if (vec && ga + na <= total_blocks) {
-      if (threadIdx.x == 0) {
-        // The stage's last contents were read through the generic proxy.
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        psx::barrier_expect(&bar, na * 36);
-        psx::bulk_copy(stage, vals32 + ga * 9, na * 36, &bar);
-      }
-      psx::barrier_wait(&bar, phase);
-      phase ^= 1;
-    } else {
-      for (int i = threadIdx.x; i < n * 9; i += kThreads)
-        stage[lead * 9 + i] = static_cast<uint32_t>(vals32[g * 9 + i]);
-      __syncthreads();
-    }
+    const psx::StageSrc src[1] = {{vals32, stage, 9}};
+    const int lead = psx::stage_chunk(src, b * nbe + j0, n, total_blocks,
+                                      vec, &bar, phase);
     for (int k = threadIdx.x; k < n; k += kThreads) {
       const int w0 = __ldg(e + j0 + k) - start;
       const uint32_t* v = stage + (lead + k) * 9;
@@ -149,15 +99,7 @@ place_kernel(const int* __restrict__ vals32, const int* __restrict__ e0,
   }
   __syncthreads();
 
-  const int head = min((4 - shift) & 3, len);
-  if (static_cast<int>(threadIdx.x) < head)
-    dst[threadIdx.x] = static_cast<int>(image[threadIdx.x]);
-  const int quads = (len - head) / 4;
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  const int4* s4 = reinterpret_cast<const int4*>(image + head);
-  for (int i = threadIdx.x; i < quads; i += kThreads) d4[i] = s4[i];
-  for (int k = head + 4 * quads + threadIdx.x; k < len; k += kThreads)
-    dst[k] = static_cast<int>(image[k]);
+  psx::write_range(dst, image, shift, len);
 }
 
 }  // namespace

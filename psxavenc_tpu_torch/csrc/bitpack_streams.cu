@@ -1,5 +1,5 @@
 // K10: dense per-block packing of symbol tensors, a warp per block, and K9:
-// placement of the per-block streams, one thread per block.
+// placement of the per-block streams, a CTA per range of a frame's words.
 //
 // K10 replaces psxavenc_tpu/ops/bitpack_pallas.py::pack_block_streams_pallas
 // (_pack_kernel); plain version: ops/bitpack_cuda.py::
@@ -34,18 +34,30 @@
 // by __reduce_or_sync took longer than these shared-memory ORs (PERF.md).
 //
 // K9 replaces bitpack_pallas.py::place_streams_pallas (_kernel); plain
-// version: ops/bitpack_cuda.py::place_streams_plain (ops/bitpack.py:
-// _place_streams). The TPU kernel swept each frame's blocks in order
-// through a sliding 256-lane window with dynamic lane rotates, because it
-// has no scatter; here each block computes its nine placed u32 words
-// (psx::stream_to_u32) and ORs every nonzero one below cap32
-// into the zeroed output with atomicOr. Different blocks' words are
-// bit-disjoint, so the order does not matter. Words at or past cap32 drop
-// (the TPU kernel instead clamps its flushes for an unfittable frame); the
-// kernel writes nothing outside the (B, cap32) output. What bounds it:
-// memory traffic, 17 words read per block and at most nine ORed into the
-// L2-resident output.
-#include "bs_common.cuh"
+// version: ops/bitpack_cuda.py::place_streams_u32_plain (ops/bitpack.py:
+// _place_streams_u32); the plain model of this decomposition:
+// ops/bitpack_cuda.py::place_streams_ranges_plain. The TPU kernel swept
+// each frame's blocks in order through a sliding 256-lane window with
+// dynamic lane rotates, because it has no scatter. Here, as in K4
+// (csrc/bitpack_place.cu), the output is cut into ranges of
+// ``range_words`` words and a CTA owns one range of one frame (grid:
+// frames x ranges, about four CTAs an SM). The CTA zeroes an image of its
+// range in shared memory; brackets the blocks whose nine placed words reach
+// the range, 32 (start - 8) <= goff < 32 end, with K4's 256-ary search of
+// the frame's non-decreasing goff row (csrc/place_common.cuh); stages
+// their 64-byte streams by bulk copies on an mbarrier, up to 512 blocks at
+// a time; turns each block's stream into its nine placed u32 words
+// (psx::stream_to_u32, a thread a block) and ORs them into the image
+// (shared-memory atomicOr; different blocks' words are bit-disjoint, so
+// the order does not matter); and writes the range once, zeros included,
+// with 16-byte stores. No global atomics and no zero-fill: the wrapper
+// allocates with torch.empty. Words at or past cap32 lie in no range, so
+// they drop (the TPU kernel instead clamps its flushes for an unfittable
+// frame). What bounds it: memory traffic, each block's 64-byte stream and
+// offset read once and the (B, cap32) words written once.
+// Precondition: each frame's goff row is non-decreasing (an exclusive
+// cumsum of block bits is).
+#include "place_common.cuh"
 
 namespace {
 
@@ -57,6 +69,8 @@ constexpr int kStageBytes = 56 * 1024;   // a CTA's ring, at most
 constexpr unsigned kAllLanes = 0xFFFFFFFFu;  // a row's whole warp (lanes
                                              // past S carry 0-bit symbols)
 constexpr int kPlaceThreads = 256;
+constexpr int kPlaceChunk = 512;  // blocks staged at a time
+constexpr int kPlaceStageWords = (kPlaceChunk + 4) * 16;
 // tiles, cycles waiting for tiles, packing (warp 0's rows), at the tile's
 // closing barrier, in all; the grid, CTAs an SM, the SM
 constexpr int kPackStats = 8;
@@ -235,31 +249,67 @@ pack_kernel(const int* __restrict__ codes, const int* __restrict__ bits,
 
 __global__ void __launch_bounds__(kPlaceThreads)
 place_streams_kernel(const int* __restrict__ streams,
-                     const int* __restrict__ goff, long long nblocks, int nbe,
-                     int cap32, unsigned int* __restrict__ out) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= nblocks) return;
-  const int4* s4 = reinterpret_cast<const int4*>(streams + idx * 16);
-  uint32_t w[16];
+                     const int* __restrict__ goff, int nbe, int cap32,
+                     int range_words, int ranges, int total_blocks, int vec,
+                     int* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ __align__(8) uint64_t bar;
+  uint32_t* stage = smem;
+  uint32_t* image_base = smem + kPlaceStageWords;  // range_words + 4 words
+
+  const int b = blockIdx.x / ranges;
+  const int start = (blockIdx.x - b * ranges) * range_words;
+  const int len = min(range_words, cap32 - start);
+  const int* g_row = goff + b * nbe;
+  int* dst = out + b * cap32 + start;
+  // Word k of the range at image[k], as far from a 16-byte boundary as
+  // dst + k.
+  const int shift = psx::quad_shift(dst);
+  uint32_t* image = image_base + shift;
+  for (int i = threadIdx.x; i < range_words + 4; i += kPlaceThreads)
+    image_base[i] = 0;
+  if (threadIdx.x == 0) psx::barrier_init(&bar);
+
+  // A block's nine words start at u32 word goff >> 5. The search's
+  // barriers also order the zeroing and the barrier's init before what
+  // follows.
+  const int keys[2] = {32 * (start - 8), 32 * (start + len)};
+  int j[2];
+  psx::cta_lower_bounds(g_row, nbe, keys, j);
+
+  int phase = 0;
+  for (int j0 = j[0]; j0 < j[1]; j0 += kPlaceChunk) {
+    const int n = min(kPlaceChunk, j[1] - j0);
+    const psx::StageSrc src[1] = {{streams, stage, 16}};
+    const int lead = psx::stage_chunk(src, b * nbe + j0, n, total_blocks,
+                                      vec, &bar, phase);
+    for (int k = threadIdx.x; k < n; k += kPlaceThreads) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(stage) + (lead + k) * 4;
+      uint32_t w[16];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int4 q = s4[k];
-    w[4 * k] = static_cast<uint32_t>(q.x);
-    w[4 * k + 1] = static_cast<uint32_t>(q.y);
-    w[4 * k + 2] = static_cast<uint32_t>(q.z);
-    w[4 * k + 3] = static_cast<uint32_t>(q.w);
-  }
-  const int g = goff[idx];
-  uint32_t v[9];
-  psx::stream_to_u32(w, g, v);
-  unsigned int* frame_out = out + (idx / nbe) * cap32;
-  const int e0 = g >> 5;
+      for (int q = 0; q < 4; ++q) {
+        const uint4 x = s4[q];
+        w[4 * q] = x.x;
+        w[4 * q + 1] = x.y;
+        w[4 * q + 2] = x.z;
+        w[4 * q + 3] = x.w;
+      }
+      const int g = __ldg(g_row + j0 + k);
+      uint32_t v[9];
+      psx::stream_to_u32(w, g, v);
+      const int w0 = (g >> 5) - start;
 #pragma unroll
-  for (int j = 0; j < 9; ++j) {
-    const int word = e0 + j;
-    if (v[j] && word >= 0 && word < cap32) atomicOr(frame_out + word, v[j]);
+      for (int s = 0; s < 9; ++s) {
+        const int word = w0 + s;
+        if (v[s] && static_cast<unsigned>(word) < static_cast<unsigned>(len))
+          atomicOr(image + word, v[s]);
+      }
+    }
+    __syncthreads();  // the stage is read before it is filled again
   }
+  __syncthreads();
+
+  psx::write_range(dst, image, shift, len);
 }
 
 }  // namespace
@@ -296,15 +346,25 @@ extern "C" int psx_pack_block_streams(const void* codes, const void* bits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``range_words``: a multiple of 4, at most 4,096
+// (ops/bitpack_cuda.py:place_range_words); batch * nbe * 16 below 2^31 and
+// 32 * (cap32 + 8) below 2^31.
 extern "C" int psx_place_streams(const void* streams, const void* goff,
-                                 int batch, int nbe, int cap32, void* out,
-                                 void* stream) {
-  const long long nblocks = static_cast<long long>(batch) * nbe;
-  if (nblocks == 0) return 0;
-  const long long grid = (nblocks + kPlaceThreads - 1) / kPlaceThreads;
-  place_streams_kernel<<<static_cast<unsigned int>(grid), kPlaceThreads, 0,
+                                 int batch, int nbe, int cap32,
+                                 int range_words, void* out, void* stream) {
+  if (batch <= 0 || cap32 <= 0) return 0;
+  if (range_words <= 0 || range_words % 4 || range_words > 4096 || nbe <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ranges = (cap32 + range_words - 1) / range_words;
+  const size_t smem = static_cast<size_t>(kPlaceStageWords + range_words + 4) *
+                      sizeof(uint32_t);
+  cudaFuncSetAttribute(place_streams_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  const int vec = reinterpret_cast<uintptr_t>(streams) % 16 == 0;
+  place_streams_kernel<<<batch * ranges, kPlaceThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(streams), static_cast<const int*>(goff),
-      nblocks, nbe, cap32, static_cast<unsigned int*>(out));
+      static_cast<const int*>(streams), static_cast<const int*>(goff), nbe,
+      cap32, range_words, ranges, batch * nbe, vec, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("bs_select.cu", "bs_dc.cu", "bs_emit.cu", "bitpack_place.cu",
            "bitpack_gather.cu", "bitpack_streams.cu", "adpcm_units.cu")
-HEADERS = ("bs_common.cuh", "ac_codes.cuh")
+HEADERS = ("bs_common.cuh", "ac_codes.cuh", "place_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,13 +37,13 @@ _SIGNATURES = {
     "psx_emit_prep": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                       _P],
     "psx_place_vals": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "psx_place_vals_gather": [_P, _P, _I, _I, _I, _P, _P],
+    "psx_place_vals_gather": [_P, _P, _I, _I, _I, _I, _P, _P],
     "psx_select_scale": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "psx_select_constants": [_P],
     "psx_emit_pack": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "psx_emit_tail": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P,
                       _P],
-    "psx_place_streams": [_P, _P, _I, _I, _I, _P, _P],
+    "psx_place_streams": [_P, _P, _I, _I, _I, _I, _P, _P],
     "psx_pack_block_streams": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     "psx_adpcm_encode_units": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                _P, _P],

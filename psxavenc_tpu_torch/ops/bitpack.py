@@ -123,7 +123,9 @@ def with_eof_block(streams, block_bits, eof):
     B = streams.shape[0]
     eof_stream = torch.zeros((B, 1, streams.shape[2]), dtype=streams.dtype,
                              device=streams.device)
-    eof_stream[:, 0, 0] = eof << 6
+    # fill_ with a Python number: item assignment would make a CPU scalar
+    # tensor and read it back with item() on every call.
+    eof_stream[:, 0, 0].fill_(eof << 6)
     ten = torch.full((B, 1), 10, dtype=block_bits.dtype,
                      device=block_bits.device)
     return (torch.cat([streams, eof_stream], dim=1),
@@ -155,13 +157,12 @@ def _pack_block_streams(codes, bits, offs, *, bcap):
     return acc
 
 
-def _place_streams(streams, goff, *, capacity_words):
-    """Word-granular ragged concat of per-block streams (psxavenc_tpu's
-    ``_place_streams``, there applied per frame): (B, NBe, bcap) u16
-    streams at (B, NBe) global bit offsets -> (B, capacity_words) int64
-    u16 words. Each block's bcap/2 + 1 placed u32 words add at its u32
-    offset; adjacent blocks' bits are disjoint, so add == or. Words at or
-    past the capacity drop."""
+def _place_streams_u32(streams, goff, *, capacity_words):
+    """The placed u32 words of :func:`_place_streams`: (B, NBe, bcap) u16
+    streams at (B, NBe) global bit offsets -> (B, cap32) int64 u32 words.
+    Each block's bcap/2 + 1 placed u32 words add at its u32 offset;
+    adjacent blocks' bits are disjoint, so add == or. Words at or past
+    cap32 drop."""
     B = streams.shape[0]
     vals32, e0 = streams_to_u32(streams, goff)
     cap32 = cap32_of(capacity_words)
@@ -171,9 +172,18 @@ def _place_streams(streams, goff, *, capacity_words):
     out = torch.zeros((B, cap32 + 1), dtype=torch.int64,
                       device=vals32.device)
     out.scatter_add_(1, idx.reshape(B, -1), vals32.reshape(B, -1))
-    out32 = out[:, :cap32]
+    return out[:, :cap32]
+
+
+def _place_streams(streams, goff, *, capacity_words):
+    """Word-granular ragged concat of per-block streams (psxavenc_tpu's
+    ``_place_streams``, there applied per frame): (B, NBe, bcap) u16
+    streams at (B, NBe) global bit offsets -> (B, capacity_words) int64
+    u16 words, the little-endian halves of :func:`_place_streams_u32`'s
+    words. Words at or past the capacity drop."""
+    out32 = _place_streams_u32(streams, goff, capacity_words=capacity_words)
     words = torch.stack([out32 & 0xFFFF, out32 >> 16], dim=-1)
-    return words.reshape(B, -1)[:, :capacity_words]
+    return words.reshape(streams.shape[0], -1)[:, :capacity_words]
 
 
 def pack_frames_blocks(codes, bits, *, capacity_words,
@@ -190,7 +200,9 @@ def pack_frames_blocks(codes, bits, *, capacity_words,
     ``kernel_place``). A frame with a
     block over 16 * bcap bits is packed by :func:`pack_bits` instead
     (psxavenc_tpu sends its whole batch there; every frame's words are
-    the same either way).
+    the same either way). That flat path stays here: this packer takes
+    symbols, not the coefficients that the ``fused*`` packers' tail
+    emission (``bs_cuda.emit_tail``) works from.
 
     Returns (words (B, capacity_words) int32 u16 values, total_bits (B,)
     int32), as :func:`pack_bits` on each frame's flattened symbols.

@@ -23,7 +23,7 @@ from torch_dc_pack_cases import (DC_CASES, DC_SHAPES, PACK_CASES,
                                  PACK_SYMBOLS, dc_case, pack_case)
 from torch_emit_cases import (EDGE_BITS, code_table_inputs, edge_inputs,
                               select_form)
-from torch_place_cases import boundaries_inside, tied_frames
+from torch_place_cases import boundaries_inside, tied_frames, tied_streams
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -273,24 +273,29 @@ def test_select_refused_launch_raises(dev, monkeypatch):
         bs_cuda.select_scale(c, thr)
 
 
-def test_place_streams_writes_only_its_rows(dev):
-    """K9 on frames whose streams run far past the capacity (scale 2):
-    the kernel drops those words and leaves a guard row after the output
-    untouched."""
+@pytest.mark.parametrize("range_words", [4, 64, 908, 4096])
+def test_place_streams_writes_only_its_rows(dev, range_words):
+    """K9 on frames whose streams run far past the capacity (scale 2), for
+    ranges of any size: the kernel drops those words, writes every word of
+    its (B, cap32) output, zeros included, and leaves a guard row after
+    the output untouched (cap32 = 4,534 is no multiple of 4, so frames
+    start off 16-byte boundaries)."""
     rng = np.random.default_rng(9)
     streams, goff, _ = _streams(*bs_cuda.emit_pack_plain(
         *_emit_inputs(rng, 3, dev, [2, 2, 40])))
     B, nbe, _ = streams.shape
     cap32 = 4534
-    out = torch.zeros((B + 1, cap32), dtype=torch.int32, device=dev)
+    out = torch.full((B + 1, cap32), -1, dtype=torch.int32, device=dev)
+    out[B] = 0x5A5A5A5A
     _build.launch("psx_place_streams", streams, _build.ptr(streams),
-                  _build.ptr(goff), B, nbe, cap32, _build.ptr(out))
+                  _build.ptr(goff), B, nbe, cap32, range_words,
+                  _build.ptr(out))
     torch.cuda.synchronize()
     assert int(goff[0, -1]) > 32 * cap32
-    assert not out[B].any()
-    want = bitpack_cuda.place_streams_plain(streams, goff, None,
-                                            capacity_words=2 * cap32)
-    assert torch.equal(tbp.u16_values(out[:B], 2 * cap32), want)
+    assert (out[B] == 0x5A5A5A5A).all()
+    want = bitpack_cuda.place_streams_u32_plain(streams, goff,
+                                                capacity_words=2 * cap32)
+    assert torch.equal(out[:B], want)
 
 
 def _placed(dev, scales):
@@ -313,23 +318,39 @@ def test_place_vals_gather_equals_k4(dev):
         assert torch.equal(got, want), cap
 
 
-def test_place_vals_gather_writes_only_its_rows(dev):
+@pytest.mark.parametrize("range_words", [4, 64, 908, 1020])
+def test_place_vals_gather_writes_only_its_rows(dev, range_words):
     """K8 writes every word of its (B, cap32) output, zeros included, and
-    nothing after it: a guard row stays untouched and a poisoned output
-    is fully overwritten."""
+    nothing after it, for ranges of any size: a guard row stays untouched
+    and a poisoned output is fully overwritten (frames start off 16-byte
+    boundaries)."""
     vals32, e0 = _placed(dev, [2, 2, 40])
     B, nbe, _ = vals32.shape
     cap32 = 4534
     out = torch.full((B + 1, cap32), -1, dtype=torch.int32, device=dev)
     out[B] = 0x5A5A5A5A
     _build.launch("psx_place_vals_gather", vals32, _build.ptr(vals32),
-                  _build.ptr(e0), B, nbe, cap32, _build.ptr(out))
+                  _build.ptr(e0), B, nbe, cap32, range_words,
+                  _build.ptr(out))
     torch.cuda.synchronize()
     assert int(e0[0, -1]) > cap32
     assert (out[B] == 0x5A5A5A5A).all()
     want = bitpack_cuda.place_vals_plain(vals32, e0,
                                          capacity_words=2 * cap32)
     assert torch.equal(out[:B], want)
+
+
+def test_place_vals_gather_refused_launch_raises(dev):
+    """A launch K8 does not take is an error, not a fallback: a range over
+    4 x 256 - 4 words, and one that is no multiple of 4."""
+    vals32, e0 = _placed(dev, [31, 31, 40])
+    out = torch.empty((3, 4534), dtype=torch.int32, device=dev)
+    for words in (1024, 6):
+        with pytest.raises(RuntimeError):
+            _build.launch("psx_place_vals_gather", vals32, _build.ptr(vals32),
+                          _build.ptr(e0), 3, e0.shape[1], 4534, words,
+                          _build.ptr(out))
+    torch.cuda.synchronize()
 
 
 def _place_case(dev, kind):
@@ -386,6 +407,110 @@ def test_place_vals_cases(dev, kind):
     assert boundaries_inside(e0.cpu().numpy(), cap32, words) > 0
     if kind == "unfittable":
         assert int(e0[:, -1].max()) > cap32
+
+
+MODEL_FRAMES = 4           # frames of a case that the plain models run
+
+
+@pytest.mark.parametrize("kind", PLACE_CASES)
+def test_place_vals_gather_cases(dev, kind):
+    """K8 == its plain version on K4's cases, and its first frames ==
+    the plain model of its decomposition at the kernel's own ranges."""
+    vals32, e0, cap = _place_case(dev, kind)
+    before = bitpack_cuda.LAUNCHES["place_vals_gather"]
+    got = bitpack_cuda.place_vals_gather(vals32, e0, capacity_words=cap)
+    want = bitpack_cuda.place_vals_gather_plain(vals32, e0,
+                                                capacity_words=cap)
+    torch.cuda.synchronize()
+    assert bitpack_cuda.LAUNCHES["place_vals_gather"] == before + 1
+    assert got.is_cuda and torch.equal(got, want) and want.any()
+    words = bitpack_cuda.gather_range_words(
+        e0.shape[0], cap, bs_cuda.sm_count(dev))
+    n = MODEL_FRAMES
+    model = bitpack_cuda.place_vals_gather_ranges_plain(
+        vals32[:n], e0[:n], capacity_words=cap, range_words=words)
+    assert torch.equal(got[:n], model)
+    assert boundaries_inside(e0.cpu().numpy(), tbp.cap32_of(cap), words) > 0
+
+
+def _stream_case(dev, kind):
+    """(streams, goff, total, capacity_words) of K9's cases: K7's streams
+    (plain version) of frames like K4's cases (one frame, 128, 300, six
+    640x480 frames, three of which scale 2's runs past the capacity) and
+    16 frames of streams whose offsets tie (tests/torch_place_cases.py)."""
+    if kind == "ties":
+        streams, goff = tied_streams(16, NB + 1)
+        streams = torch.from_numpy(streams).to(dev)
+        goff = torch.from_numpy(goff).to(dev)
+        total = goff[:, -1] + 256
+        return streams, goff, total, int(total.max()) // 16 + 20
+    rng = np.random.default_rng(12)
+    cap = 9068
+    if kind == "unfittable":
+        emit = _emit_inputs(rng, 3, dev, [2, 31, 40])
+    elif kind == "640x480":
+        c64 = np.zeros((6, 64, bs_cuda.nb_padded(BIG_NB)), np.int16)
+        c64[:, :63, :BIG_NB] = rng.integers(-900, 900, (6, 63, BIG_NB))
+        dc_bits = rng.integers(2, 11, (6, BIG_NB)).astype(np.int32)
+        emit = [torch.from_numpy(a).to(dev) for a in (
+            c64, np.array([5, 9, 20, 31, 50, 63], np.int32),
+            np.zeros_like(dc_bits), dc_bits)]
+        cap = 4 * 9068 + 4
+    else:
+        frames = {"one frame": 1, "128 frames": 128, "300 frames": 128}[kind]
+        emit = _emit_inputs(rng, frames, dev,
+                            [2 + 61 * (i % 7) // 6 for i in range(frames)])
+    streams, goff, total = _streams(*bs_cuda.emit_pack_plain(*emit))
+    if kind == "300 frames":
+        streams, goff, total = (torch.cat([t] * 3)[:300].contiguous()
+                                for t in (streams, goff, total))
+    return streams, goff, total, cap
+
+
+@pytest.mark.parametrize("kind", PLACE_CASES)
+def test_place_streams_cases(dev, kind):
+    """K9 == its plain versions (u32 words and u16 values) on one, 128 and
+    300 frames, at 640x480, on frames past cap32 and on offsets that tie,
+    and its first
+    frames == the plain model of its decomposition at the kernel's own
+    ranges, whose starts fall inside blocks' nine words."""
+    streams, goff, total, cap = _stream_case(dev, kind)
+    before = bitpack_cuda.LAUNCHES["place_streams"]
+    got = bitpack_cuda.place_streams_u32(streams, goff, capacity_words=cap)
+    want = bitpack_cuda.place_streams_u32_plain(streams, goff,
+                                                capacity_words=cap)
+    u16 = bitpack_cuda.place_streams(streams, goff, total,
+                                     capacity_words=cap)
+    torch.cuda.synchronize()
+    assert bitpack_cuda.LAUNCHES["place_streams"] == before + 2
+    assert got.is_cuda and torch.equal(got, want) and want.any()
+    assert torch.equal(u16, bitpack_cuda.place_streams_plain(
+        streams, goff, total, capacity_words=cap))
+    words = bitpack_cuda.place_range_words(
+        goff.shape[0], cap, bs_cuda.sm_count(dev))
+    n = MODEL_FRAMES
+    model = bitpack_cuda.place_streams_ranges_plain(
+        streams[:n], goff[:n], capacity_words=cap, range_words=words)
+    assert torch.equal(got[:n], model)
+    assert boundaries_inside((goff >> 5).cpu().numpy(), tbp.cap32_of(cap),
+                             words) > 0
+    if kind == "unfittable":
+        assert int(goff[:, -1].max()) // 32 > tbp.cap32_of(cap)
+
+
+def test_place_streams_refused_launch_raises(dev):
+    """A launch K9 does not take is an error, not a fallback: a range over
+    4,096 words, and one that is no multiple of 4."""
+    rng = np.random.default_rng(9)
+    streams, goff, _ = _streams(*bs_cuda.emit_pack_plain(
+        *_emit_inputs(rng, 3, dev, [31, 31, 40])))
+    out = torch.empty((3, 4534), dtype=torch.int32, device=dev)
+    for words in (4100, 6):
+        with pytest.raises(RuntimeError):
+            _build.launch("psx_place_streams", streams, _build.ptr(streams),
+                          _build.ptr(goff), 3, goff.shape[1], 4534, words,
+                          _build.ptr(out))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("range_words", [4, 64, 908, 4096])
@@ -674,13 +799,33 @@ def test_emit_refused_launch_raises(dev, monkeypatch):
     torch.cuda.synchronize()
 
 
+# Each fused route: (packer, kernel_sweep) and the launches of one call.
+FUSED_ROUTES = [
+    ("fused_mxu", True, {"select_scale_pix": 1, "emit_prep": 1,
+                         "place_vals": 1, "emit_tail": 1}),
+    ("fused_gather", True, {"select_scale_pix": 1, "emit_prep": 1,
+                            "place_vals_gather": 1, "emit_tail": 1}),
+    ("fused", True, {"select_scale_pix": 1, "emit_pack": 1,
+                     "emit_tail": 1}),
+    ("fused_pallas", True, {"select_scale_pix": 1, "emit_pack": 1,
+                            "place_streams": 1, "emit_tail": 1}),
+    ("fused_mxu", False, {"emit_pack": 1, "place_vals": 1, "emit_tail": 1}),
+    ("fused_gather", False, {"emit_pack": 1, "place_vals_gather": 1,
+                             "emit_tail": 1}),
+]
+
+
 def test_fused_noise_batch_runs_no_plain_packing(dev, monkeypatch):
-    """fused_mxu and fused_gather on noise frames at generous budgets (low
-    scales: every frame has blocks over 256 bits; the last is unfittable
-    and runs past the capacity) == the flat packer, with the plain
-    packing functions removed and every operation that waits for the
-    device an error; the device counter holds the number of such
-    frames."""
+    """Every fused route (K3 and K4 or K8; K7's streams placed by the
+    plain stream placement, K9, or K4 or K8) on noise frames at generous
+    budgets (low scales: every frame has blocks over 256 bits; the last is
+    unfittable and runs past the capacity) == the flat packer, with the
+    plain packing functions removed and every operation that waits for the
+    device an error; it launches its kernels and the tail emission once,
+    and the device counter holds the number of such frames. Without the
+    kernel sweep the selection (the plain chunked sweep, which waits for
+    the device by design) runs before the checked part, the emission and
+    the placement (``api._fused_words``)."""
     from psxavenc_tpu_torch import api
 
     rng = np.random.default_rng(21)
@@ -688,41 +833,56 @@ def test_fused_noise_batch_runs_no_plain_packing(dev, monkeypatch):
     frames = torch.from_numpy(rng.integers(
         0, 256, (len(budgets), W * H * 3 // 2)).astype(np.uint8)).to(dev)
     budgets = torch.tensor(budgets, dtype=torch.int32, device=dev)
-    kw = dict(codec=0, width=W, height=H, capacity_words=(150000 - 8) // 2)
+    cap = (150000 - 8) // 2
+    kw = dict(codec=0, width=W, height=H, capacity_words=cap)
     flat = api.bs_encode_frames_packed(frames, budgets, packer="flat", **kw)
     sel = api._select_pixels(frames, budgets, 0, W, H, api._KERNELS)
     block_bits = bs_cuda.emit_pack_plain(sel["c"], sel["scale_idx"] + 1,
                                          sel["dc_code"], sel["dc_bits"])[1]
     long_frames = int((block_bits > 256).any(dim=1).sum())
     assert flat["scale"].tolist()[-1] == 64 and 4 <= long_frames < 6
+    swept = tbs.encode_frames_symbols(
+        api._frames_to_coefs(frames, W, H), budgets, codec=0,
+        kernel_sweep=False, emit=False)
+    assert torch.equal(swept["scale"], flat["scale"])
 
     def forbidden(*a, **k):
         raise AssertionError("plain packing on the card")
 
-    for packer in ("fused_mxu", "fused_gather"):
-        api.bs_encode_frames_packed(frames, budgets, packer=packer, **kw)
+    def run(packer, sweep):
+        if sweep:
+            return api.bs_encode_frames_packed(frames, budgets,
+                                               packer=packer, **kw)["words"]
+        return api._fused_words(swept, packer, False, 0x1FF, cap,
+                                api._KERNELS)
+
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES)
+    for packer, sweep, launches in FUSED_ROUTES:
+        run(packer, sweep)
         torch.cuda.synchronize()                         # warm
         api.COUNTERS["overflow_frames"] = 0
-        before = dict(bs_cuda.LAUNCHES)
+        before = [dict(c) for c in counters]
         with monkeypatch.context() as m:
             m.setattr(api, "_overflow_words", forbidden)
             m.setattr(tbs, "emit_symbols_at", forbidden)
             m.setattr(tbp, "pack_bits", forbidden)
             torch.cuda.set_sync_debug_mode("error")
             try:
-                got = api.bs_encode_frames_packed(frames, budgets,
-                                                  packer=packer, **kw)
+                words = run(packer, sweep)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        ran = {k: v - before[k] for k, v in bs_cuda.LAUNCHES.items()
-               if v - before[k]}
-        assert ran == {"select_scale_pix": 1, "emit_prep": 1, "emit_tail": 1}
+        ran = {k: v - b[k] for c, b in zip(counters, before)
+               for k, v in c.items() if v - b[k]}
+        assert ran == launches, (packer, sweep)
         assert api.COUNTERS["overflow_frames"] == long_frames
         assert api.COUNTERS["overflow_frames"] == long_frames   # read once
-        for k in ("scale", "nz_count", "words"):
-            assert torch.equal(got[k], flat[k]), (packer, k)
-        assert torch.equal(got["total_bits"][:-1], flat["total_bits"][:-1])
+        assert torch.equal(words, flat["words"]), (packer, sweep)
+    got = api.bs_encode_frames_packed(frames, budgets, packer="fused_pallas",
+                                      **kw)
+    for k in ("scale", "nz_count"):
+        assert torch.equal(got[k], flat[k])
+    assert torch.equal(got["total_bits"][:-1], flat["total_bits"][:-1])
 
 
 @pytest.mark.parametrize("filter_count,shift_range",

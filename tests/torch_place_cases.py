@@ -34,3 +34,24 @@ def boundaries_inside(e0, cap32, range_words):
         hi = np.searchsorted(row, starts, side="left")
         count += int((hi > lo).sum())
     return count
+
+
+def tied_streams(frames, nbe, seed=45):
+    """(streams (frames, nbe, 16) int32 u16 values, goff (frames, nbe)
+    int32): per-block streams whose global bit offsets tie. Block bits
+    are drawn from 0 (a third of the blocks: their offsets tie with the
+    next block's), 1-31 and 200-256; each stream holds random bits in its
+    first ``bits`` bits only (MSB-first), so the placed blocks are
+    bit-disjoint; goff is the exclusive sum of the bits."""
+    rng = np.random.default_rng(seed)
+    bits = np.where(rng.random((frames, nbe)) < 1 / 3, 0,
+                    np.where(rng.random((frames, nbe)) < 0.7,
+                             rng.integers(1, 32, (frames, nbe)),
+                             rng.integers(200, 257, (frames, nbe))))
+    pos = np.arange(256)[None, None, :]
+    on = rng.integers(0, 2, (frames, nbe, 256)) * (pos < bits[..., None])
+    weights = 1 << (15 - np.arange(16))
+    streams = (on.reshape(frames, nbe, 16, 16) * weights).sum(axis=3)
+    goff = np.cumsum(bits, axis=1) - bits
+    assert (np.diff(goff, axis=1) == 0).any(axis=1).all()
+    return streams.astype(np.int32), goff.astype(np.int32)

@@ -11,12 +11,13 @@ pack: K10 on phase 10's symbols (128 frames of 1,801 blocks of 65 symbols,
 int32), its GB/s and cycle sections, and the adversarial rows. emit: K3
 (with its cycle sections), K7 in both coefficient forms and the tail
 emission on phase 3's and phase 4's video+noise batches, on noise frames
-and on video frames without noise. small: K4, K8, K9 and the tail emission
-at one and at ten calls a graph, beside an empty launch of each one's grid
-(see small_rows). --tree measures another checkout's package (for
-example the parent commit unpacked under build/) with this checkout's
-checks and timers; where that package names no launch grid, the empty
-launches are left out. Each kernel is held to its plain version as
+and on video frames without noise. small: K4, K8, K9 (its u16 wrapper, and
+its u32 entry point beside one scatter_add_ where the tree has one) and
+the tail emission at one and at ten calls a graph, beside an empty launch
+of each one's grid (see small_rows). --tree measures another checkout's
+package (for example the parent commit unpacked under build/) with this
+checkout's checks and timers; where that package names no launch grid,
+the empty launches are left out. Each kernel is held to its plain version as
 chip_smoke holds it (a mismatch raises) and timed as its rows are
 (``chip_smoke.graph_ms``); chip_smoke's lines are printed as they come, and
 one JSON line per case and repetition holds the case's rows. Exits 1
@@ -100,11 +101,18 @@ def emit_rows(torch, np, synth, cs, card):
         yield label, rows
 
 
-def _grid(module, name, *args):
+def _grid(module, name, **kw):
     """A wrapper's launch grid, or None where its module does not name it
-    (a tree read with --tree may predate the grid functions)."""
+    (a tree read with --tree may predate the grid functions); each grid
+    function is given the keywords its signature names (a tree's K9 grid
+    may take the blocks, ``nbe``, or the capacity)."""
+    import inspect
+
     fn = getattr(module, name, None)
-    return fn(*args) if fn else None
+    if fn is None:
+        return None
+    names = inspect.signature(fn).parameters
+    return fn(**{k: v for k, v in kw.items() if k in names})
 
 
 def small_rows(torch, np, synth, cs, card):
@@ -143,30 +151,45 @@ def small_rows(torch, np, synth, cs, card):
             lambda: bitpack_cuda.place_vals(vals32, e0, **kw),
             lambda: bitpack_cuda.place_vals_plain(vals32, e0, **kw),
             (vals32, e0), lambda out: place_ops, card, library_fn=lib_fn,
-            grid=_grid(bitpack_cuda, "place_vals_grid", b, cs.CAP_WORDS))
+            grid=_grid(bitpack_cuda, "place_vals_grid", batch=b,
+                       capacity_words=cs.CAP_WORDS))
         cs.compare(
             torch, rows, "bench", "place_vals_gather", label,
             lambda: bitpack_cuda.place_vals_gather(vals32, e0, **kw),
             lambda: bitpack_cuda.place_vals_gather_plain(vals32, e0, **kw),
             (vals32, e0), lambda out: place_ops, card, library_fn=lib_fn,
-            grid=_grid(bitpack_cuda, "place_vals_gather_grid", b,
-                       cs.CAP_WORDS))
+            grid=_grid(bitpack_cuda, "place_vals_gather_grid", batch=b,
+                       capacity_words=cs.CAP_WORDS))
         cs.tail_compare(torch, rows, "bench", label, placed, c64, args,
                         block_bits, card,
-                        _grid(bs_cuda, "emit_tail_grid", b))
+                        _grid(bs_cuda, "emit_tail_grid", batch=b))
         streams, bb = bitpack_ops.with_eof_block(
             *bs_cuda.emit_pack(c64, *args), 0x1FF)
         goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
         total = goff[:, -1] + bb[:, -1]
+        k9_grid = _grid(bitpack_cuda, "place_streams_grid", batch=b,
+                        nbe=nbe, capacity_words=cs.CAP_WORDS)
+        k9_ops = b * nbe * (16 * cs.OPS_FUNNEL_WORD + 9 * cs.OPS_PLACE_WORD)
         cs.compare(
-            torch, rows, "bench", "place_streams", label,
+            torch, rows, "bench", "place_streams", f"{label}, u16 values",
             lambda: bitpack_cuda.place_streams(streams, goff, total, **kw),
             lambda: bitpack_cuda.place_streams_plain(streams, goff, total,
                                                      **kw),
-            (streams, goff),
-            lambda out: b * nbe * (16 * cs.OPS_FUNNEL_WORD
-                                   + 9 * cs.OPS_PLACE_WORD), card,
-            grid=_grid(bitpack_cuda, "place_streams_grid", b, nbe))
+            (streams, goff), lambda out: k9_ops, card, grid=k9_grid,
+            ten=True)
+        if hasattr(bitpack_cuda, "place_streams_u32"):
+            vals, e0s = bitpack_ops.streams_to_u32(streams, goff)
+            lib_fn, _ = cs.scatter_add_call(
+                torch, bitpack_ops.u32_to_i32(vals), e0s)
+            row = {}
+            cs.compare(
+                torch, row, "bench", "place_streams", f"{label}, u32 words",
+                lambda: bitpack_cuda.place_streams_u32(streams, goff, **kw),
+                lambda: bitpack_cuda.place_streams_u32_plain(streams, goff,
+                                                             **kw),
+                (streams, goff), lambda out: k9_ops, card,
+                library_fn=lib_fn, grid=k9_grid, ten=True)
+            rows["place_streams_u32"] = row["place_streams"]
         yield label, rows
 
 
