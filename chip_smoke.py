@@ -40,16 +40,22 @@ Phases, one or more lines each:
    long block) and on tests/torch_emit_cases.py's edge_inputs, and on every
    case also launched with 1, 2 and 5 CTAs a frame, its count of frames
    with a long block held to theirs;
-4. the video path: BsFrameEncoder on the card over 256 frames for v2, v3
-   and v3dc, each codec's bytes equal to its committed digest, K1-K4 and
-   the tail emission launched, the frames with a block over 256 bits
-   counted on the device;
+4. the video path: BsFrameEncoder (pipelined: the next batch uploaded
+   and launched while this one is read back and assembled) on the card
+   over 256 frames for v2, v3 and v3dc, each codec's bytes equal to its
+   committed digest, K1-K4 and the tail emission launched, the frames with
+   a block over 256 bits counted on the device;
 5. the video CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI,
    equal to the digests;
 6. frames/s on video, on video with every eighth frame noise and on a
    batch of noise frames (no block over 256 bits): the device step as the
-   median of seven medians with the least and the greatest, end to end and
-   the plain path on the card; the step's busy share: the device time of
+   median of seven medians with the least and the greatest, and the plain
+   path on the card; end to end on 1,024 frames of eight different
+   batches, the pipelined encoder and one batch at a time as the median
+   of five interleaved pairs with the least and the greatest, both with
+   equal bytes, quant-scale sums and overflow counts; the speed of light
+   of the step's kernels (utils/roofline.py) and the share of it that the
+   device step and the pipelined encoder reach; the step's busy share: the device time of
    each hand-written kernel it launched (each call timed in a CUDA graph
    on the step's own inputs, as in phase 3) and of the whole step timed
    the same way, over the step's CUDA-event time; a torch.profiler list of the
@@ -64,13 +70,16 @@ Phases, one or more lines each:
    (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8), timed as
    in phase 3;
 8. the batch API at full width: api.spu_encode_batch on 4,096 x 1,000
-   SPU units, Msamples/s on the device, the kernel's share of its bound,
-   peak device memory;
+   SPU units, Msamples/s on the device, the kernel's share of its bound
+   and of K5's speed of light (utils/roofline.py), peak device memory;
 9. the audio and A/V path: the CLI (-t xa, xacd, spu, vag, vagi, and the
    flagship -t strcd / -t str: 320x240 15 fps BS v2 with 37,800 Hz stereo
    XA) run in this process on the card, every output equal to its
    digest, K5 (and K1, K3, K4 for str/strcd) launched; seconds per file
-   and, from torch.profiler, K5's device time on the 60 s track;
+   and, from torch.profiler, K5's device time on the 60 s track; the
+   flagship strcd once more with PSXAVENC_PROFILE set to a directory
+   under --out: its Chrome trace names K1's kernel, stderr says "Profile
+   written to", the output equals its digest;
 10. the symbols API and the per-block-stream packers at the video path's
    width: K6, K7 (both coefficient forms), K9 and K10 against their plain
    versions on phase 4's first 128 frames (video+noise, one frame's
@@ -101,12 +110,17 @@ Phases, one or more lines each:
    and the xa with small chunks, equal to the digests, with chunk rounds
    that shared a device call; libpsxav's xa_encode_simple on the 10 s
    track and spu_encode_simple with a loop point, equal to their
-   digests.
+   digests;
+12. parallel.mesh's batch split over the card listed twice (and over
+   every visible card when there are several): packed_video_step (v3dc)
+   and unit_encode_step equal the single-device calls, with the shards'
+   shapes and torch.cuda.device_count() printed.
 
 The digests (psxavenc_tpu_torch/data/smoke_digests.json) are the JAX
 package's outputs for the same inputs; tests/test_torch_smoke_refs.py
-recomputes them on the CPU from the recipes below. The ptxas report and
-the profiler tables are written under ``--out`` (default ``smoke_out/``).
+recomputes them on the CPU from the recipes below. The ptxas report, the
+profiler tables and phase 9's trace are written under ``--out`` (default
+``smoke_out/``). Every bound is psxavenc_tpu_torch/utils/roofline.py's.
 
 Any failure ends the run with a nonzero exit and no result; so does a
 machine without a CUDA device. The last three lines are the kernel table
@@ -122,6 +136,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from psxavenc_tpu_torch.utils import roofline as rl
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DIGESTS = os.path.join(ROOT, "psxavenc_tpu_torch", "data",
@@ -171,68 +187,6 @@ KERNELS = [
     ("emit_tail", "psxavenc_tpu_torch/csrc/bs_emit.cu",
      "psxavenc_tpu/api.py:212"),
 ]
-
-# ---------------------------------------------------------------- bounds
-# The least time the card could take for a kernel's work: the larger of
-# its bytes (each input read once, each output written once) over HBM3's
-# 3.35 TB/s and its integer operations over the SMs' int32 rate. NVIDIA's
-# data sheet gives no int32 rate outside the tensor cores; the Hopper
-# white paper gives 64 INT32 lanes per SM, so 132 SMs x 64 x the 1.98 GHz
-# boost clock. Operations per element, counted from the kernels' code:
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-OPS_FDCT_BLOCK = 900      # K1: two 8x8 islow passes + descale + zigzag
-OPS_SCALE_EVAL = 20       # K1: quantize, run, closed-form bits, per coef
-OPS_DC_BLOCK = 12         # K2: difference, wrap, size, code
-OPS_EMIT_ZERO = 2         # K3, K7: the zero test of a coefficient (compare
-                          #     with half the divisor, OR into the mask)
-OPS_EMIT_NONZERO = 50     # K3, K7: per nonzero level: quantize and clamp,
-                          #     run, code lookup or escape, shift into words
-OPS_EMIT_BLOCK = 60       # K3, K7: DC and EOB codes, the offset's scan,
-                          #     nine shifted and paired words (16 for K7)
-OPS_TAIL_BLOCK = 2        # tail emission: a block's total read and compared
-OPS_PLACE_WORD = 4        # K4, K8, K9: test, offset, bound check, OR
-OPS_FUNNEL_WORD = 6       # K9: shift, carry shift, mask, OR, LE pairing
-OPS_PACK_SYMBOL = 24      # K10: length mask, window index and shifts,
-                          #     two-window OR, per symbol slot
-OPS_ADPCM_STEP = 20       # K5: predict, quantize, clip, decode, error,
-                          #     pack, per candidate and sample
-OPS_ADPCM_RESID = 8       # K5: residual and extrema, per filter, sample
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(n_bytes, ops):
-    """(bound ms, what bounds it)."""
-    ms_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    ms_ops = ops / INT32_OPS_PER_S * 1e3
-    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
-                                                            "operations")
-
-
-def emit_ops(torch, coefs, scale, nb, blocks=None):
-    """The operations of the emission (K3, K7; the tail emission on the
-    (B, NB) mask ``blocks``) on this run's data: a zero test for every
-    coefficient, the quantize-and-code work for those whose level at the
-    frame's scale is nonzero, counted here, and the per-block work."""
-    from psxavenc_tpu_torch.ops import bs as bs_ops
-
-    d = bs_ops.quant_zz(coefs.device)[None, :, None] * scale[:, None, None]
-    nonzero = coefs[:, :63, :nb].abs() >= (d + 1) >> 1
-    n_blocks = coefs.shape[0] * nb
-    if blocks is not None:
-        nonzero = nonzero & blocks[:, None, :]
-        n_blocks = int(blocks.sum())
-    return (n_blocks * (63 * OPS_EMIT_ZERO + OPS_EMIT_BLOCK)
-            + int(nonzero.sum()) * OPS_EMIT_NONZERO)
-
-
-def adpcm_ops(n_units, filter_count):
-    return n_units * 28 * (3 * filter_count * OPS_ADPCM_STEP
-                           + filter_count * OPS_ADPCM_RESID)
-
 
 # ------------------------------------------------- inputs, from seeds
 # Shared with tests/test_torch_smoke_refs.py, which computes the digests
@@ -534,8 +488,9 @@ def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
     plain_ms = time_ms(torch, plain_fn, reps=3)
     library_ms = graph_ms(torch, library_fn) if library_fn else None
     outs = got if isinstance(got, tuple) else (got,)
-    bound_ms, bound_by = bound(
-        bytes_fn(got) if bytes_fn else nbytes(*inputs, *outs), ops_fn(got))
+    bound_ms, bound_by = rl.bound(
+        bytes_fn(got) if bytes_fn else rl.nbytes(*inputs, *outs),
+        ops_fn(got))
     lib = f", one PyTorch call {library_ms:.4f} ms" if library_fn else ""
     say(f"[{tag}] {name} {label}: max |kernel - plain| = {err}; kernel "
         f"{ms:.4f} ms on the device (graph replay; one wrapper call "
@@ -560,8 +515,8 @@ def select_ops(torch, nb, fdct):
     it (one evaluation for scale 1 and for unfittable frames)."""
     def ops(out):
         evals = torch.where((out[0] > 1) & (out[0] <= 63), 2, 1)
-        return nb * (B * OPS_FDCT_BLOCK * fdct
-                     + 63 * OPS_SCALE_EVAL * int(evals.sum()))
+        return nb * (B * rl.OPS_FDCT_BLOCK * fdct
+                     + 63 * rl.OPS_SCALE_EVAL * int(evals.sum()))
     return ops
 
 
@@ -938,11 +893,11 @@ def tail_compare(torch, results, tag, label, placed, coefs, emit_args,
                                   count=count, **kw)[0],
         lambda: bs_cuda.emit_tail_plain(placed, coefs, *emit_args,
                                         block_bits, **kw)[0],
-        (), lambda out: (block_bits.numel() * OPS_TAIL_BLOCK
-                         + emit_ops(torch, coefs, emit_args[0],
+        (), lambda out: (block_bits.numel() * rl.OPS_TAIL_BLOCK
+                         + rl.emit_ops(coefs, emit_args[0],
                                     block_bits.shape[1], long_blocks)),
         card, bytes_fn=lambda out: (
-            nbytes(block_bits, emit_args[0])
+            rl.nbytes(block_bits, emit_args[0])
             + n_long * (63 * coefs.element_size() + 8)
             + 2 * (tail_bytes + 8 * n_long)), grid=grid, size=size, ten=True)
 
@@ -987,7 +942,7 @@ def check_kernels(torch, np, synth, card):
             lambda: bs_cuda.emit_prep_plain(coefs, sidx, dc_code, dc_bits,
                                             eof=eof),
             (coefs, sidx, dc_code, dc_bits),
-            lambda out: emit_ops(torch, coefs, sidx, nb))
+            lambda out: rl.emit_ops(coefs, sidx, nb))
         if codec == bs_ops.BS_V2:
             emit_stats_line(torch, 3, coefs, (sidx, dc_code, dc_bits), eof,
                             card)
@@ -998,7 +953,7 @@ def check_kernels(torch, np, synth, card):
                                             capacity_words=CAP_WORDS),
             lambda: bitpack_cuda.place_vals_plain(
                 vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-            lambda out: vals32.numel() * OPS_PLACE_WORD,
+            lambda out: vals32.numel() * rl.OPS_PLACE_WORD,
             library_fn=lib_fn, grid=bitpack_cuda.place_vals_grid(
                 B, CAP_WORDS))
         if not torch.equal(lib_words, placed):
@@ -1010,7 +965,7 @@ def check_kernels(torch, np, synth, card):
                 vals32, e0, capacity_words=CAP_WORDS),
             lambda: bitpack_cuda.place_vals_gather_plain(
                 vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-            lambda out: vals32.numel() * OPS_PLACE_WORD, card,
+            lambda out: vals32.numel() * rl.OPS_PLACE_WORD, card,
             library_fn=lib_fn, grid=bitpack_cuda.place_vals_gather_grid(
                 B, CAP_WORDS), ten=True)
         if not torch.equal(gathered, placed):
@@ -1045,7 +1000,7 @@ def place_case(torch, card, label, vals32, e0, capacity_words):
     got = compare(torch, {}, 3, "place_vals", label,
                   lambda: bitpack_cuda.place_vals(vals32, e0, **kw),
                   lambda: bitpack_cuda.place_vals_plain(vals32, e0, **kw),
-                  (vals32, e0), lambda out: vals32.numel() * OPS_PLACE_WORD,
+                  (vals32, e0), lambda out: vals32.numel() * rl.OPS_PLACE_WORD,
                   card, library_fn=lib_fn,
                   grid=bitpack_cuda.place_vals_grid(b, capacity_words),
                   size=f"B={b}, NBe={nbe}, cap32={cap32}", ten=True)
@@ -1165,7 +1120,7 @@ def check_dc(torch, results, card, dc_q):
     return compare(torch, results, 3, "dc_stage", "v3dc",
                    lambda: bs_cuda.dc_stage(dc_q, bs_ops.BS_V3DC),
                    lambda: bs_cuda.dc_stage_plain(dc_q, bs_ops.BS_V3DC),
-                   (dc_q,), lambda out: dc_q.numel() * OPS_DC_BLOCK, card)
+                   (dc_q,), lambda out: dc_q.numel() * rl.OPS_DC_BLOCK, card)
 
 
 def dc_checks(torch, np, synth, card, row, dc_q):
@@ -1483,17 +1438,103 @@ def throughput(torch, np, synth, card, out_dir):
             f"{B / plain_ms * 1000:.1f} frames/s ({plain_ms:.4f} ms per "
             f"batch) on {card}")
 
-        enc = BsFrameEncoder(0, W, H, dev)
-        frame_list = list(np.concatenate([host] * 8))
-        enc.encode_frames(frame_list[:B], [BUDGET] * B)         # warm-up
-        t0 = time.perf_counter()
-        enc.encode_frames(frame_list, [BUDGET] * len(frame_list))
-        dt = time.perf_counter() - t0
-        say(f"[6] {label} end to end: {len(frame_list) / dt:.1f} frames/s "
-            f"({len(frame_list)} frames, H2D + device + D2H + headers) on "
-            f"{card}")
+        ms_e2e = end_to_end(torch, np, synth, label, card)
+        density = rl.nonzero_share(*density_inputs(torch, frames, budgets))
+        chip = rl.chip_for(torch.cuda.get_device_name(0))
+        sol_ms, pct = rl.video_report(ms, chip, W, H, B, CAP_WORDS, 0,
+                                      density)
+        say(f"[6] {label} speed of light (utils/roofline.py: K1, K3, K4 and "
+            f"the tail emission at this mix's nonzero density "
+            f"{density:.4f}): {sol_ms:.4f} ms per {B}-frame batch; the "
+            f"device step reaches {pct:.1f}% of it, end to end (pipelined) "
+            f"{100 * sol_ms / ms_e2e:.1f}% on {card}")
         if label != "noise":
             carried_seed_hits(torch, label, frames, budgets, 8, card)
+
+
+E2E_BATCHES = 8
+E2E_PAIRS = 5
+
+
+def e2e_frames(np, synth, label):
+    """E2E_BATCHES different B-frame batches of phase 6's mix ``label``."""
+    n = E2E_BATCHES * B
+    if label == "noise":
+        rng = np.random.default_rng(31)
+        return rng.integers(0, 256, (n, W * H * 3 // 2)).astype(np.uint8)
+    return smoke_frames(np, synth, n, seed=15,
+                        noise_every=8 if label == "video+noise" else 0)
+
+
+def end_to_end(torch, np, synth, label, card):
+    """Phase 6, end to end: BsFrameEncoder on E2E_BATCHES different
+    batches, host frames to frame buffers (H2D, device, D2H, headers),
+    pipelined (encode_frames) and one batch at a time (each batch fetched
+    before the next is launched), in E2E_PAIRS interleaved pairs; both
+    give the same bytes, quant-scale sums and overflow counts. Returns the
+    pipelined median ms per batch."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+
+    frames = list(e2e_frames(np, synth, label))
+    budgets = [BUDGET] * len(frames)
+
+    def pipelined(enc):
+        return enc.encode_frames(frames, budgets)
+
+    def one_at_a_time(enc):
+        out = []
+        for base in range(0, len(frames), B):
+            out += enc.fetch(enc.encode_frames_async(
+                frames[base:base + B], budgets[base:base + B]))
+        return out
+
+    runs = {"pipelined": pipelined, "one batch at a time": one_at_a_time}
+    encoders = {mode: BsFrameEncoder(0, W, H, "cuda") for mode in runs}
+    times = {mode: [] for mode in runs}
+    seen = {}
+    for mode, fn in runs.items():                       # warm-up
+        fn(encoders[mode])
+    for i in range(E2E_PAIRS):
+        for mode in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            enc = encoders[mode]
+            scales = enc.quant_scale_sum
+            api.COUNTERS["overflow_frames"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = runs[mode](enc)
+            times[mode].append(time.perf_counter() - t0)
+            outcome = (sha256(b"".join(buf.tobytes() for buf, _ in got)),
+                       enc.quant_scale_sum - scales,
+                       api.COUNTERS["overflow_frames"])
+            if seen.setdefault(mode, outcome) != outcome:
+                raise AssertionError(f"phase 6, {label}: {mode} runs differ")
+    if seen["pipelined"] != seen["one batch at a time"]:
+        raise AssertionError(f"phase 6, {label}: the pipelined encoder "
+                             "differs from one batch at a time")
+    n = len(frames)
+    text = []
+    for mode, ts in times.items():
+        ts = sorted(ts)
+        text.append(f"{mode} {n / statistics.median(ts):.1f} frames/s "
+                    f"(least {n / ts[-1]:.1f}, greatest {n / ts[0]:.1f})")
+    say(f"[6] {label} end to end, {n} frames in {E2E_BATCHES} different "
+        f"{B}-frame batches (host frames to frame buffers: H2D, device, D2H, "
+        f"headers), median of {E2E_PAIRS} interleaved pairs: "
+        + "; ".join(text)
+        + f"; equal bytes, quant-scale sums ({seen['pipelined'][1]}) and "
+        f"frames with a block over 256 bits ({seen['pipelined'][2]}) on "
+        f"{card}")
+    return statistics.median(times["pipelined"]) * 1e3 / E2E_BATCHES
+
+
+def density_inputs(torch, frames, budgets):
+    """(coefficients, scale, NB) of a step on ``frames`` (BS v2), for the
+    speed of light's nonzero density."""
+    from psxavenc_tpu_torch import api
+
+    sel = api._select_pixels(frames, budgets, 0, W, H, api._KERNELS)
+    return sel["c"], sel["scale_idx"] + 1, sel["dc_code"].shape[1]
 
 
 def carried_seed_hits(torch, label, frames, budgets, n_batches, card):
@@ -1553,7 +1594,8 @@ def adpcm_kernel(torch, np, synth, card):
         call_ms = time_ms(torch, kernel_fn)
         plain_ms = time_ms(torch, plain_fn, reps=1)
         n_units = ADPCM_STREAMS * ADPCM_CHECK_UNITS
-        bound_ms, bound_by = bound(nbytes(*head, *got), adpcm_ops(n_units, fc))
+        bound_ms, bound_by = rl.bound(rl.nbytes(*head, *got),
+                                      rl.adpcm_ops(n_units, fc))
         say(f"[7] adpcm_encode_units ({fc}, {sr}): headers, words, s1, s2 "
             f"max |kernel - plain| = {err}; kernel {ms:.4f} ms on the device "
             f"(graph replay; one wrapper call {call_ms:.4f} ms with its host "
@@ -1595,7 +1637,8 @@ def adpcm_batch(torch, full, ref, card):
         *full, filter_count=5, shift_range=12), reps=5)
     out = adpcm_cuda.encode_units(*full, filter_count=5, shift_range=12)
     n_units = ADPCM_STREAMS * ADPCM_UNITS
-    bound_ms, bound_by = bound(nbytes(*full, *out), adpcm_ops(n_units, 5))
+    bound_ms, bound_by = rl.bound(rl.nbytes(*full, *out),
+                                  rl.adpcm_ops(n_units, 5))
     api_ms = time_ms(torch, lambda: api.spu_encode_batch(*full), reps=3)
     say(f"[8] spu_encode_batch {ADPCM_STREAMS} x {ADPCM_UNITS} units "
         f"({n_units * 28 / 1e6:.1f} M samples, "
@@ -1605,6 +1648,13 @@ def adpcm_batch(torch, full, ref, card):
         f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the "
         f"bound; whole API call {api_ms:.3f} ms; peak device memory "
         f"{peak / 2**30:.2f} GiB; on {card}")
+    msps = n_units * 28 / ms / 1e3
+    sol_msps, pct = rl.audio_report(
+        msps, rl.chip_for(torch.cuda.get_device_name(0)))
+    say(f"[8] K5 speed of light (utils/roofline.py, "
+        f"{rl.audio_kernel_census():.0f} int32 operations a sample): "
+        f"{sol_msps:.1f} Msamples/s = {n_units * 28 / sol_msps / 1e3:.3f} ms "
+        f"for this batch; K5 reaches {pct:.1f}% of it on {card}")
 
 
 def av_path(torch, digests, tmp, card, out_dir):
@@ -1661,9 +1711,60 @@ def av_path(torch, digests, tmp, card, out_dir):
                                      "place_vals")):
             raise AssertionError(f"cli {' '.join(argv)} did not launch "
                                  "K1, K3 and K4")
+    cli_profile(digests, tmp, card, out_dir)
     for c in counters:
         total.update(c)
     return total
+
+
+PROFILE_CASE = "strcd_flagship"
+
+
+def cli_profile(digests, tmp, card, out_dir):
+    """Phase 9: the flagship strcd once more with PSXAVENC_PROFILE set to a
+    directory under ``out_dir``: the CLI writes a Chrome trace there that
+    names K1's kernel, says so on stderr, and its output equals the
+    digest."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    from psxavenc_tpu_torch import cli
+
+    argv, src = next((a, s) for k, a, s in AV_CLI_CASES
+                     if k == PROFILE_CASE)
+    prof_dir = os.path.join(out_dir, "cli_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    out = os.path.join(tmp, "cuda", "profiled_" + out_name(PROFILE_CASE))
+    err = io.StringIO()
+    os.environ["PSXAVENC_PROFILE"] = prof_dir
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, os.path.join(tmp, src), out])
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["PSXAVENC_PROFILE"]
+    traces = glob.glob(os.path.join(prof_dir, "trace_*.json"))
+    if rc != 0 or file_digest(out) != digests[PROFILE_CASE]:
+        raise AssertionError(f"profiled cli {' '.join(argv)}: exit {rc} or "
+                             "output differs from the JAX package")
+    if f"Profile written to {prof_dir}" not in err.getvalue():
+        raise AssertionError("profiled cli: no 'Profile written to' line")
+    if len(traces) != 1:
+        raise AssertionError(f"profiled cli: {len(traces)} traces written")
+    with open(traces[0]) as f:
+        trace = f.read()
+    if "select_pix_kernel" not in trace:
+        raise AssertionError("profiled cli: the trace does not name K1's "
+                             "kernel select_pix_kernel")
+    say(f"[9] cli {' '.join(argv)} with PSXAVENC_PROFILE={prof_dir}: equals "
+        f"the JAX package's digest; {secs:.2f} s in process with the "
+        f"profiler; trace {os.path.basename(traces[0])} "
+        f"({len(trace) / 1e6:.1f} MB) names select_pix_kernel "
+        f"{trace.count('select_pix_kernel')} times; 'Profile written to' "
+        f"on stderr, on {card}")
 
 
 def block_stream_kernels(torch, np, synth, card):
@@ -1692,7 +1793,7 @@ def block_stream_kernels(torch, np, synth, card):
     select_checks(torch, np, synth, card, results, c, thr, scale,
                   bs_ops.rearrange_nv21_rows(frames, W, H))
     sidx = torch.where(scale <= 63, scale, 1)
-    pack_ops = emit_ops(torch, c, sidx, nb)
+    pack_ops = rl.emit_ops(c, sidx, nb)
     emit_args = (sidx, dc_code, dc_bits)
     streams, block_bits = check(
         "emit_pack", "(63, NB) int32",
@@ -1726,7 +1827,7 @@ def block_stream_kernels(torch, np, synth, card):
     lib_fn, lib_words = scatter_add_call(
         torch, bitpack_ops.u32_to_i32(vals32), e0)
     kw = dict(capacity_words=CAP_WORDS)
-    k9_ops = B * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD)
+    k9_ops = B * nbe * (16 * rl.OPS_FUNNEL_WORD + 9 * rl.OPS_PLACE_WORD)
     got = check("place_streams", "(u32 words)",
                 lambda: bitpack_cuda.place_streams_u32(streams, goff, **kw),
                 lambda: bitpack_cuda.place_streams_u32_plain(streams, goff,
@@ -1787,11 +1888,11 @@ def check_pack(torch, results, card, c, emit_args):
     out = compare(torch, results, 10, "pack_block_streams", "(B, NB + 1, 65)",
                   lambda: bitpack_cuda.pack_block_streams(codes, bits),
                   lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
-                  (codes, bits), lambda out: codes.numel() * OPS_PACK_SYMBOL,
-                  card)
+                  (codes, bits),
+                  lambda out: codes.numel() * rl.OPS_PACK_SYMBOL, card)
     row = results["pack_block_streams"]
     say(f"[10] pack_block_streams {tuple(codes.shape)} int32: "
-        f"{nbytes(codes, bits, *out) / row['ms'] / 1e6:.0f} GB/s moved, "
+        f"{rl.nbytes(codes, bits, *out) / row['ms'] / 1e6:.0f} GB/s moved, "
         f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound (target "
         f"50%) on {card}")
     pack_stats_line(torch, codes, bits, card)
@@ -1993,7 +2094,7 @@ def gather_kernel(torch, k3_inputs, card):
                       vals32, e0, capacity_words=CAP_WORDS),
                   lambda: bitpack_cuda.place_vals_gather_plain(
                       vals32, e0, capacity_words=CAP_WORDS),
-                  (vals32, e0), lambda out: vals32.numel() * OPS_PLACE_WORD,
+                  (vals32, e0), lambda out: vals32.numel() * rl.OPS_PLACE_WORD,
                   card, library_fn=lib_fn,
                   grid=bitpack_cuda.place_vals_gather_grid(B, CAP_WORDS))
     k4 = bitpack_cuda.place_vals(vals32, e0, capacity_words=CAP_WORDS)
@@ -2160,6 +2261,63 @@ def multi_file(torch, digests, synth, tmp, card):
     return total
 
 
+def mesh_phase(torch, np, synth, card):
+    """Phase 12: parallel.mesh's split over the card listed twice, and over
+    every visible card when there are several: packed_video_step (BS v3dc,
+    phase 6's video+noise batch) and unit_encode_step (phase 7's 4,096 x 64
+    SPU units) equal the single-device calls, which run before the counts
+    are reset. Returns the launch counts of the split runs."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.ops import adpcm_cuda, bitpack_cuda, bs_cuda
+    from psxavenc_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    frames = torch.from_numpy(
+        smoke_frames(np, synth, B, seed=14, noise_every=8)).to(dev)
+    budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
+    units = [torch.from_numpy(a).to(dev) for a in adpcm_units(
+        np, synth, ADPCM_STREAMS, ADPCM_CHECK_UNITS)]
+    video_kw = dict(codec=2, width=W, height=H, capacity_words=CAP_WORDS)
+    want_v = api.bs_encode_frames_packed(frames, budgets, **video_kw)
+    want_a = api.spu_encode_batch(*units)
+    splits = [[dev, dev]]
+    if n_cards > 1:
+        splits.append([torch.device("cuda", i) for i in range(n_cards)])
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, adpcm_cuda.LAUNCHES)
+    reset(counters)
+    for devices in splits:
+        video = mesh.packed_video_step(devices, **video_kw)
+        audio = mesh.unit_encode_step(devices, filter_count=5,
+                                      shift_range=12)
+        got_v = video(frames, budgets)
+        got_a = audio(*units)
+        torch.cuda.synchronize()
+        for k, w in want_v.items():
+            if not torch.equal(got_v[k], w):
+                raise AssertionError(f"phase 12: packed_video_step over "
+                                     f"{devices} differs in {k}")
+        for g, w in zip(got_a, want_a):
+            if not torch.equal(g, w):
+                raise AssertionError(f"phase 12: unit_encode_step over "
+                                     f"{devices} differs")
+        say(f"[12] split over {[str(d) for d in devices]} "
+            f"(torch.cuda.device_count() = {n_cards}): packed_video_step "
+            f"shards of {video.shard_shapes(B)} frames (v3dc), "
+            f"unit_encode_step shards of "
+            f"{audio.shard_shapes(ADPCM_STREAMS)} x {ADPCM_CHECK_UNITS} "
+            f"units, each on its own stream; both equal the single-device "
+            f"calls on {card}")
+    launches = {k: v for c in counters for k, v in c.items()}
+    say(f"[12] launches in the split runs: {launches}")
+    for name in ("select_scale_pix", "dc_stage", "emit_prep", "place_vals",
+                 "emit_tail", "adpcm_encode_units"):
+        if launches[name] < sum(len(devices) for devices in splits):
+            raise AssertionError(f"phase 12: kernel {name} launched "
+                                 f"{launches[name]} times in the split runs")
+    return launches
+
+
 def main():
     import argparse
 
@@ -2231,11 +2389,12 @@ def main():
         rows["place_vals_gather"] = gather_kernel(torch, k3_inputs, card)
         del k3_inputs
         multi = multi_file(torch, digests, synth, tmp, card)
+    split = mesh_phase(torch, np, synth, card)
 
     kernels = []
     for name, source, replaces in KERNELS:
         launches = sum(path.get(name, 0)
-                       for path in (video, av, blocks, multi))
+                       for path in (video, av, blocks, multi, split))
         if launches <= 0:
             raise AssertionError(f"kernel {name} launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": source,

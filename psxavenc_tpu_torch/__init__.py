@@ -12,21 +12,26 @@ piece has an obvious counterpart:
                     in ``csrc/``, built by ``ops/_build.py``).
 - ``api.py``      — the batch tensor API: ADPCM unit streams and
                     ``bs_encode_frames_packed``.
-- ``models/``     — ``BsFrameEncoder`` (chunked frame batches + headers)
-                    and the ADPCM stream layer.
+- ``models/``     — ``BsFrameEncoder`` (chunked frame batches pipelined on
+                    a worker thread + headers) and the ADPCM stream layer.
+- ``parallel/``   — ``mesh.py``: the batch axis split over a list of
+                    devices (``packed_video_step``, ``unit_encode_step``,
+                    ``encode_step_sharded``).
 - ``containers/`` — the .xa/.xacd, .spu/.vag/.spui/.vagi, .str and .sbs
                     muxers.
 - ``cli.py``      — ``python -m psxavenc_tpu_torch.cli``, argv-compatible
                     with ``psxavenc_tpu.cli``.
 - ``cli_args.py``, ``io/``, ``utils/``, ``native/``, ``data/`` — the
                     argument parser, the ingest (with its FFmpeg extension),
-                    progress lines, synthetic media and the host CD-sector
+                    progress lines, synthetic media, the H100's speed of
+                    light (``utils/roofline.py``) and the host CD-sector
                     code, the package's own copies of the JAX package's
                     framework-free modules; the C++ builds with g++ into
                     ``build/``.
 
 Every function takes its device from its tensors or an explicit
-``device`` argument; there is no global device state. The package imports
+``device`` argument (a list of devices where a batch splits over them);
+there is no global device state. The package imports
 ``torch`` and never ``jax``, and nothing of ``psxavenc_tpu``.
 """
 

@@ -23,6 +23,7 @@ device.
 """
 
 import functools
+import threading
 
 import torch
 
@@ -38,38 +39,64 @@ from .ops import fdct as fdct_ops
 class _Counters:
     """``COUNTERS["overflow_frames"]``: frames with a block over 256 bits
     that a fused packer met. The tail emission counts them on the frames'
-    device; reading the entry brings those counts to the host, which is
-    the only place where the counter waits for the device. Assigning to
-    the entry discards them. Only these two operations exist: there is no
-    way to read the entry without the counts that are still on a device."""
+    device, in one (1,) int32 tensor per card (its kernel adds with
+    ``atomicAdd``, so batches on several streams or threads share it) and
+    one per CPU thread (the plain version adds without atomics). Only the
+    adds write those tensors: reading the entry brings what each has
+    gained since the last read to the host, which is the only place where
+    the counter waits for the device, so an add in flight on another
+    stream or thread is never lost, only counted by a later read. Batches
+    whose results were fetched are counted in full. Assigning to the entry
+    discards what the devices counted before it."""
 
     def __init__(self):
         self._host = {"overflow_frames": 0}
-        self._on_device = {}            # device -> (1,) int32 count
+        self._on_device = {}            # key -> (1,) int32 count
+        self._seen = {}                 # key -> its value at the last read
+        self._lock = threading.Lock()
 
     def device_count(self, device):
         """The (1,) int32 count on ``device`` that the tail emission adds
-        to."""
-        if device not in self._on_device:
-            self._on_device[device] = torch.zeros((1,), dtype=torch.int32,
-                                                  device=device)
-        return self._on_device[device]
+        to (on the CPU, the calling thread's)."""
+        device = torch.device(device)
+        key = device if device.type == "cuda" else (
+            device, threading.get_ident())
+        with self._lock:
+            count = self._on_device.get(key)
+            if count is None:
+                count = torch.zeros((1,), dtype=torch.int32, device=device)
+                if device.type == "cuda":
+                    # Zeroed before a reader on another stream sees it;
+                    # once per card and process.
+                    torch.cuda.synchronize(device)
+                self._on_device[key] = count
+                self._seen[key] = 0
+        return count
 
     def __iter__(self):
         return iter(self._host)
 
+    def _gained(self):
+        """What the device counts gained since the last read (int32 counts
+        that wrap: the difference modulo 2**32)."""
+        gained = 0
+        for key, count in list(self._on_device.items()):
+            value = int(count.item())
+            gained += (value - self._seen[key]) % (1 << 32)
+            self._seen[key] = value
+        return gained
+
     def __getitem__(self, key):
-        for count in self._on_device.values():
-            self._host[key] += int(count.item())
-            count.zero_()
-        return self._host[key]
+        with self._lock:
+            self._host[key] += self._gained()
+            return self._host[key]
 
     def __setitem__(self, key, value):
         if key not in self._host:
             raise KeyError(key)
-        for count in self._on_device.values():
-            count.zero_()
-        self._host[key] = value
+        with self._lock:
+            self._gained()
+            self._host[key] = value
 
 
 COUNTERS = _Counters()

@@ -1,5 +1,5 @@
-"""Batch job runner: encode many files in one process, batched on one
-device.
+"""Batch job runner: encode many files in one process, batched on the
+device (or split over several cards).
 
 Counterpart of ``psxavenc_tpu/batch.py``. The device work is grouped
 across files:
@@ -20,10 +20,14 @@ across files:
 
 The device is explicit: ``run_jobs(..., device=...)``, by default the
 card; ``main`` takes it from PSXAVENC_PLATFORM as the CLI does (``cuda``
-by default, exit 1 without a card; ``cpu`` runs the plain versions).
-Grouping is on by default; PSXAVENC_BATCH_GROUP=0 runs the jobs one after
-another (the same bytes either way). The multi-device split of the JAX
-runner (its mesh branch) is not ported: ROADMAP M9.
+by default: every visible card, exit 1 without one; ``cpu`` runs the
+plain versions). Given several devices, as the JAX runner's mesh branch
+does, the grouped audio call splits its streams over them
+(``parallel.mesh.unit_encode_step``, B padded to a multiple) and the
+video groups' frame batches split over them (``BsFrameEncoder``); the
+rest runs on the first. Grouping is on by default;
+PSXAVENC_BATCH_GROUP=0 runs the jobs one after another (the same bytes
+either way).
 
 Usage:
     python -m psxavenc_tpu_torch.batch jobs.txt
@@ -52,6 +56,7 @@ from . import cli
 from . import cli_args as ca
 from .io import ingest
 from .models import adpcm_stream as streams
+from .parallel import mesh
 
 AUDIO_FORMATS = (ca.FORMAT_XA, ca.FORMAT_XACD, ca.FORMAT_SPU,
                  ca.FORMAT_VAG, ca.FORMAT_SPUI, ca.FORMAT_VAGI)
@@ -141,13 +146,30 @@ def _encode_audio_groups(reqs, device, quiet=False):
     return out
 
 
-def _grouped_unit_encode(units, lim, fc, sr, p1, p2, state_t, device):
-    """One K5 launch on ``device`` (the JAX runner shards this call over
-    its mesh when it sees several devices; the multi-GPU split is ROADMAP
-    M9, and this runner drives one device)."""
-    return streams.encode_prepared_units(units, lim, fc, sr, prev1=p1,
-                                         prev2=p2, state_t=state_t,
-                                         device=device)
+def _grouped_unit_encode(units, lim, fc, sr, p1, p2, state_t, devices):
+    """One K5 launch on the device, or, with several devices and at least
+    as many streams, one on each, the streams split over them
+    (``parallel.mesh.unit_encode_step``; B padded with masked streams to a
+    multiple, as the JAX runner's mesh branch does)."""
+    devices = mesh.device_list(devices)
+    n_dev = len(devices)
+    B = lim.shape[0]
+    if n_dev == 1 or B < n_dev:
+        return streams.encode_prepared_units(units, lim, fc, sr, prev1=p1,
+                                             prev2=p2, state_t=state_t,
+                                             device=devices[0])
+    pad = -(-B // n_dev) * n_dev - B
+    units = torch.cat([units, units.new_zeros((pad,) + units.shape[1:])])
+    lim = torch.cat([lim, lim.new_zeros((pad,) + lim.shape[1:])])
+    p1, p2 = (torch.from_numpy(np.concatenate([p, np.zeros(pad, np.int32)]))
+              for p in (p1, p2))
+    step = mesh.unit_encode_step(devices, filter_count=fc, shift_range=sr)
+    h, values, s1, s2 = step(units, lim, p1, p2)
+    rows = torch.arange(B, device=s1.device)
+    t_idx = torch.from_numpy(np.asarray(state_t, np.int64)).to(s1.device)
+    return (h[:B].to(torch.uint8).cpu().numpy(),
+            values[:B].to(torch.uint8).cpu().numpy(),
+            s1[rows, t_idx].cpu().numpy(), s2[rows, t_idx].cpu().numpy())
 
 
 class _ThreadStderr:
@@ -385,10 +407,11 @@ def _serial(argv, device):
 
 
 def run_jobs(jobs, group=True, quiet=False, device="cuda"):
-    """Run parsed job argvs on ``device``; returns per-job exit codes.
-    With ``group``, audio unit encodes and video frame encodes batch
-    across files; the output bytes equal serial execution either way."""
-    device = torch.device(device)
+    """Run parsed job argvs on ``device`` (one device, or a sequence that
+    the grouped calls split over); returns per-job exit codes. With
+    ``group``, audio unit encodes and video frame encodes batch across
+    files; the output bytes equal serial execution either way."""
+    device = mesh.device_list(device)
     t0 = time.monotonic()
     rcs = [None] * len(jobs)
 
@@ -503,7 +526,7 @@ def main(argv=None):
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 1
-    device = cli._device()
+    device = cli._devices()
     if device is None:
         return 1
     try:

@@ -3,14 +3,25 @@
 the same formats, flags, defaults and stderr banners.
 
 The device comes from PSXAVENC_PLATFORM: ``cuda`` (the default) or
-``cpu``. Without a CUDA device the default exits 1; it does not carry on
-on the CPU.
+``cpu``. ``cuda`` takes every visible card: video frame batches split
+over them (``parallel.mesh``), audio runs on the first; with one card
+nothing is split. Without a CUDA device the default exits 1; it does not
+carry on on the CPU.
+
+PSXAVENC_PROFILE=DIR runs the job under ``torch.profiler`` (host
+activity, and the cards' when the job runs on them) and writes a Chrome
+trace (``trace_<pid>_<ns>.json``) into DIR, also when the job fails; the
+CLI then prints "Profile written to DIR" on stderr unless ``-q``. The
+profiler's per-kernel device times read low late in a long process (about
+0.6 of a CUDA-graph replay's; PERF.md): time kernels with CUDA events or
+graph replays, and use the trace for the order of operations.
 
     python -m psxavenc_tpu_torch.cli -t strcd -x 2 in.avi out.str
 """
 
 import os
 import sys
+import time
 
 from . import cli_args as ca
 from .io import ingest
@@ -55,17 +66,19 @@ def _video_banner(args):
             f"{args.video_width}x{args.video_height}, {fps:.2f} fps")
 
 
-def _device():
-    """The torch device named by PSXAVENC_PLATFORM, or None (with the
-    reason on stderr) when it is unknown or absent."""
+def _devices():
+    """The torch devices named by PSXAVENC_PLATFORM (every visible card for
+    ``cuda``), or None (with the reason on stderr) when it is unknown or
+    absent."""
     import torch
 
     plat = os.environ.get("PSXAVENC_PLATFORM", "cuda") or "cuda"
     if plat == "cpu":
-        return torch.device("cpu")
+        return [torch.device("cpu")]
     if plat in ("cuda", "gpu"):
         if torch.cuda.is_available():
-            return torch.device("cuda", 0)
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
         print("Error: no CUDA device is available (set "
               "PSXAVENC_PLATFORM=cpu to encode on the host)",
               file=sys.stderr)
@@ -85,14 +98,38 @@ def main(argv=None):
     except ca.ArgError:
         return 1
 
-    device = _device()
-    if device is None:
+    devices = _devices()
+    if devices is None:
         return 1
-    return encode(args, device)
+    profile_dir = os.environ.get("PSXAVENC_PROFILE")
+    if profile_dir:
+        return _profiled(args, devices, profile_dir)
+    return encode(args, devices)
+
+
+def _profiled(args, devices, profile_dir):
+    """``encode`` under torch.profiler; the trace is written in a
+    ``finally``, so a failing job writes one too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if any(d.type == "cuda" for d in devices):
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        return encode(args, devices)
+    finally:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+        _info(args, f"Profile written to {profile_dir}")
 
 
 def encode(args, device):
-    """Encode one parsed job on ``device``: open the input and the output,
+    """Encode one parsed job on ``device`` (one device, or a sequence whose
+    cards video frame batches split over): open the input and the output,
     run the container muxer; returns the exit code (errors on stderr)."""
     try:
         dec = ingest.open_av_data(args, _DECODER_FLAGS[args.format])
@@ -129,7 +166,13 @@ def _dispatch(args, dec, output, device, unit_encoder=None,
     """Route to the container muxer (psxavenc_tpu/cli.py:114-171).
     ``unit_encoder`` and ``frame_results`` are the batch runner's
     injection points: an ADPCM unit encoder that captures or replays, and
-    video frames it already encoded (``batch.py``)."""
+    video frames it already encoded (``batch.py``). ``device``: one device
+    or a sequence; the video muxers take all of it, the audio muxers the
+    first device."""
+    from .parallel import mesh
+
+    devices = mesh.device_list(device)
+    device = devices[0]
     fmt = args.format
     if fmt in (ca.FORMAT_XA, ca.FORMAT_XACD):
         from .containers import xa as xamod
@@ -160,7 +203,7 @@ def _dispatch(args, dec, output, device, unit_encoder=None,
         if dec.has_audio:
             _info(args, _audio_banner_xa(args))
         _info(args, _video_banner(args))
-        strf.encode_file_str(args, dec, output, device,
+        strf.encode_file_str(args, dec, output, devices,
                              frame_results=frame_results)
     elif fmt == ca.FORMAT_STRSPU:
         # The reference prints this and still exits 0 (main.c:159-162).
@@ -173,12 +216,12 @@ def _dispatch(args, dec, output, device, unit_encoder=None,
                         f"{args.audio_channels} channels, "
                         f"interleave={args.audio_interleave}")
         _info(args, _video_banner(args))
-        strf.encode_file_strspu(args, dec, output, device,
+        strf.encode_file_strspu(args, dec, output, devices,
                                 frame_results=frame_results)
     elif fmt == ca.FORMAT_SBS:
         from .containers import sbs
         _info(args, _video_banner(args))
-        sbs.encode_file_sbs(args, dec, output, device,
+        sbs.encode_file_sbs(args, dec, output, devices,
                             frame_results=frame_results)
 
     if not (args.flags & ca.FLAG_HIDE_PROGRESS):

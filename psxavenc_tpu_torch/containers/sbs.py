@@ -14,6 +14,7 @@ from . import strf
 
 
 def encode_file_sbs(args, dec, output, device, frame_results=None):
+    """``device``: one device or a sequence (``BsFrameEncoder``'s)."""
     total = dec.video_frame_count
     if frame_results is not None:
         feed = strf._PrecomputedFrameFeed(frame_results)

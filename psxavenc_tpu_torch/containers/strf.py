@@ -243,7 +243,8 @@ def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
          sector_size, buffer_size, device, frame_results=None):
     """Incremental schedule writer shared by str/strcd and strv; with
     ``frame_results`` (the batch runner's), the frames are not encoded
-    here."""
+    here. ``device``: one device or a sequence; the frames split over
+    all of them, the audio runs on the first."""
     enc = BsFrameEncoder(args.video_codec, dec.video_width,
                          dec.video_height, device)
     source = source_for(dec)
@@ -252,7 +253,7 @@ def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
     else:
         frames = _FrameFeed(enc, source, frame_budgets,
                             dec.video_frame_count)
-    audio = xamod.AudioSectorFeed(args, source, audio_lengths, device)
+    audio = xamod.AudioSectorFeed(args, source, audio_lengths, enc.device)
     buffer = np.zeros(buffer_size, dtype=np.uint8)
     progress = Progress(args)
     frame_count = 0

@@ -1015,3 +1015,95 @@ def test_pack_block_streams_tiles_and_alignment(dev, rows, offset):
     assert (c.data_ptr() % 16 == 0) == (offset == 0)
     _equal(bitpack_cuda.pack_block_streams(c, b),
            bitpack_cuda.pack_block_streams_plain(c, b))
+
+
+def _distinct_frames(n, seed, noise_every=8):
+    """n distinct 320x240 NV21 frames, every ``noise_every``-th one noise
+    (its busy blocks run past 256 bits at 18,144 bytes)."""
+    from psxavenc_tpu_torch.utils.synth import rand_frames
+
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i, (y, cb, cr) in enumerate(rand_frames(W, H, n, seed=seed)):
+        if i % noise_every == noise_every - 1:
+            frames.append(rng.integers(0, 256, W * H * 3 // 2)
+                          .astype(np.uint8))
+            continue
+        c = np.stack([cr.reshape(H // 2, W // 2), cb.reshape(H // 2, W // 2)],
+                     axis=-1).reshape(-1)
+        frames.append(np.concatenate([y, c]).astype(np.uint8))
+    return np.stack(frames)
+
+
+def test_pipelined_encoder_equals_one_batch_at_a_time(dev):
+    """384 distinct frames, three 128-frame batches: the pipelined
+    encode_frames equals fetching each batch before the next is launched
+    (bytes, infos, quant-scale sums, frames with a block over 256 bits);
+    two batches are enqueued with no host wait (sync debug mode "error")
+    before either is fetched."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+
+    frames = list(_distinct_frames(384, seed=21))
+    budgets = [18144] * len(frames)
+    pipe = BsFrameEncoder(tbs.BS_V2, W, H, dev)
+    one = BsFrameEncoder(tbs.BS_V2, W, H, dev)
+    api.COUNTERS["overflow_frames"] = 0
+    want = []
+    for base in range(0, len(frames), 128):
+        want += one.fetch(one.encode_frames_async(
+            frames[base:base + 128], budgets[base:base + 128]))
+    want_overflow = api.COUNTERS["overflow_frames"]
+    got = pipe.encode_frames(frames, budgets)
+    got_overflow = api.COUNTERS["overflow_frames"] - want_overflow
+    assert [b.tobytes() for b, _ in got] == [b.tobytes() for b, _ in want]
+    assert [i for _, i in got] == [i for _, i in want]
+    assert pipe.quant_scale_sum == one.quant_scale_sum
+    assert got_overflow == want_overflow > 0
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = pipe.encode_frames_async(frames[:128], budgets[:128])
+        second = pipe.encode_frames_async(frames[128:256], budgets[128:256])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    again = pipe.fetch(first) + pipe.fetch(second)
+    assert [b.tobytes() for b, _ in again] == \
+        [b.tobytes() for b, _ in want[:256]]
+
+
+def test_split_over_the_card_twice(dev):
+    """parallel.mesh over [cuda:0, cuda:0] (two shards, each on its own
+    stream) equals the single-device calls, and counts the same frames
+    with a block over 256 bits."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.parallel import mesh
+
+    frames = torch.from_numpy(_distinct_frames(64, seed=22)).to(dev)
+    budgets = torch.full((64,), 18144, dtype=torch.int32, device=dev)
+    kw = dict(codec=tbs.BS_V3DC, width=W, height=H,
+              capacity_words=(18144 - 8 + 1) // 2)
+    api.COUNTERS["overflow_frames"] = 0
+    want = api.bs_encode_frames_packed(frames, budgets, **kw)
+    want_overflow = api.COUNTERS["overflow_frames"]
+    step = mesh.packed_video_step([dev, dev], **kw)
+    got = step(frames, budgets)
+    got_overflow = api.COUNTERS["overflow_frames"] - want_overflow
+    for k, w in want.items():
+        assert got[k].device == dev
+        assert torch.equal(got[k], w), k
+    assert got_overflow == want_overflow > 0
+    with pytest.raises(ValueError, match="does not divide"):
+        step(frames[:63], budgets[:63])
+
+    rng = np.random.default_rng(23)
+    units = torch.from_numpy(rng.integers(-3000, 3000, (64, 5, 28)).astype(
+        np.int32)).to(dev)
+    limits = torch.full((64, 5), 28, dtype=torch.int32, device=dev)
+    prev = torch.zeros(64, dtype=torch.int32, device=dev)
+    audio = mesh.unit_encode_step([dev, dev], filter_count=5,
+                                  shift_range=12)
+    for g, w in zip(audio(units, limits, prev, prev),
+                    api.spu_encode_batch(units, limits, prev, prev)):
+        assert torch.equal(g, w)

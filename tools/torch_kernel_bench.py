@@ -16,8 +16,9 @@ its u32 entry point beside one scatter_add_ where the tree has one) and
 the tail emission at one and at ten calls a graph, beside an empty launch
 of each one's grid (see small_rows). --tree measures another checkout's
 package (for example the parent commit unpacked under build/) with this
-checkout's checks and timers; where that package names no launch grid,
-the empty launches are left out. Each kernel is held to its plain version as
+checkout's checks and timers (it needs that package's
+``utils/roofline.py``, which chip_smoke.py imports); where that package
+names no launch grid, the empty launches are left out. Each kernel is held to its plain version as
 chip_smoke holds it (a mismatch raises) and timed as its rows are
 (``chip_smoke.graph_ms``); chip_smoke's lines are printed as they come, and
 one JSON line per case and repetition holds the case's rows. Exits 1
@@ -84,7 +85,7 @@ def emit_rows(torch, np, synth, cs, card):
             torch, rows, "bench", "emit_prep", label,
             lambda: bs_cuda.emit_prep(c64, *args, eof=0x1FF),
             lambda: bs_cuda.emit_prep_plain(c64, *args, eof=0x1FF),
-            (c64, *args), lambda out: cs.emit_ops(torch, c64, sidx, nb), card)
+            (c64, *args), lambda out: cs.rl.emit_ops(c64, sidx, nb), card)
         cs.emit_stats_line(torch, "bench", c64, args, 0x1FF, card)
         c63 = c64[:, :63, :nb].to(torch.int32).contiguous()
         for form, c in (("(63, NB) int32", c63), ("(64, nb_pad) int16", c64)):
@@ -92,7 +93,7 @@ def emit_rows(torch, np, synth, cs, card):
             cs.compare(torch, row, "bench", "emit_pack", f"{label}, {form}",
                        lambda: bs_cuda.emit_pack(c, *args),
                        lambda: bs_cuda.emit_pack_plain(c, *args), (c, *args),
-                       lambda out: cs.emit_ops(torch, c, sidx, nb), card)
+                       lambda out: cs.rl.emit_ops(c, sidx, nb), card)
             rows[f"emit_pack {form}"] = row["emit_pack"]
         placed = bitpack_cuda.place_vals(vals32, e0,
                                          capacity_words=cs.CAP_WORDS)
@@ -144,7 +145,7 @@ def small_rows(torch, np, synth, cs, card):
         vals32, e0, block_bits, _ = bs_cuda.emit_prep(c64, *args, eof=0x1FF)
         b, nbe = e0.shape
         lib_fn, _ = cs.scatter_add_call(torch, vals32, e0)
-        place_ops = vals32.numel() * cs.OPS_PLACE_WORD
+        place_ops = vals32.numel() * cs.rl.OPS_PLACE_WORD
         rows = {}
         placed = cs.compare(
             torch, rows, "bench", "place_vals", label,
@@ -169,7 +170,8 @@ def small_rows(torch, np, synth, cs, card):
         total = goff[:, -1] + bb[:, -1]
         k9_grid = _grid(bitpack_cuda, "place_streams_grid", batch=b,
                         nbe=nbe, capacity_words=cs.CAP_WORDS)
-        k9_ops = b * nbe * (16 * cs.OPS_FUNNEL_WORD + 9 * cs.OPS_PLACE_WORD)
+        k9_ops = b * nbe * (16 * cs.rl.OPS_FUNNEL_WORD
+                            + 9 * cs.rl.OPS_PLACE_WORD)
         cs.compare(
             torch, rows, "bench", "place_streams", f"{label}, u16 values",
             lambda: bitpack_cuda.place_streams(streams, goff, total, **kw),
