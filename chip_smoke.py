@@ -46,7 +46,10 @@ Phases, one or more lines each:
    committed digest, K1-K4 and the tail emission launched, the frames with
    a block over 256 bits counted on the device;
 5. the video CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI,
-   equal to the digests;
+   equal to the digests (-t strv also with PSXAVENC_PLATFORM=cpu, once
+   on the kernels' plain versions and once on the native tiers), each run
+   reporting its native library calls: some on the native tiers, none on
+   the others;
 6. frames/s on video, on video with every eighth frame noise and on a
    batch of noise frames (no block over 256 bits): the device step as the
    median of seven medians with the least and the greatest, and the plain
@@ -114,7 +117,20 @@ Phases, one or more lines each:
 12. parallel.mesh's batch split over the card listed twice (and over
    every visible card when there are several): packed_video_step (v3dc)
    and unit_encode_step equal the single-device calls, with the shards'
-   shapes and torch.cuda.device_count() printed.
+   shapes and torch.cuda.device_count() printed;
+13. the card against the port's native C++ tiers (native/tiers.py, built
+   with g++ on the card's host): api.bs_encode_frames_packed in B-frame
+   batches equals the native frame encoder on 2,048 frames a codec at
+   320x240 (v2, v3, v3dc) and on 16x16, 48x32 and 640x480 frames, in
+   phase 6's three mixes with random budgets that leave some frames
+   unfittable (the scale of every frame; words, total bits and nonzero
+   counts of every frame that fits); BsFrameEncoder on the CPU with
+   PSXAVENC_VIDEO_TIER=native (refused on the card) equals the card's
+   encoder, which makes no native call, on phase 6's 1,024 frames of each mix; K5 equals the
+   native unit encoder on 256 random streams x 300 units for the three
+   variants and on a 60 s stereo XA track's two streams (81,000 units
+   each); the native tier's frames/s and units/s on the host, with its
+   core count.
 
 The digests (psxavenc_tpu_torch/data/smoke_digests.json) are the JAX
 package's outputs for the same inputs; tests/test_torch_smoke_refs.py
@@ -235,6 +251,11 @@ STREAM_SPU_CHUNK_BLOCKS = 1024       # 3-5 chunk rounds per vag file
 STREAM_XA_CHUNK_SECTORS = 32         # 6 chunk rounds for the xa
 LIBPSXAV_KEYS = ("libpsxav_xa_simple", "libpsxav_spu_simple_loop")
 LIBPSXAV_LOOP_START = 30000
+# Phase 13: the card against the port's native C++ tiers.
+NATIVE_FRAMES = 2048                 # frames a codec at 320x240
+NATIVE_GEOMETRIES = ((16, 16, 96), (48, 32, 192), (640, 480, 96))
+NATIVE_STREAMS, NATIVE_UNITS = 256, 300
+XA_TRACK_UNITS = 37800 * 60 // 28    # a 60 s 37,800 Hz channel: 81,000
 
 
 def out_name(key):
@@ -341,6 +362,48 @@ def adpcm_units(np, synth, streams, units, seed=41):
     p1 = rng.integers(-0x8000, 0x8000, streams).astype(np.int32)
     p2 = rng.integers(-0x8000, 0x8000, streams).astype(np.int32)
     return pcm.reshape(streams, units, 28), lim, p1, p2
+
+
+def mix_frames(np, synth, n, w, h, seed):
+    """n NV21 w x h frames in phase 6's three mixes, a third each:
+    synthetic video, video with every eighth frame noise, and noise."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for k, every in enumerate((0, 8, None)):
+        m = n // 3 + (k < n % 3)
+        if every is None:
+            parts.append(rng.integers(0, 256, (m, w * h * 3 // 2))
+                         .astype(np.uint8))
+            continue
+        out = []
+        for i, planes in enumerate(synth.rand_frames(w, h, m,
+                                                     seed=seed + k)):
+            if every and i % every == every - 1:
+                out.append(rng.integers(0, 256, w * h * 3 // 2)
+                           .astype(np.uint8))
+            else:
+                out.append(nv21(np, planes, w, h))
+        parts.append(np.stack(out))
+    return np.concatenate(parts)
+
+
+def mix_budgets(np, n, w, h, seed):
+    """n random byte budgets from half a byte a block to 20 bytes a block:
+    the low ones leave frames that fit at no scale."""
+    blocks = w * h // 256 * 6
+    rng = np.random.default_rng(seed)
+    return rng.integers(max(16, blocks // 2), blocks * 20, n).astype(
+        np.int32)
+
+
+def xa_track_units(np, synth, seed=61):
+    """The two channel streams of a 60 s stereo 37,800 Hz XA track as
+    (2, XA_TRACK_UNITS, 28) int32 units, full limits and zero states."""
+    pcm = synth.rand_pcm(XA_TRACK_UNITS * 28, channels=2, seed=seed)
+    units = np.ascontiguousarray(pcm.reshape(-1, 2).T, dtype=np.int32)
+    lim = np.full((2, XA_TRACK_UNITS), 28, np.int32)
+    zero = np.zeros(2, np.int32)
+    return units.reshape(2, XA_TRACK_UNITS, 28), lim, zero, zero
 
 
 def sha256(data):
@@ -1249,6 +1312,8 @@ def main_path(torch, np, synth, digests):
     reset((bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, api.COUNTERS))
     for codec, label in PHASE4_CODECS:
         enc = BsFrameEncoder(codec, W, H, "cuda")
+        if enc.tier != "device":
+            raise AssertionError(f"phase 4: the encoder's tier is {enc.tier}")
         got = enc.encode_frames(list(frames), budgets)
         digest = sha256(b"".join(buf.tobytes() for buf, _ in got))
         if digest != digests[f"phase4_{label}"]:
@@ -1274,33 +1339,58 @@ def file_digest(path):
         return sha256(f.read())
 
 
+# The CLI as ``python -m psxavenc_tpu_torch.cli`` runs it, followed by a
+# last line of the native library's call counts in that process.
+CLI_RUNNER = """
+import json, sys
+from psxavenc_tpu_torch import cli
+from psxavenc_tpu_torch.native import tiers
+rc = cli.main(sys.argv[1:])
+print(json.dumps(tiers.COUNTERS))
+sys.exit(rc)
+"""
+
+
 def cli_phase(digests, tmp):
     """Phase 5: the port's video CLI as a user runs it."""
 
     def run(argv, out, platform):
-        env = dict(os.environ, PSXAVENC_PLATFORM=platform)
+        # "cpu": the kernels' plain versions; "cpu-native": the native C++
+        # tiers (what PSXAVENC_PLATFORM=cpu takes by default), with no
+        # tier variable inherited from the caller.
+        env = dict(os.environ, PSXAVENC_PLATFORM=platform.split("-")[0])
+        env.pop("PSXAVENC_VIDEO_TIER", None)
+        env.pop("PSXAVENC_NO_NATIVE_ADPCM", None)
+        if platform == "cpu":
+            env.update(PSXAVENC_VIDEO_TIER="device",
+                       PSXAVENC_NO_NATIVE_ADPCM="1")
         t0 = time.time()
         proc = subprocess.run(
-            [sys.executable, "-m", "psxavenc_tpu_torch.cli", "-q", *argv,
+            [sys.executable, "-c", CLI_RUNNER, "-q", *argv,
              os.path.join(tmp, "in.avi"), out],
             env=env, capture_output=True, text=True, timeout=600)
         if proc.returncode:
             raise AssertionError(f"cli {argv} ({platform}) exited "
                                  f"{proc.returncode}: {proc.stderr}")
-        return time.time() - t0
+        calls = json.loads(proc.stdout.strip().splitlines()[-1])
+        if (calls["bs_encode_frames"] > 0) != (platform == "cpu-native") \
+                or (platform != "cpu-native" and any(calls.values())):
+            raise AssertionError(f"cli {argv} ({platform}): native calls "
+                                 f"{calls}")
+        return time.time() - t0, calls
 
     for key, argv, _ in VIDEO_CLI_CASES:
-        for platform in (("cuda", "cpu") if key == "cli_strv"
+        for platform in (("cuda", "cpu", "cpu-native") if key == "cli_strv"
                          else ("cuda",)):
             out = os.path.join(tmp, platform, out_name(key))
             os.makedirs(os.path.dirname(out), exist_ok=True)
-            secs = run(argv, out, platform)
+            secs, calls = run(argv, out, platform)
             if file_digest(out) != digests[key]:
                 raise AssertionError(f"cli {' '.join(argv)} on {platform} "
                                      "differs from the JAX package")
             say(f"[5] cli {' '.join(argv)} on {platform}: {CLI_FRAMES} "
                 f"frames equal the JAX package's digest ({secs:.1f} s incl. "
-                "start-up)")
+                f"start-up; native library calls {calls})")
 
 
 # Operations that make the host wait for a device value.
@@ -1491,6 +1581,8 @@ def end_to_end(torch, np, synth, label, card):
 
     runs = {"pipelined": pipelined, "one batch at a time": one_at_a_time}
     encoders = {mode: BsFrameEncoder(0, W, H, "cuda") for mode in runs}
+    if any(enc.tier != "device" for enc in encoders.values()):
+        raise AssertionError("phase 6: an encoder's tier is not the card's")
     times = {mode: [] for mode in runs}
     seen = {}
     for mode, fn in runs.items():                       # warm-up
@@ -2318,6 +2410,167 @@ def mesh_phase(torch, np, synth, card):
     return launches
 
 
+def native_video(torch, np, synth, card):
+    """Phase 13, video: api.bs_encode_frames_packed on the card in B-frame
+    batches against the native frame encoder on the host, every frame's
+    scale, and words, total bits and nonzero count of every frame that
+    fits (an unfittable frame's other outputs are left unspecified: the
+    caller raises)."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.native import tiers
+
+    dev = torch.device("cuda", 0)
+    cases = [(W, H, NATIVE_FRAMES, codec, label)
+             for codec, label in PHASE4_CODECS]
+    cases += [(w, h, n, codec, label) for w, h, n in NATIVE_GEOMETRIES
+              for codec, label in PHASE4_CODECS]
+    host = {}
+    for w, h, n, codec, label in cases:
+        if (w, h) not in host:
+            host[(w, h)] = mix_frames(np, synth, n, w, h, seed=70 + w + h)
+        frames = host[(w, h)]
+        budgets = mix_budgets(np, n, w, h, seed=80 + codec + w)
+        cap = (int(budgets.max()) - 8 + 1) // 2
+        kw = dict(codec=codec, width=w, height=h, capacity_words=cap)
+        card_out = {k: [] for k in ("scale", "words", "total_bits",
+                                    "nz_count")}
+        for b0 in range(0, n, B):
+            out = api.bs_encode_frames_packed(
+                torch.from_numpy(frames[b0:b0 + B]).to(dev),
+                torch.from_numpy(budgets[b0:b0 + B]).to(dev), **kw)
+            for k, v in out.items():
+                card_out[k].append(v.cpu().numpy())
+        card_out = {k: np.concatenate(v) for k, v in card_out.items()}
+        card_out["words"] = card_out["words"].view(np.uint16)
+        t0 = time.perf_counter()
+        nat = tiers.bs_encode_frames(frames, budgets, **kw)
+        secs = time.perf_counter() - t0
+        fit = nat["scale"] <= 63
+        bad = [k for k in ("scale", "words", "total_bits", "nz_count")
+               if not np.array_equal(
+                   card_out[k] if k == "scale" else card_out[k][fit],
+                   nat[k] if k == "scale" else nat[k][fit])]
+        if bad:
+            raise AssertionError(f"phase 13: the card differs from the "
+                                 f"native tier in {bad} ({label}, {w}x{h})")
+        say(f"[13] {label} {w}x{h}: {n} frames (video, video+noise, noise; "
+            f"budgets {int(budgets.min())}-{int(budgets.max())} bytes, "
+            f"{int((~fit).sum())} unfittable): the card's scale, words, "
+            f"total bits and nonzero counts equal the native tier's; the "
+            f"native tier {n / secs:.1f} frames/s on the host "
+            f"({os.cpu_count()} cores; the card is {card})")
+
+
+def native_encoder(torch, np, synth, card):
+    """Phase 13, the encoder: BsFrameEncoder on the CPU with
+    PSXAVENC_VIDEO_TIER=native against the card's encoder (the default
+    tier) on phase 6's 1,024 frames of each mix: equal frame buffers and
+    quant-scale sums."""
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+    from psxavenc_tpu_torch.native import tiers
+
+    old = os.environ.get("PSXAVENC_VIDEO_TIER")
+    for label in ("video", "video+noise", "noise"):
+        frames = list(e2e_frames(np, synth, label))
+        budgets = [BUDGET] * len(frames)
+        calls = tiers.COUNTERS["bs_encode_frames"]
+        os.environ.pop("PSXAVENC_VIDEO_TIER", None)
+        card_enc = BsFrameEncoder(0, W, H, "cuda")
+        got = card_enc.encode_frames(frames, budgets)
+        if tiers.COUNTERS["bs_encode_frames"] != calls or \
+                card_enc.tier != "device":
+            raise AssertionError("phase 13: the card's encoder called the "
+                                 "native library")
+        os.environ["PSXAVENC_VIDEO_TIER"] = "native"
+        try:
+            nat_enc = BsFrameEncoder(0, W, H, "cpu")
+        finally:
+            if old is None:
+                os.environ.pop("PSXAVENC_VIDEO_TIER", None)
+            else:
+                os.environ["PSXAVENC_VIDEO_TIER"] = old
+        if nat_enc.tier != "native":
+            raise AssertionError(f"phase 13: the host encoder's tier is "
+                                 f"{nat_enc.tier}")
+        t0 = time.perf_counter()
+        want = nat_enc.encode_frames(frames, budgets)
+        secs = time.perf_counter() - t0
+        card_enc.close()
+        nat_enc.close()
+        if tiers.COUNTERS["bs_encode_frames"] != calls + 1:
+            raise AssertionError("phase 13: the native encoder did not make "
+                                 "one native call")
+        if [b.tobytes() for b, _ in got] != [b.tobytes() for b, _ in want] \
+                or [i for _, i in got] != [i for _, i in want] \
+                or card_enc.quant_scale_sum != nat_enc.quant_scale_sum:
+            raise AssertionError(f"phase 13, {label}: the card's encoder "
+                                 "differs from the native tier's")
+        say(f"[13] BsFrameEncoder {label}, {len(frames)} frames {W}x{H}: "
+            f"the card's frame buffers and quant-scale sum "
+            f"({card_enc.quant_scale_sum}) equal the native tier's; native "
+            f"{len(frames) / secs:.1f} frames/s end to end on the host "
+            f"({os.cpu_count()} cores)")
+
+
+def native_adpcm(torch, np, synth, card):
+    """Phase 13, ADPCM: K5 on the card against the native unit encoder on
+    random streams (SPU and both XA settings, partial and masked units,
+    nonzero states) and on a 60 s stereo XA track's two streams: headers,
+    sample values and the state after every unit."""
+    from psxavenc_tpu_torch.native import tiers
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    dev = torch.device("cuda", 0)
+    cases = [(f"{NATIVE_STREAMS} random streams x {NATIVE_UNITS} units",
+              adpcm_units(np, synth, NATIVE_STREAMS, NATIVE_UNITS, seed=90),
+              variant) for variant in ADPCM_VARIANTS]
+    cases.append(("a 60 s stereo XA track's two streams",
+                  xa_track_units(np, synth), (4, 12)))
+    for label, host, (fc, sr) in cases:
+        h, words, s1, s2 = adpcm_cuda.encode_units(
+            *(torch.from_numpy(a).to(dev) for a in host), filter_count=fc,
+            shift_range=sr)
+        got = (h.cpu().numpy(),
+               adpcm_cuda.unpack_words(words, sr).cpu().numpy(),
+               s1.cpu().numpy(), s2.cpu().numpy())
+        t0 = time.perf_counter()
+        want = tiers.adpcm_encode_units(*host, fc, sr)
+        secs = time.perf_counter() - t0
+        for name, g, w in zip(("headers", "values", "s1", "s2"), got, want):
+            if not np.array_equal(g.astype(np.int64), w.astype(np.int64)):
+                raise AssertionError(f"phase 13: K5 ({fc}, {sr}) differs "
+                                     f"from the native tier in {name} on "
+                                     f"{label}")
+        n_units = host[1].size
+        say(f"[13] adpcm ({fc}, {sr}), {label}: K5's headers, values and "
+            f"states equal the native tier's on all {n_units} units; the "
+            f"native tier {n_units / secs:.0f} units/s on the host "
+            f"({os.cpu_count()} cores; the card is {card})")
+
+
+def native_phase(torch, np, synth, card):
+    """Phase 13: the card against the port's native C++ tiers. Returns the
+    launch counts of its card runs."""
+    from psxavenc_tpu_torch.native import tiers
+    from psxavenc_tpu_torch.ops import adpcm_cuda, bitpack_cuda, bs_cuda
+
+    t0 = time.time()
+    tiers.lib()
+    say(f"[13] native tiers built (g++) in {time.time() - t0:.1f} s")
+    counters = (bs_cuda.LAUNCHES, bitpack_cuda.LAUNCHES, adpcm_cuda.LAUNCHES)
+    reset(counters)
+    native_video(torch, np, synth, card)
+    native_encoder(torch, np, synth, card)
+    native_adpcm(torch, np, synth, card)
+    launches = {k: v for c in counters for k, v in c.items()}
+    say(f"[13] launches in phase 13's card runs: {launches}")
+    for name in ("select_scale_pix", "dc_stage", "emit_prep", "place_vals",
+                 "emit_tail", "adpcm_encode_units"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 13: kernel {name} never launched")
+    return launches
+
+
 def main():
     import argparse
 
@@ -2390,11 +2643,16 @@ def main():
         del k3_inputs
         multi = multi_file(torch, digests, synth, tmp, card)
     split = mesh_phase(torch, np, synth, card)
+    from psxavenc_tpu_torch.native import tiers
+    if any(tiers.COUNTERS.values()):
+        raise AssertionError(f"phases 4-12 called the native library: "
+                             f"{tiers.COUNTERS}")
+    native = native_phase(torch, np, synth, card)
 
     kernels = []
     for name, source, replaces in KERNELS:
         launches = sum(path.get(name, 0)
-                       for path in (video, av, blocks, multi, split))
+                       for path in (video, av, blocks, multi, split, native))
         if launches <= 0:
             raise AssertionError(f"kernel {name} launched on no path")
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -12,8 +12,13 @@ piece has an obvious counterpart:
                     in ``csrc/``, built by ``ops/_build.py``).
 - ``api.py``      — the batch tensor API: ADPCM unit streams and
                     ``bs_encode_frames_packed``.
-- ``models/``     — ``BsFrameEncoder`` (chunked frame batches pipelined on
-                    a worker thread + headers) and the ADPCM stream layer.
+- ``models/``     — ``BsFrameEncoder`` (chunked frame batches, the next
+                    one's upload, step and read-back enqueued on the
+                    encoder's CUDA stream before this one's event is
+                    waited on, + headers) and the ADPCM stream layer; on a
+                    CPU device both take the native C++ tiers
+                    (``native/tiers.py``) unless PSXAVENC_VIDEO_TIER=device
+                    or PSXAVENC_NO_NATIVE_ADPCM is set.
 - ``parallel/``   — ``mesh.py``: the batch axis split over a list of
                     devices (``packed_video_step``, ``unit_encode_step``,
                     ``encode_step_sharded``).
@@ -24,10 +29,10 @@ piece has an obvious counterpart:
 - ``cli_args.py``, ``io/``, ``utils/``, ``native/``, ``data/`` — the
                     argument parser, the ingest (with its FFmpeg extension),
                     progress lines, synthetic media, the H100's speed of
-                    light (``utils/roofline.py``) and the host CD-sector
-                    code, the package's own copies of the JAX package's
-                    framework-free modules; the C++ builds with g++ into
-                    ``build/``.
+                    light (``utils/roofline.py``), the host CD-sector
+                    code and the native encoder tiers: the package's own
+                    copies of the JAX package's framework-free modules;
+                    the C++ builds with g++ into ``build/``.
 
 Every function takes its device from its tensors or an explicit
 ``device`` argument (a list of devices where a batch splits over them);

@@ -238,54 +238,134 @@ def bs_encode_frames(frames, budgets, *, codec, width, height,
                                         kernel_sweep=kernel_sweep)
 
 
+def _select_stages(codec, width, height, st):
+    """The fused select stage (psxavenc_tpu's ``select_frames_pixels``) as
+    ordered (name, fn) stages: pixel rows, DC stage, AC threshold, FDCT +
+    scale search (K1), totals. Each fn(s) reads what the stages before it
+    put into the dict ``s`` (first ``frames`` and ``budgets``) and adds
+    its own results."""
+
+    def nv21(s):
+        s["pix"] = bs_ops.rearrange_nv21_rows(s["frames"], width, height)
+
+    def dc(s):
+        dc_q = bs_ops.dc_quant_from_pixrows(s["pix"])
+        if codec == bs_ops.BS_V2:
+            s["dc_bits"], s["dc_code"] = bs_ops._dc_stage(dc_q, codec)
+        else:
+            s["dc_bits"], s["dc_code"] = st.dc_stage(dc_q, codec)
+        s["dc_total"] = s["dc_bits"].sum(dim=1, dtype=torch.int32)
+
+    def threshold(s):
+        s["thr"] = bs_ops.ac_threshold(s["budgets"], s["dc_total"],
+                                       s["pix"].shape[2])
+
+    def k1(s):
+        s["scale"], s["ac_bits"], s["nz_count"], s["c"] = st.select(
+            s["pix"], s["thr"])
+
+    def totals(s):
+        # Unfittable frames emit at scale 1 (the caller raises for them).
+        s["scale_idx"] = torch.where(s["scale"] <= 63, s["scale"] - 1, 0)
+        s["total_bits"] = s["ac_bits"] + s["dc_total"] + \
+            2 * s["pix"].shape[2] + 10
+
+    return [("nv21", nv21), ("dc", dc), ("threshold", threshold),
+            ("k1", k1), ("totals", totals)]
+
+
+def _emit_stages(packer, prep, eof, capacity_words, st):
+    """The fused packers after selection as ordered (name, fn) stages, as
+    ``_select_stages``'s: emission and placement into (B, cap32) u32 words
+    (with ``prep``, K3's placement prep then K4, or K8 for
+    ``fused_gather``; else K7's per-block streams placed by the plain
+    stream placement, K9, or ``streams_to_u32`` and K4 or K8), then the
+    tail emission, which ORs the part of every block past the 256-bit
+    window into them and counts the frames that have such a block, then
+    ``words``: (B, capacity_words) int16."""
+    place_vals = st.place_gather if packer == "fused_gather" else st.place
+
+    def args(s):
+        # The emission's inputs, made once for it and the tail emission.
+        s["emit_args"] = (s["c"], s["scale_idx"] + 1, s["dc_code"],
+                          s["dc_bits"])
+        return s["emit_args"]
+
+    def k3(s):
+        s["vals32"], s["e0"], s["block_bits"], _ = st.emit_prep(*args(s),
+                                                                eof=eof)
+
+    def k4(s):
+        s["out32"] = place_vals(s["vals32"], s["e0"],
+                                capacity_words=capacity_words)
+
+    def k7(s):
+        streams, s["block_bits"] = st.emit_pack(*args(s))
+        s["streams"], bb = bitpack_ops.with_eof_block(streams,
+                                                      s["block_bits"], eof)
+        s["goff"] = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+
+    def place(s):
+        if packer == "fused":
+            fn = bitpack_cuda.place_streams_u32_plain    # the XLA stage
+        elif packer == "fused_pallas":
+            fn = st.place_streams
+        else:
+            fn = functools.partial(bitpack_cuda.place_streams_mxu_u32,
+                                   place=place_vals)
+        s["out32"] = fn(s["streams"], s["goff"],
+                        capacity_words=capacity_words)
+
+    def tail(s):
+        s["out32"], _ = st.emit_tail(
+            s["out32"], *s["emit_args"], s["block_bits"],
+            capacity_words=capacity_words,
+            count=COUNTERS.device_count(s["out32"].device))
+
+    def words(s):
+        s["words"] = bitpack_ops.words_u16(s["out32"], capacity_words)
+
+    head = [("k3", k3), ("k4", k4)] if prep else [("k7", k7),
+                                                  ("place", place)]
+    return head + [("tail", tail), ("words", words)]
+
+
+def step_stages(*, codec, width, height, capacity_words, use_kernels=True):
+    """The default step of ``bs_encode_frames_packed`` (``fused_mxu`` with
+    the kernel sweep) as its ordered (name, fn) stages: ``nv21``, ``dc``
+    (the DC sums and K2), ``threshold``, ``k1``, ``totals``, ``k3``,
+    ``k4``, ``tail``, ``words``. Each fn(state) reads what the stages
+    before it put into the dict ``state`` (first ``frames`` and
+    ``budgets``) and adds its own; after the last, ``state`` holds the
+    step's ``words``, ``scale``, ``total_bits`` and ``nz_count``. The
+    step runs these very stages; tools/torch_profile_stages.py times each
+    alone."""
+    st = _KERNELS if use_kernels else _PLAIN
+    return (_select_stages(codec, width, height, st)
+            + _emit_stages("fused_mxu", True, _eof(codec), capacity_words,
+                           st))
+
+
+def run_stages(stages, state):
+    """Run ``stages`` in order on the dict ``state``; returns it."""
+    for _, fn in stages:
+        fn(state)
+    return state
+
+
 def _select_pixels(frames, budgets, codec, width, height, st):
-    """The fused select stage (psxavenc_tpu's ``select_frames_pixels``):
-    pixel rows, DC stage, AC threshold and FDCT + scale search (K1)."""
-    pix = bs_ops.rearrange_nv21_rows(frames, width, height)   # (B, 64, NB)
-    nb = pix.shape[2]
-    dc_q = bs_ops.dc_quant_from_pixrows(pix)
-    if codec == bs_ops.BS_V2:
-        dc_bits, dc_code = bs_ops._dc_stage(dc_q, codec)
-    else:
-        dc_bits, dc_code = st.dc_stage(dc_q, codec)
-    dc_total = dc_bits.sum(dim=1, dtype=torch.int32)
-    thr_ac = bs_ops.ac_threshold(budgets, dc_total, nb)
-    scale, ac_bits, nz, coefs = st.select(pix, thr_ac)
-    # Unfittable frames emit at scale 1 (the caller raises for them).
-    return {"scale": scale, "scale_idx": torch.where(scale <= 63, scale - 1, 0),
-            "nz_count": nz, "total_bits": ac_bits + dc_total + 2 * nb + 10,
-            "dc_bits": dc_bits, "dc_code": dc_code, "c": coefs}
+    """``_select_stages`` run on a batch: the state dict, with ``scale``,
+    ``scale_idx``, ``nz_count``, ``total_bits``, ``dc_bits``, ``dc_code``
+    and the zigzag coefficients ``c``."""
+    return run_stages(_select_stages(codec, width, height, st),
+                      {"frames": frames, "budgets": budgets})
 
 
 def _fused_words(sel, packer, prep, eof, capacity_words, st):
-    """The fused packers after selection: emission and placement into
-    (B, cap32) u32 words (with ``prep``, K3's placement prep and K4, or K8
-    for ``fused_gather``; else K7's per-block streams placed by the plain
-    stream placement, K9, or ``streams_to_u32`` and K4 or K8), then the
-    tail emission ORs the part of every block past the 256-bit window into
-    them and counts the frames that have such a block. Returns (B,
+    """``_emit_stages`` run on a copy of the selection ``sel``: (B,
     capacity_words) int16 words."""
-    args = (sel["c"], sel["scale_idx"] + 1, sel["dc_code"], sel["dc_bits"])
-    place_vals = st.place_gather if packer == "fused_gather" else st.place
-    if prep:
-        vals32, e0, block_bits, _ = st.emit_prep(*args, eof=eof)
-        out32 = place_vals(vals32, e0, capacity_words=capacity_words)
-    else:
-        streams, block_bits = st.emit_pack(*args)
-        streams, bb = bitpack_ops.with_eof_block(streams, block_bits, eof)
-        goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
-        if packer == "fused":
-            place = bitpack_cuda.place_streams_u32_plain    # the XLA stage
-        elif packer == "fused_pallas":
-            place = st.place_streams
-        else:
-            place = functools.partial(bitpack_cuda.place_streams_mxu_u32,
-                                      place=place_vals)
-        out32 = place(streams, goff, capacity_words=capacity_words)
-    out32, _ = st.emit_tail(out32, *args, block_bits,
-                            capacity_words=capacity_words,
-                            count=COUNTERS.device_count(out32.device))
-    return bitpack_ops.words_u16(out32, capacity_words)
+    return run_stages(_emit_stages(packer, prep, eof, capacity_words, st),
+                      dict(sel))["words"]
 
 
 def bs_encode_frames_packed(frames, budgets, *, codec, width, height,

@@ -21,8 +21,10 @@ across files:
 The device is explicit: ``run_jobs(..., device=...)``, by default the
 card; ``main`` takes it from PSXAVENC_PLATFORM as the CLI does (``cuda``
 by default: every visible card, exit 1 without one; ``cpu`` runs the
-plain versions). Given several devices, as the JAX runner's mesh branch
-does, the grouped audio call splits its streams over them
+native C++ tiers, or the kernels' plain versions with
+PSXAVENC_VIDEO_TIER=device and PSXAVENC_NO_NATIVE_ADPCM=1). Given
+several devices, as the JAX runner's mesh branch does, the grouped audio
+call splits its streams over them
 (``parallel.mesh.unit_encode_step``, B padded to a multiple) and the
 video groups' frame batches split over them (``BsFrameEncoder``); the
 rest runs on the first. Grouping is on by default;

@@ -6,7 +6,9 @@ The device comes from PSXAVENC_PLATFORM: ``cuda`` (the default) or
 ``cpu``. ``cuda`` takes every visible card: video frame batches split
 over them (``parallel.mesh``), audio runs on the first; with one card
 nothing is split. Without a CUDA device the default exits 1; it does not
-carry on on the CPU.
+carry on on the CPU. ``cpu`` encodes with the native C++ tiers
+(``native/tiers.py``); PSXAVENC_VIDEO_TIER=device and
+PSXAVENC_NO_NATIVE_ADPCM=1 run the kernels' plain versions instead.
 
 PSXAVENC_PROFILE=DIR runs the job under ``torch.profiler`` (host
 activity, and the cards' when the job runs on them) and writes a Chrome

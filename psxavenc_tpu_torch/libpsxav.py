@@ -4,7 +4,8 @@ Counterpart of ``psxavenc_tpu/libpsxav.py``: function for function the
 reference's public library surface (libpsxav/libpsxav.h:73-101,174-176),
 for code that linked against libpsxav. The ADPCM units encode through K5
 (``models/adpcm_stream.py``) on ``device``, by default the card (a CPU
-device runs the plain version); the sector framing and checksums are the
+device runs the native C++ unit encoder, or K5's plain version with
+PSXAVENC_NO_NATIVE_ADPCM set); the sector framing and checksums are the
 host sector code (``native/host.py``) the containers use.
 
 Covered API (reference -> here):

@@ -5,15 +5,21 @@ Counterpart of ``psxavenc_tpu/models/adpcm_stream.py``. The unit
 boundaries (offset, limit) of a whole stream are computed up front, the
 int16 PCM goes to the device, the (B, T, 28) units are gathered there,
 and one K5 launch threads the decoder state over time for all B channel
-streams. The device is explicit (default: the card); on the CPU the
-kernel runs its plain version. The TPU-only parts of the JAX module (the
-128-lane pad, the time segments, the power-of-two time buckets, the
-fused read-back, the native-tier routing) have no counterpart here.
+streams. The device is explicit (default: the card). On a CPU device the
+units go to the native C++ unit encoder (``native/tiers.py``, bit-exact
+with K5), as the JAX module's no-TPU tier does, unless
+PSXAVENC_NO_NATIVE_ADPCM is set: then K5's plain version runs. On the
+card it is always K5. The TPU-only parts of the JAX module (the 128-lane
+pad, the time segments, the power-of-two time buckets, the fused
+read-back) have no counterpart here.
 """
+
+import os
 
 import numpy as np
 import torch
 
+from ..native import tiers
 from ..ops import adpcm as ops
 from ..ops import adpcm_cuda
 
@@ -76,10 +82,19 @@ def _state(prev, B):
 
 
 def _encode(units, lim, prev1, prev2, filter_count, shift_range, state_t):
-    """K5 on device tensors -> host (headers uint8, values uint8, final
-    prev1, final prev2)."""
+    """K5 on device tensors (the native tier on the CPU, unless
+    PSXAVENC_NO_NATIVE_ADPCM is set) -> host (headers uint8, values
+    uint8, final prev1, final prev2)."""
     B, T = lim.shape
     dev = units.device
+    if dev.type == "cpu" and not os.environ.get("PSXAVENC_NO_NATIVE_ADPCM"):
+        h, v, s1, s2 = tiers.adpcm_encode_units(
+            units.numpy(), lim.numpy(), _state(prev1, B), _state(prev2, B),
+            filter_count, shift_range)
+        t_idx = np.full(B, T - 1) if state_t is None \
+            else np.asarray(state_t, np.int64)
+        rows = np.arange(B)
+        return h, v, s1[rows, t_idx], s2[rows, t_idx]
     h, w, s1, s2 = adpcm_cuda.encode_units(
         units, lim, torch.tensor(_state(prev1, B), device=dev),
         torch.tensor(_state(prev2, B), device=dev),

@@ -23,14 +23,47 @@ second thread would run under the same interpreter lock: on the H100's
 host an uploader thread was no faster end to end
 (``tools/torch_pipeline_bench.py``, PERF.md), so none is started. On the
 CPU a batch is encoded when it is enqueued.
+
+The compute tier is read from PSXAVENC_VIDEO_TIER at construction
+(``video_tier``): ``device`` runs ``api.bs_encode_frames_packed`` on the
+encoder's devices (the kernels on the card, their plain versions on the
+CPU); ``native`` runs the native C++ frame encoder
+(``native/tiers.py``, bit-exact with both) on the host's cores, one call
+for all the frames of a call, with per-worker search seeds carried across
+calls; ``auto`` (the default) is ``native`` when every device of the
+encoder is the CPU and ``device`` otherwise. ``native`` on an encoder
+with a CUDA device raises ValueError: an encoder on the card never
+reaches the native library.
 """
+
+import os
 
 import numpy as np
 import torch
 
 from .. import api
+from ..native import tiers
 from ..ops import bs as bs_ops
 from ..parallel import mesh
+
+TIERS = ("auto", "device", "native")
+
+
+def video_tier(devices):
+    """PSXAVENC_VIDEO_TIER (``auto``, ``device`` or ``native``) resolved
+    for an encoder on ``devices`` -> ``"device"`` or ``"native"``;
+    ``native`` is refused unless every device is the CPU."""
+    tier = os.environ.get("PSXAVENC_VIDEO_TIER", "auto")
+    if tier not in TIERS:
+        raise ValueError(f"PSXAVENC_VIDEO_TIER={tier!r}: one of {TIERS}")
+    cpu = all(torch.device(d).type == "cpu" for d in devices)
+    if tier == "native" and not cpu:
+        raise ValueError("PSXAVENC_VIDEO_TIER=native runs on the host: "
+                         "give the encoder the CPU, not "
+                         f"{', '.join(str(d) for d in devices)}")
+    if tier == "auto":
+        tier = "native" if cpu else "device"
+    return tier
 
 
 def _stack_frames(frames, pad_to):
@@ -111,11 +144,15 @@ class BsFrameEncoder:
 
     def __init__(self, codec, width, height, device):
         assert width % 16 == 0 and height % 16 == 0
+        self._closed = False
         self.codec = codec  # bs_ops.BS_V2 / BS_V3 / BS_V3DC
         self.width = width
         self.height = height
         self.devices = mesh.device_list(device)
         self.device = self.devices[0]
+        self.tier = video_tier(self.devices)
+        if self.tier == "native":
+            tiers.lib()         # a failed build raises here
         self.quant_scale_sum = 0
         # The step per capacity, the staging buffers and the stream of the
         # uploads, steps and read-backs.
@@ -123,6 +160,41 @@ class BsFrameEncoder:
         self._staging = [_Staging(), _Staging()]
         self._turn = 0
         self._stream = None
+        # The native tier's search seeds, one (workers, 2) array per
+        # worker count, carried across calls; they steer the order of the
+        # search only, never a byte.
+        self._native_seeds = {}
+
+    def close(self):
+        """Wait for the batches enqueued on the encoder's stream, then
+        drop its staging buffers, steps and stream (idempotent; also run
+        by ``__del__``). A handle enqueued before ``close`` can still be
+        fetched; enqueueing on a closed encoder raises RuntimeError."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._stream = None
+        self._staging = None
+        self._steps = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+    def _native_encode(self, fr, budgets, cap_words):
+        """One native-tier call for all of ``fr``, with the seeds of its
+        worker count."""
+        nt = max(1, min(len(fr), os.cpu_count() or 1))
+        seeds = self._native_seeds.setdefault(nt, np.zeros((nt, 2),
+                                                           np.int32))
+        return tiers.bs_encode_frames(
+            fr, budgets, codec=self.codec, width=self.width,
+            height=self.height, capacity_words=cap_words, n_threads=nt,
+            seeds=seeds)
 
     def _gran(self, frames):
         """A batch size of at least ``frames`` that divides over the
@@ -145,12 +217,17 @@ class BsFrameEncoder:
 
     def _launch(self, frames_nv21, sizes, pad_to, cap_words):
         """Enqueue one batch: its host prep, upload, step and read-back ->
-        a handle for :meth:`fetch`: (budgets, dict of host tensors, the
-        event after the read-back, or None on the CPU)."""
+        a handle for :meth:`fetch`: (budgets, dict of host arrays, the
+        event after the read-back, or None on the CPU and the native
+        tier)."""
+        if self._closed:
+            raise RuntimeError("BsFrameEncoder is closed")
         sizes = list(sizes)
         fr = _stack_frames(list(frames_nv21), pad_to)
         budgets = np.array(sizes + [sizes[-1]] * (pad_to - len(sizes)),
                            np.int32)
+        if self.tier == "native":
+            return sizes, self._native_encode(fr, budgets, cap_words), None
         step = self._step(cap_words)
         if self.device.type != "cuda":
             return sizes, step(torch.tensor(np.asarray(fr),
@@ -184,9 +261,10 @@ class BsFrameEncoder:
         n = len(frames_nv21)
         if n == 0:
             return []
-        # One capacity for the whole call.
+        # One capacity for the whole call; the native tier takes all the
+        # frames in one call (no compiled shapes, no padding).
         cap_words = max(1, (int(max(frame_max_sizes)) - 8 + 1) // 2)
-        gran = self._gran(_bucket(n))
+        gran = n if self.tier == "native" else self._gran(_bucket(n))
 
         def launch(base):
             ids = range(base, min(base + gran, n))
@@ -210,15 +288,16 @@ class BsFrameEncoder:
         n = len(sizes)
         gran = 128 if n >= 96 else (32 if n > self.CHUNK else self.CHUNK)
         cap_words = max(1, (int(max(sizes)) - 8 + 1) // 2)
-        return self._launch(frames_nv21, sizes, self._gran(max(gran, n)),
-                            cap_words)
+        pad_to = n if self.tier == "native" else self._gran(max(gran, n))
+        return self._launch(frames_nv21, sizes, pad_to, cap_words)
 
     def fetch(self, handle):
         """Wait for an enqueued batch -> list of (buffer, info)."""
         sizes, out, done = handle
         if done is not None:
             done.synchronize()
-        return self._collect({k: v.numpy() for k, v in out.items()}, sizes)
+        return self._collect({k: np.asarray(v) for k, v in out.items()},
+                             sizes)
 
     def _collect(self, out, sizes):
         """A batch's host results -> list of (buffer, info), the 8-byte BS

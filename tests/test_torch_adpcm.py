@@ -27,7 +27,7 @@ from psxavenc_tpu_torch.models import adpcm_stream as tstreams
 from psxavenc_tpu_torch.ops import adpcm as tops
 from psxavenc_tpu_torch.ops import adpcm_cuda
 
-from test_torch_parity import assert_same
+from test_torch_parity import assert_same, plain_tiers
 
 VARIANTS = [(5, 12), (4, 12), (4, 8)]
 
@@ -184,9 +184,10 @@ def test_encode_unit_streams_matches_jax(filter_count, shift_range):
     p2 = np.array([-30, 9000], np.int32)
     want = jstreams.encode_unit_streams(pcm, offs, lims, filter_count,
                                         shift_range, prev1=p1, prev2=p2)
-    got = tstreams.encode_unit_streams(pcm, offs, lims, filter_count,
-                                       shift_range, prev1=p1, prev2=p2,
-                                       device="cpu")
+    with plain_tiers():
+        got = tstreams.encode_unit_streams(pcm, offs, lims, filter_count,
+                                           shift_range, prev1=p1, prev2=p2,
+                                           device="cpu")
     for name, w, g in zip(("headers", "values", "prev1", "prev2"), want,
                           got):
         assert np.asarray(w).dtype == np.asarray(g).dtype, name
@@ -198,15 +199,16 @@ def test_encode_prepared_units_state_t_matches_jax():
     state_t = np.array([9, 3, 0, 6])
     want = jstreams.encode_prepared_units(units, lim, 5, 12, prev1=p1,
                                           prev2=p2, state_t=state_t)
-    got = tstreams.encode_prepared_units(units, lim, 5, 12, prev1=p1,
-                                         prev2=p2, state_t=state_t,
-                                         device="cpu")
+    with plain_tiers():
+        got = tstreams.encode_prepared_units(units, lim, 5, 12, prev1=p1,
+                                             prev2=p2, state_t=state_t,
+                                             device="cpu")
     for w, g in zip(want, got):
         assert_same(w, g)
 
 
 def test_negative_offsets_rejected():
-    with pytest.raises(ValueError, match="non-negative"):
+    with plain_tiers(), pytest.raises(ValueError, match="non-negative"):
         tstreams.encode_unit_streams(np.zeros((1, 56), np.int16),
                                      np.array([[-1, 27]]),
                                      np.array([[28, 28]]), 5, 12,

@@ -21,6 +21,8 @@ from psxavenc_tpu import cli as jcli
 from psxavenc_tpu.utils.synth import (rand_frames, rand_pcm,
                                       write_avi_sized, write_wav)
 
+from test_torch_parity import PLAIN_TIERS
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # (case, CLI arguments, input file)
@@ -54,11 +56,13 @@ CASES = [
 _RUNNER = """
 import json, sys
 from psxavenc_tpu_torch import cli
+from psxavenc_tpu_torch.native import tiers
 failed = [c for c in json.loads(sys.argv[1]) if cli.main(c) != 0]
 leaked = sorted(m for m in sys.modules if m == "jax"
                 or m.startswith("jax.") or m == "psxavenc_tpu"
                 or m.startswith("psxavenc_tpu."))
-print(json.dumps({"failed": failed, "leaked": leaked}))
+print(json.dumps({"failed": failed, "leaked": leaked,
+                  "native_calls": sum(tiers.COUNTERS.values())}))
 sys.exit(3 if leaked else (1 if failed else 0))
 """
 
@@ -89,7 +93,8 @@ def port_run(inputs, tmp_path_factory):
     out = tmp_path_factory.mktemp("audio_port")
     argvs = [["-q", *argv, str(inputs / src), str(out / f"{case}.out")]
              for case, argv, src in CASES]
-    env = dict(os.environ, PSXAVENC_PLATFORM="cpu", OMP_NUM_THREADS="1")
+    env = dict(os.environ, PSXAVENC_PLATFORM="cpu", OMP_NUM_THREADS="1",
+               **PLAIN_TIERS)
     proc = subprocess.run(
         [sys.executable, "-c", _RUNNER, json.dumps(argvs)], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=600)
@@ -102,6 +107,7 @@ def test_port_cli_imports_no_jax(port_run):
     assert report["leaked"] == [], report
     assert report["failed"] == [], stderr
     assert rc == 0
+    assert report["native_calls"] == 0      # the plain versions ran
 
 
 def test_host_sector_code_matches_jax_native():

@@ -23,6 +23,8 @@ from psxavenc_tpu.utils.synth import (rand_frames, rand_pcm, write_avi_sized,
                                       write_wav)
 from psxavenc_tpu_torch import batch as tbatch
 
+from test_torch_parity import PLAIN_TIERS, plain_tiers
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 DIRS = ("g", "s", "j")   # port grouped, port serial, JAX grouped
 
@@ -40,11 +42,12 @@ def _jobs(tmp_path, specs):
 
 
 def _run_all(jobs):
-    rcs = {"g": tbatch.run_jobs(jobs["g"], group=True, quiet=True,
-                                device="cpu"),
-           "s": tbatch.run_jobs(jobs["s"], group=False, quiet=True,
-                                device="cpu"),
-           "j": jbatch.run_jobs(jobs["j"], group=True, quiet=True)}
+    with plain_tiers():
+        rcs = {"g": tbatch.run_jobs(jobs["g"], group=True, quiet=True,
+                                    device="cpu"),
+               "s": tbatch.run_jobs(jobs["s"], group=False, quiet=True,
+                                    device="cpu")}
+    rcs["j"] = jbatch.run_jobs(jobs["j"], group=True, quiet=True)
     return rcs
 
 
@@ -96,8 +99,9 @@ def test_batch_groups_device_work(tmp_path, capsys):
     """The grouped run's [batch] lines: the SPU files share one audio
     group, XA its own, and the two 48x32 v2 jobs share a video group."""
     jobs = _jobs(tmp_path, _mixed_specs(tmp_path))
-    assert tbatch.run_jobs(jobs["g"], group=True, device="cpu") == \
-        [0] * len(jobs["g"])
+    with plain_tiers():
+        assert tbatch.run_jobs(jobs["g"], group=True, device="cpu") == \
+            [0] * len(jobs["g"])
     err = capsys.readouterr().err
     assert "audio group fc=5 sr=12: 4 jobs, 6 streams" in err, err
     assert "audio group fc=4 sr=12: 1 jobs, 2 streams" in err, err
@@ -168,10 +172,11 @@ def test_batch_streaming_tier_shares_rounds(tmp_path, streaming, capsys):
                    37800, channels=2)
     specs.append((["-t", "xa", "-f", "37800", "-c", "2"], st, "o.xa"))
     jobs = _jobs(tmp_path, specs)
-    rcs_g = tbatch.run_jobs(jobs["g"], group=True, device="cpu")
-    err = capsys.readouterr().err
-    rcs_s = tbatch.run_jobs(jobs["s"], group=False, quiet=True,
-                            device="cpu")
+    with plain_tiers():
+        rcs_g = tbatch.run_jobs(jobs["g"], group=True, device="cpu")
+        err = capsys.readouterr().err
+        rcs_s = tbatch.run_jobs(jobs["s"], group=False, quiet=True,
+                                device="cpu")
     rcs_j = jbatch.run_jobs(jobs["j"], group=True, quiet=True)
     assert rcs_g == rcs_s == rcs_j == [0] * len(specs)
     _assert_same_bytes(jobs)
@@ -199,9 +204,10 @@ def test_batch_streaming_flush_failure_does_not_hang(tmp_path, streaming,
         result["rcs"] = tbatch.run_jobs(jobs, group=True, quiet=True,
                                         device="cpu")
 
-    t = threading.Thread(target=run, daemon=True)
-    t.start()
-    t.join(timeout=120)
+    with plain_tiers():
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(timeout=120)
     assert not t.is_alive(), "batch runner hung after a flush failure"
     assert result["rcs"] == [1, 1, 1]
 
@@ -210,6 +216,8 @@ def test_batch_streaming_flush_failure_does_not_hang(tmp_path, streaming,
 def test_batch_reports_failures(tmp_path, monkeypatch, capsys, group):
     monkeypatch.setenv("PSXAVENC_PLATFORM", "cpu")
     monkeypatch.setenv("PSXAVENC_BATCH_GROUP", group)
+    for k, v in PLAIN_TIERS.items():
+        monkeypatch.setenv(k, v)
     wav = write_wav(tmp_path / "a.wav", rand_pcm(600, seed=9), 44100)
     jobs = tmp_path / "jobs.txt"
     jobs.write_text(f"-q -t vag {tmp_path}/missing.wav {tmp_path}/x.vag\n"
@@ -240,7 +248,8 @@ def test_main_needs_a_card_unless_cpu(tmp_path, monkeypatch, capsys):
               "rc = batch.main(sys.argv[1:])\n"
               "assert 'jax' not in sys.modules, 'jax was imported'\n"
               "sys.exit(rc)\n")
-    env = dict(os.environ, PSXAVENC_PLATFORM="cpu", OMP_NUM_THREADS="1")
+    env = dict(os.environ, PSXAVENC_PLATFORM="cpu", OMP_NUM_THREADS="1",
+               **PLAIN_TIERS)
     proc = subprocess.run([sys.executable, "-c", runner, str(jobs)],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)

@@ -15,6 +15,8 @@ from psxavenc_tpu import cli as jcli
 from psxavenc_tpu.utils.synth import rand_frames, write_avi_sized
 from psxavenc_tpu_torch import cli as tcli
 
+from test_torch_parity import PLAIN_TIERS
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 # Runs the port's CLI and fails if anything imported JAX.
@@ -38,7 +40,8 @@ def test_cli_matches_jax_cli(avi, tmp_path, argv):
     want = tmp_path / "jax.out"
     got = tmp_path / "torch.out"
     assert jcli.main(["-q", *argv, str(avi), str(want)]) == 0
-    env = dict(os.environ, PSXAVENC_PLATFORM="cpu", OMP_NUM_THREADS="1")
+    env = dict(os.environ, PSXAVENC_PLATFORM="cpu", OMP_NUM_THREADS="1",
+               **PLAIN_TIERS)
     proc = subprocess.run(
         [sys.executable, "-c", _RUNNER, "-q", *argv, str(avi), str(got)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)

@@ -1107,3 +1107,134 @@ def test_split_over_the_card_twice(dev):
     for g, w in zip(audio(units, limits, prev, prev),
                     api.spu_encode_batch(units, limits, prev, prev)):
         assert torch.equal(g, w)
+
+
+def _fuzz_batch(seed, n=12):
+    """Seeded geometry and content (video, flat frames with hard edges,
+    noise) and budgets from half a byte to 20 bytes a block, so some
+    frames fit at no scale."""
+    from psxavenc_tpu_torch.utils.synth import rand_frames
+
+    rng = np.random.default_rng(seed)
+    w, h = 16 * int(rng.integers(1, 21)), 16 * int(rng.integers(1, 16))
+    frames = []
+    for k in rng.integers(0, 3, n):
+        if k == 0:
+            y, cb, cr = rand_frames(w, h, 1, seed=seed)[0]
+            c = np.stack([cr.reshape(h // 2, w // 2),
+                          cb.reshape(h // 2, w // 2)], axis=-1).reshape(-1)
+            frames.append(np.concatenate([y, c]).astype(np.uint8))
+        elif k == 1:
+            f = np.full(w * h * 3 // 2, 128, np.uint8)
+            f[: w * 4] = 255
+            frames.append(f)
+        else:
+            frames.append(rng.integers(0, 256, w * h * 3 // 2)
+                          .astype(np.uint8))
+    nbytes = w * h // 256 * 6
+    budgets = rng.integers(max(16, nbytes // 2), nbytes * 20,
+                           n).astype(np.int32)
+    return np.stack(frames), budgets, w, h
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("codec", [tbs.BS_V2, tbs.BS_V3, tbs.BS_V3DC])
+def test_card_equals_native_tier_on_fuzz(dev, codec, seed):
+    """api.bs_encode_frames_packed on the card == the port's native tier:
+    every frame's scale, and words, total bits and nonzero count where
+    the frame fits."""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.native import tiers
+
+    frames, budgets, w, h = _fuzz_batch(100 * codec + seed)
+    kw = dict(codec=codec, width=w, height=h,
+              capacity_words=(int(budgets.max()) - 8 + 1) // 2)
+    got = api.bs_encode_frames_packed(torch.from_numpy(frames).to(dev),
+                                      torch.from_numpy(budgets).to(dev),
+                                      **kw)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    got["words"] = got["words"].view(np.uint16)
+    want = tiers.bs_encode_frames(frames, budgets, **kw)
+    fit = want["scale"] <= 63
+    assert np.array_equal(got["scale"], want["scale"])
+    for k in ("words", "total_bits", "nz_count"):
+        assert np.array_equal(got[k][fit], want[k][fit]), k
+
+
+@pytest.mark.parametrize("filter_count,shift_range",
+                         [(5, 12), (4, 12), (4, 8)])
+def test_adpcm_kernel_matches_native_tier(dev, filter_count, shift_range):
+    """K5 == the native unit encoder: headers, sample values and the state
+    after every unit, with partial, empty and masked units."""
+    from psxavenc_tpu_torch.native import tiers
+
+    rng = np.random.default_rng(filter_count + shift_range)
+    B, T = 96, 150
+    units = np.cumsum(rng.integers(-3000, 3000, (B, T * 28)), axis=1)
+    units = np.clip(units, -32768, 32767).astype(np.int32).reshape(B, T, 28)
+    lim = np.full((B, T), 28, np.int32)
+    lim[0, 7], lim[1, 9], lim[2, 11], lim[3, -20:] = 13, 0, -4, 0
+    p1 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    p2 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    h, words, s1, s2 = adpcm_cuda.encode_units(
+        *(torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)),
+        filter_count=filter_count, shift_range=shift_range)
+    got = (h, adpcm_cuda.unpack_words(words, shift_range), s1, s2)
+    want = tiers.adpcm_encode_units(units, lim, p1, p2, filter_count,
+                                    shift_range)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.cpu().numpy().astype(np.int64),
+                              w.astype(np.int64))
+
+
+def test_cuda_encoder_under_auto_makes_no_native_call(dev, monkeypatch):
+    """The default tier of an encoder on the card is the card's kernels;
+    ``native`` asked for by name is refused on the card and runs on the
+    host only for an encoder given the CPU."""
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+    from psxavenc_tpu_torch.native import tiers
+
+    frames = list(_distinct_frames(40, seed=24))
+    budgets = [18144] * len(frames)
+    before = dict(tiers.COUNTERS)
+    for value in (None, "auto", "device"):
+        if value is None:
+            monkeypatch.delenv("PSXAVENC_VIDEO_TIER", raising=False)
+        else:
+            monkeypatch.setenv("PSXAVENC_VIDEO_TIER", value)
+        enc = BsFrameEncoder(tbs.BS_V2, W, H, dev)
+        assert enc.tier == "device"
+        got = enc.encode_frames(frames, budgets)
+        enc.close()
+    assert tiers.COUNTERS == before
+    monkeypatch.setenv("PSXAVENC_VIDEO_TIER", "native")
+    with pytest.raises(ValueError, match="PSXAVENC_VIDEO_TIER=native"):
+        BsFrameEncoder(tbs.BS_V2, W, H, dev)
+    assert tiers.COUNTERS == before
+    enc = BsFrameEncoder(tbs.BS_V2, W, H, "cpu")
+    assert enc.tier == "native"
+    want = enc.encode_frames(frames, budgets)
+    assert tiers.COUNTERS["bs_encode_frames"] == \
+        before["bs_encode_frames"] + 1
+    assert [b.tobytes() for b, _ in got] == [b.tobytes() for b, _ in want]
+
+
+def test_close_with_a_batch_in_flight(dev):
+    """close() waits for the enqueued batch: its handle still fetches the
+    right frames; a second close() is a no-op; enqueueing raises."""
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+
+    frames = list(_distinct_frames(256, seed=25))
+    budgets = [18144] * len(frames)
+    want = BsFrameEncoder(tbs.BS_V3DC, W, H, dev).encode_frames(frames,
+                                                                budgets)
+    enc = BsFrameEncoder(tbs.BS_V3DC, W, H, dev)
+    first = enc.encode_frames_async(frames[:128], budgets[:128])
+    second = enc.encode_frames_async(frames[128:], budgets[128:])
+    enc.close()
+    assert enc._stream is None and enc._staging is None
+    enc.close()
+    got = enc.fetch(first) + enc.fetch(second)
+    assert [b.tobytes() for b, _ in got] == [b.tobytes() for b, _ in want]
+    with pytest.raises(RuntimeError, match="closed"):
+        enc.encode_frames(frames[:8], budgets[:8])

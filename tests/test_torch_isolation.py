@@ -12,8 +12,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted(p.relative_to(REPO).as_posix() for p in [
     *(REPO / "psxavenc_tpu_torch").rglob("*.py"),
     *(REPO / "tools").glob("torch_*.py")]) + \
-    ["chip_smoke.py", "tests/torch_emit_cases.py",
-     "tests/torch_dc_pack_cases.py"]
+    ["chip_smoke.py", "examples/torch_batch_api.py",
+     "tests/torch_emit_cases.py", "tests/torch_dc_pack_cases.py"]
 FORBIDDEN = ("psxavenc_tpu", "jax")
 
 

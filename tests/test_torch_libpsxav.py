@@ -12,6 +12,8 @@ from psxavenc_tpu import libpsxav as jlp
 from psxavenc_tpu.utils.synth import rand_pcm
 from psxavenc_tpu_torch import libpsxav as tlp
 
+from test_torch_parity import plain_tiers
+
 CPU = "cpu"
 
 
@@ -61,18 +63,21 @@ def test_spu_encode_threads_state(pitch):
     ts = tlp.ChannelState(prev1=1200, prev2=-800)
     js = jlp.ChannelState(prev1=1200, prev2=-800)
     for part in (pcm[:28 * 4 * pitch], pcm[28 * 4 * pitch:]):
-        got = tlp.spu_encode(ts, part, pitch=pitch, device=CPU)
+        with plain_tiers():
+            got = tlp.spu_encode(ts, part, pitch=pitch, device=CPU)
         want = jlp.spu_encode(js, part, pitch=pitch)
         assert got == want and len(got) > 0
         assert dataclasses.astuple(ts) == dataclasses.astuple(js)
-    assert tlp.spu_encode(ts, pcm, sample_count=0, device=CPU) == b""
+    with plain_tiers():
+        assert tlp.spu_encode(ts, pcm, sample_count=0, device=CPU) == b""
 
 
 @pytest.mark.parametrize("loop_start", [-1, 0, 57])
 def test_spu_encode_simple_matches(loop_start):
     pcm = rand_pcm(28 * 5 + 3, seed=3)
-    assert tlp.spu_encode_simple(pcm, loop_start, device=CPU) == \
-        jlp.spu_encode_simple(pcm, loop_start)
+    with plain_tiers():
+        got = tlp.spu_encode_simple(pcm, loop_start, device=CPU)
+    assert got == jlp.spu_encode_simple(pcm, loop_start)
 
 
 @pytest.mark.parametrize("kw", SETTINGS)
@@ -93,20 +98,23 @@ def test_xa_encode_threads_state(kw):
     for k in range(2):
         part = pcm[k * n * ch:(k + 1) * n * ch]
         out_j += jlp.xa_encode(js, jstate, part, n, 150 + 2 * k)
-        out_t += tlp.xa_encode(ts, tstate, part, n, 150 + 2 * k,
-                               device=CPU)
+        with plain_tiers():
+            out_t += tlp.xa_encode(ts, tstate, part, n, 150 + 2 * k,
+                                   device=CPU)
         assert dataclasses.astuple(tstate) == dataclasses.astuple(jstate)
     assert out_t == out_j
     assert len(out_t) == 4 * jlp.xa_get_buffer_size_per_sector(js)
     assert tlp.xa_encode_finalize(ts, out_t) == \
         jlp.xa_encode_finalize(js, out_j)
-    assert tlp.xa_encode(ts, tstate, pcm, 0, 0, device=CPU) == b""
+    with plain_tiers():
+        assert tlp.xa_encode(ts, tstate, pcm, 0, 0, device=CPU) == b""
 
 
 def test_xa_encode_simple_matches():
     kw = SETTINGS[0]
     n = 112 * 18 + 40
     pcm = rand_pcm(n, channels=2, seed=7).reshape(-1)
-    assert tlp.xa_encode_simple(tlp.XaSettings(**kw), pcm, n, lba=9,
-                                device=CPU) == \
-        jlp.xa_encode_simple(jlp.XaSettings(**kw), pcm, n, lba=9)
+    with plain_tiers():
+        got = tlp.xa_encode_simple(tlp.XaSettings(**kw), pcm, n, lba=9,
+                                   device=CPU)
+    assert got == jlp.xa_encode_simple(jlp.XaSettings(**kw), pcm, n, lba=9)

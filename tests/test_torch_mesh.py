@@ -19,7 +19,7 @@ from psxavenc_tpu_torch.ops import bs as tbs
 from psxavenc_tpu_torch.parallel import mesh
 
 from test_torch_batch import _jobs, _mixed_specs
-from test_torch_parity import video_frames
+from test_torch_parity import plain_tiers, video_frames
 
 CPU = torch.device("cpu")
 SPLITS = {"cpu x2": [CPU, CPU], "cpu x4": [CPU] * 4}
@@ -166,12 +166,13 @@ def test_encoder_with_several_devices(monkeypatch):
         return step(devices, **kw)
 
     monkeypatch.setattr(mesh, "packed_video_step", spy)
-    three = bs_video.BsFrameEncoder(0, 64, 48, [CPU] * 3)
-    one = bs_video.BsFrameEncoder(0, 64, 48, "cpu")
-    got = three.encode_frames(frames, budgets)
-    async_got = three.fetch(three.encode_frames_async(frames[:7],
-                                                      budgets[:7]))
-    want = one.encode_frames(frames, budgets)
+    with plain_tiers():
+        three = bs_video.BsFrameEncoder(0, 64, 48, [CPU] * 3)
+        one = bs_video.BsFrameEncoder(0, 64, 48, "cpu")
+        got = three.encode_frames(frames, budgets)
+        async_got = three.fetch(three.encode_frames_async(frames[:7],
+                                                          budgets[:7]))
+        want = one.encode_frames(frames, budgets)
     assert split_calls == [3]
     assert [b.tobytes() for b, _ in got] == [b.tobytes() for b, _ in want]
     assert [b.tobytes() for b, _ in async_got] == \
@@ -196,10 +197,11 @@ def test_batch_runner_with_several_devices(tmp_path, monkeypatch):
             return _real(devices, **kw)
 
         monkeypatch.setattr(mesh, name, spy)
-    rcs_split = tbatch.run_jobs(jobs["s"], group=True, quiet=True,
-                                device=[CPU] * 4)
-    rcs_one = tbatch.run_jobs(jobs["g"], group=True, quiet=True,
-                              device="cpu")
+    with plain_tiers():
+        rcs_split = tbatch.run_jobs(jobs["s"], group=True, quiet=True,
+                                    device=[CPU] * 4)
+        rcs_one = tbatch.run_jobs(jobs["g"], group=True, quiet=True,
+                                  device="cpu")
     assert rcs_split == rcs_one == [0] * len(jobs["g"])
     assert ("unit_encode_step", 4) in calls
     assert ("packed_video_step", 4) in calls

@@ -6,6 +6,9 @@ equality. JAX runs on the CPU and its Pallas kernels in interpret mode,
 as the JAX package's own tests run them.
 """
 
+import contextlib
+import os
+
 import numpy as np
 import torch
 
@@ -14,6 +17,35 @@ import jax.numpy as jnp
 # The test workers run side by side: one intra-op thread each keeps torch
 # from oversubscribing the cores.
 torch.set_num_threads(1)
+
+# The environment that keeps the port's CPU path on its kernels' plain
+# versions: on a CPU device its encoders take the native C++ tiers by
+# default. The same variables steer psxavenc_tpu's encoders (its video
+# device tier runs XLA on the CPU, at a few frames a second), so they are
+# set around the port's calls only, never around a JAX call.
+PLAIN_TIERS = {"PSXAVENC_VIDEO_TIER": "device",
+               "PSXAVENC_NO_NATIVE_ADPCM": "1"}
+
+
+@contextlib.contextmanager
+def plain_tiers():
+    """Run the port's encoders inside the block on their plain versions,
+    and fail if the native library was called there anyway."""
+    from psxavenc_tpu_torch.native import tiers
+
+    old = {k: os.environ.get(k) for k in PLAIN_TIERS}
+    before = dict(tiers.COUNTERS)
+    os.environ.update(PLAIN_TIERS)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert tiers.COUNTERS == before, ("the native tier ran", before,
+                                      tiers.COUNTERS)
 
 
 def to_np(x):

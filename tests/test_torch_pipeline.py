@@ -22,7 +22,7 @@ from psxavenc_tpu.ops import bs as jbs
 from psxavenc_tpu_torch import api as tapi
 from psxavenc_tpu_torch.models import bs_video
 
-from test_torch_parity import video_frames
+from test_torch_parity import plain_tiers, video_frames
 
 W, H = 64, 48
 
@@ -57,15 +57,17 @@ def _same(got, want):
 def test_pipelined_equals_one_batch_at_a_time_and_jax(codec):
     """30 distinct frames, four batches of eight (the last one partial)."""
     frames, budgets = _frames(W, H, 30, seed=3, noise=5)
-    pipe = bs_video.BsFrameEncoder(codec, W, H, "cpu")
-    one = bs_video.BsFrameEncoder(codec, W, H, "cpu")
+    with plain_tiers():
+        pipe = bs_video.BsFrameEncoder(codec, W, H, "cpu")
+        one = bs_video.BsFrameEncoder(codec, W, H, "cpu")
     ref = JaxEncoder(codec, W, H)
     try:
         tapi.COUNTERS["overflow_frames"] = 0
-        got = pipe.encode_frames(frames, budgets)
-        got_overflow = tapi.COUNTERS["overflow_frames"]
-        want = _one_at_a_time(one, frames, budgets)
-        want_overflow = tapi.COUNTERS["overflow_frames"] - got_overflow
+        with plain_tiers():
+            got = pipe.encode_frames(frames, budgets)
+            got_overflow = tapi.COUNTERS["overflow_frames"]
+            want = _one_at_a_time(one, frames, budgets)
+            want_overflow = tapi.COUNTERS["overflow_frames"] - got_overflow
         jax_out = ref.encode_frames(frames, budgets)
     finally:
         ref.close()
@@ -78,12 +80,13 @@ def test_pipelined_equals_one_batch_at_a_time_and_jax(codec):
 def test_pipelined_320x240():
     """20 frames at the main path's size: three batches of eight."""
     frames, budgets = _frames(320, 240, 20, seed=4, noise=3)
-    pipe = bs_video.BsFrameEncoder(jbs.BS_V2, 320, 240, "cpu")
-    one = bs_video.BsFrameEncoder(jbs.BS_V2, 320, 240, "cpu")
-    tapi.COUNTERS["overflow_frames"] = 0
-    got = pipe.encode_frames(frames, budgets)
-    got_overflow = tapi.COUNTERS["overflow_frames"]
-    want = _one_at_a_time(one, frames, budgets)
+    with plain_tiers():
+        pipe = bs_video.BsFrameEncoder(jbs.BS_V2, 320, 240, "cpu")
+        one = bs_video.BsFrameEncoder(jbs.BS_V2, 320, 240, "cpu")
+        tapi.COUNTERS["overflow_frames"] = 0
+        got = pipe.encode_frames(frames, budgets)
+        got_overflow = tapi.COUNTERS["overflow_frames"]
+        want = _one_at_a_time(one, frames, budgets)
     want_overflow = tapi.COUNTERS["overflow_frames"] - got_overflow
     _same(got, want)
     assert pipe.quant_scale_sum == one.quant_scale_sum
@@ -94,7 +97,8 @@ def test_next_batch_enqueued_before_this_one_is_assembled(monkeypatch):
     """Three batches: each later batch is enqueued before the one before
     it is assembled, all in the calling thread (no thread is started)."""
     frames, budgets = _frames(W, H, 24, seed=5, noise=2)
-    enc = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
+    with plain_tiers():
+        enc = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
     order = []
     launch, collect = enc._launch, enc._collect
 
@@ -109,7 +113,8 @@ def test_next_batch_enqueued_before_this_one_is_assembled(monkeypatch):
     monkeypatch.setattr(enc, "_launch", spy_launch)
     monkeypatch.setattr(enc, "_collect", spy_collect)
     threads = threading.active_count()
-    enc.encode_frames(frames, budgets)
+    with plain_tiers():
+        enc.encode_frames(frames, budgets)
     assert [k for k, _ in order] == ["enqueue", "enqueue", "assemble",
                                      "enqueue", "assemble", "assemble"]
     assert {t for _, t in order} == {threading.get_ident()}
@@ -118,12 +123,13 @@ def test_next_batch_enqueued_before_this_one_is_assembled(monkeypatch):
 
 def test_two_handles_before_either_is_fetched():
     frames, budgets = _frames(W, H, 16, seed=6, noise=2)
-    enc = bs_video.BsFrameEncoder(jbs.BS_V3DC, W, H, "cpu")
-    ref = bs_video.BsFrameEncoder(jbs.BS_V3DC, W, H, "cpu")
-    first = enc.encode_frames_async(frames[:8], budgets[:8])
-    second = enc.encode_frames_async(frames[8:], budgets[8:])
-    got = enc.fetch(first) + enc.fetch(second)
-    want = ref.encode_frames(frames, budgets)
+    with plain_tiers():
+        enc = bs_video.BsFrameEncoder(jbs.BS_V3DC, W, H, "cpu")
+        ref = bs_video.BsFrameEncoder(jbs.BS_V3DC, W, H, "cpu")
+        first = enc.encode_frames_async(frames[:8], budgets[:8])
+        second = enc.encode_frames_async(frames[8:], budgets[8:])
+        got = enc.fetch(first) + enc.fetch(second)
+        want = ref.encode_frames(frames, budgets)
     _same(got, want)
     assert enc.quant_scale_sum == ref.quant_scale_sum
 
@@ -135,7 +141,9 @@ def test_unfittable_frame_in_the_second_batch(monkeypatch):
     its own error before the batch before it is assembled."""
     frames, budgets = _frames(W, H, 24, seed=7, noise=2)
     budgets[10] = 100
-    enc = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
+    with plain_tiers():
+        enc = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
+        first_batch = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
     calls = []
     step = tapi.bs_encode_frames_packed
 
@@ -148,9 +156,8 @@ def test_unfittable_frame_in_the_second_batch(monkeypatch):
         enc.encode_frames(frames, budgets)
     assert len(calls) == 3
     first = sum(i["quant_scale"]
-                for _, i in bs_video.BsFrameEncoder(
-                    jbs.BS_V2, W, H, "cpu").encode_frames(frames[:8],
-                                                          budgets[:8]))
+                for _, i in first_batch.encode_frames(frames[:8],
+                                                      budgets[:8]))
     # the first batch and the second's frames before frame 10
     assert first < enc.quant_scale_sum
 

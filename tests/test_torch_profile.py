@@ -11,11 +11,15 @@ import pytest
 from psxavenc_tpu.utils.synth import rand_pcm, write_wav
 from psxavenc_tpu_torch import cli
 
+from test_torch_parity import PLAIN_TIERS
+
 
 @pytest.fixture
 def wav(tmp_path, monkeypatch):
     monkeypatch.setenv("PSXAVENC_PLATFORM", "cpu")
     monkeypatch.delenv("PSXAVENC_PROFILE", raising=False)
+    for k, v in PLAIN_TIERS.items():
+        monkeypatch.setenv(k, v)
     return write_wav(tmp_path / "in.wav", rand_pcm(1500, seed=5), 44100)
 
 

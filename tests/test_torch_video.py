@@ -9,7 +9,7 @@ from psxavenc_tpu.models.bs_video import BsFrameEncoder as JaxEncoder
 from psxavenc_tpu.ops import bs as jbs
 from psxavenc_tpu_torch.models import bs_video
 
-from test_torch_parity import video_frames
+from test_torch_parity import plain_tiers, video_frames
 
 W, H = 320, 240
 
@@ -24,8 +24,9 @@ def test_encoder_matches_native_320x240(codec):
     nat = native.bs_encode_frames(frames, np.array(budgets, np.int32),
                                   codec=codec, width=W, height=H,
                                   capacity_words=cap)
-    enc = bs_video.BsFrameEncoder(codec, W, H, "cpu")
-    got = enc.encode_frames(list(frames), budgets)
+    with plain_tiers():
+        enc = bs_video.BsFrameEncoder(codec, W, H, "cpu")
+        got = enc.encode_frames(list(frames), budgets)
     ref = JaxEncoder(codec, W, H)
     try:
         want = ref.encode_frames(list(frames), budgets)
@@ -46,12 +47,13 @@ def test_async_fetch_and_unfittable():
     w, h = 48, 32
     frames = list(video_frames(w, h, 3, seed=4, noise=1))
     budgets = [2000, 1000, 2000, 2000]
-    enc = bs_video.BsFrameEncoder(jbs.BS_V3, w, h, "cpu")
-    a = enc.encode_frames(frames, budgets)
-    b = enc.fetch(enc.encode_frames_async(frames, budgets))
-    assert [x[0].tobytes() for x in a] == [x[0].tobytes() for x in b]
-    with pytest.raises(RuntimeError, match="does not fit"):
-        enc.encode_frames(frames, [2000, 1000, 2000, 100])
+    with plain_tiers():
+        enc = bs_video.BsFrameEncoder(jbs.BS_V3, w, h, "cpu")
+        a = enc.encode_frames(frames, budgets)
+        b = enc.fetch(enc.encode_frames_async(frames, budgets))
+        assert [x[0].tobytes() for x in a] == [x[0].tobytes() for x in b]
+        with pytest.raises(RuntimeError, match="does not fit"):
+            enc.encode_frames(frames, [2000, 1000, 2000, 100])
 
 
 def test_stack_frames_zero_copy_and_padding():
