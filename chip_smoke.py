@@ -70,16 +70,26 @@ Phases, one or more lines each:
    before it (the encoder does not: the statistics say what that would
    buy);
 7. K5 against its plain version on 4,096 streams x 64 units for
-   (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8), timed as
+   (filter_count, shift_range) = (5, 12), (4, 12) and (4, 8), on the
+   plan's route (serial) and with 4 segments a stream forced, timed as
    in phase 3;
 8. the batch API at full width: api.spu_encode_batch on 4,096 x 1,000
    SPU units, Msamples/s on the device, the kernel's share of its bound
-   and of K5's speed of light (utils/roofline.py), peak device memory;
+   and of K5's speed of light (utils/roofline.py), peak device memory,
+   the plan's route (serial at this shape) beside segments=1, each in a
+   CUDA graph; then K5 on one long file, the two streams of a 60 s stereo
+   37,800 Hz XA track of synthetic audio and of a 440 Hz tone at 30,000
+   (where guessed states never merge): the plan's segments equal the
+   native unit encoder and the plain model of the scheme, the kernels'
+   stats (segments, speculation, repair, rounds, walk) equal the model's,
+   both timed in a CUDA graph beside segments=1 and the native tier's
+   host time;
 9. the audio and A/V path: the CLI (-t xa, xacd, spu, vag, vagi, and the
    flagship -t strcd / -t str: 320x240 15 fps BS v2 with 37,800 Hz stereo
    XA) run in this process on the card, every output equal to its
    digest, K5 (and K1, K3, K4 for str/strcd) launched; seconds per file
-   and, from torch.profiler, K5's device time on the 60 s track; the
+   and, from torch.profiler, K5's device time (all of its kernels) on
+   the 60 s track; the
    flagship strcd once more with PSXAVENC_PROFILE set to a directory
    under --out: its Chrome trace names K1's kernel, stderr says "Profile
    written to", the output equals its digest;
@@ -170,6 +180,7 @@ ADPCM_STREAMS = 4096                 # the batch shape of bench.py:149
 ADPCM_UNITS = 1000
 ADPCM_CHECK_UNITS = 64
 ADPCM_VARIANTS = ((5, 12), (4, 12), (4, 8))
+ADPCM_FORCED_SEGMENTS = 4            # phase 7's segmented run (16 units)
 SYMBOLS_FRAMES = 8                   # frames of the symbols_v2 digest
 UNFIT_FRAME, UNFIT_BUDGET = 5, 200   # the unfittable frame of the checks
 MODEL_FRAMES = 16                    # frames the search's plain model runs
@@ -401,6 +412,18 @@ def xa_track_units(np, synth, seed=61):
     (2, XA_TRACK_UNITS, 28) int32 units, full limits and zero states."""
     pcm = synth.rand_pcm(XA_TRACK_UNITS * 28, channels=2, seed=seed)
     units = np.ascontiguousarray(pcm.reshape(-1, 2).T, dtype=np.int32)
+    lim = np.full((2, XA_TRACK_UNITS), 28, np.int32)
+    zero = np.zeros(2, np.int32)
+    return units.reshape(2, XA_TRACK_UNITS, 28), lim, zero, zero
+
+
+def tone_track_units(np, synth):
+    """The two channel streams of a 60 s stereo 37,800 Hz track of a 440 Hz
+    tone at 30,000 (synth.tone), the case where guessed ADPCM states stay
+    on other limit cycles: (2, XA_TRACK_UNITS, 28) int32 units, full limits
+    and zero states."""
+    pcm = synth.tone(XA_TRACK_UNITS * 28, channels=2)
+    units = np.ascontiguousarray(pcm.T, dtype=np.int32)
     lim = np.full((2, XA_TRACK_UNITS), 28, np.int32)
     zero = np.zeros(2, np.int32)
     return units.reshape(2, XA_TRACK_UNITS, 28), lim, zero, zero
@@ -1659,7 +1682,8 @@ def carried_seed_hits(torch, label, frames, budgets, n_batches, card):
 
 def adpcm_kernel(torch, np, synth, card):
     """Phase 7: K5 == its plain version for the three variants at 4,096
-    streams x 64 units. Returns (the inputs on the card, the (5, 12)
+    streams x 64 units, on the plan's route (serial) and with
+    ADPCM_FORCED_SEGMENTS segments a stream. Returns (the inputs on the card, the (5, 12)
     kernel outputs, the (5, 12) row of the kernel table)."""
     from psxavenc_tpu_torch.ops import adpcm_cuda
 
@@ -1680,8 +1704,12 @@ def adpcm_kernel(torch, np, synth, card):
 
         got = kernel_fn()
         want = plain_fn()
+        forced = adpcm_cuda.encode_units(*head, filter_count=fc,
+                                         shift_range=sr,
+                                         segments=ADPCM_FORCED_SEGMENTS)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want, "adpcm_encode_units")
+        forced_err = max_abs_err(torch, forced, want, "adpcm_encode_units")
         ms = graph_ms(torch, kernel_fn)
         call_ms = time_ms(torch, kernel_fn)
         plain_ms = time_ms(torch, plain_fn, reps=1)
@@ -1693,8 +1721,11 @@ def adpcm_kernel(torch, np, synth, card):
             f"(graph replay; one wrapper call {call_ms:.4f} ms with its host "
             f"work), "
             f"plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-            f"({ADPCM_STREAMS} streams x {ADPCM_CHECK_UNITS} units) on {card}")
-        if err:
+            f"({ADPCM_STREAMS} streams x {ADPCM_CHECK_UNITS} units, the "
+            f"plan's {adpcm_cuda.plan_segments(*head[1].shape)} segment a "
+            f"stream; with {ADPCM_FORCED_SEGMENTS} forced: max |kernel - "
+            f"plain| = {forced_err}) on {card}")
+        if err or forced_err:
             raise AssertionError(f"K5 ({fc}, {sr}) disagrees with its plain "
                                  "version")
         if row is None:
@@ -1725,8 +1756,14 @@ def adpcm_batch(torch, full, ref, card):
     for t in (h, values, s1, s2):
         if t.shape[:2] != (ADPCM_STREAMS, ADPCM_UNITS):
             raise AssertionError("spu_encode_batch: wrong output shape")
+    if adpcm_cuda.plan_segments(ADPCM_STREAMS, ADPCM_UNITS) != 1:
+        raise AssertionError("the plan cuts the batch's streams")
     ms = time_ms(torch, lambda: adpcm_cuda.encode_units(
         *full, filter_count=5, shift_range=12), reps=5)
+    plan_graph = graph_ms(torch, lambda: adpcm_cuda.encode_units(
+        *full, filter_count=5, shift_range=12), reps=10)
+    serial_graph = graph_ms(torch, lambda: adpcm_cuda.encode_units(
+        *full, filter_count=5, shift_range=12, segments=1), reps=10)
     out = adpcm_cuda.encode_units(*full, filter_count=5, shift_range=12)
     n_units = ADPCM_STREAMS * ADPCM_UNITS
     bound_ms, bound_by = rl.bound(rl.nbytes(*full, *out),
@@ -1739,7 +1776,10 @@ def adpcm_batch(torch, full, ref, card):
         f"{n_units * 28 / ms / 1e3:.1f} Msamples/s on the device, bound "
         f"{bound_ms:.3f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the "
         f"bound; whole API call {api_ms:.3f} ms; peak device memory "
-        f"{peak / 2**30:.2f} GiB; on {card}")
+        f"{peak / 2**30:.2f} GiB; in a CUDA graph the plan's route (1 "
+        f"segment a stream) {plan_graph:.4f} ms, segments=1 "
+        f"{serial_graph:.4f} ms ({plan_graph / serial_graph:.4f}x); on "
+        f"{card}")
     msps = n_units * 28 / ms / 1e3
     sol_msps, pct = rl.audio_report(
         msps, rl.chip_for(torch.cuda.get_device_name(0)))
@@ -1747,6 +1787,73 @@ def adpcm_batch(torch, full, ref, card):
         f"{rl.audio_kernel_census():.0f} int32 operations a sample): "
         f"{sol_msps:.1f} Msamples/s = {n_units * 28 / sol_msps / 1e3:.3f} ms "
         f"for this batch; K5 reaches {pct:.1f}% of it on {card}")
+    return {"batch_ms": plan_graph, "batch_serial_ms": serial_graph}
+
+
+def adpcm_tracks(torch, np, synth, card):
+    """Phase 8: K5 on one long file, a 60 s stereo 37,800 Hz XA track's two
+    streams of XA_TRACK_UNITS units (4-bit XA), synthetic audio and the
+    440 Hz tone: the plan's segments equal the native unit encoder and the
+    plain model of the scheme (encode_units_segmented_plain over the native
+    tier), the kernels' stats equal the model's count for count; both
+    routes timed in a CUDA graph, the plan's and segments=1, beside the
+    native tier's host time. Returns the K5 row's track keys."""
+    from psxavenc_tpu_torch.native import tiers
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    dev = torch.device("cuda", 0)
+    tiers.lib()                              # built before it is timed
+    paths_calls = dict(tiers.COUNTERS)       # the references are no path's
+    row = {}
+    for label, what, host in (
+            ("track", "synthetic audio", xa_track_units(np, synth)),
+            ("tone", "a 440 Hz tone at 30,000", tone_track_units(np, synth))):
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        stats = torch.zeros(5, dtype=torch.int64, device=dev)
+        out = adpcm_cuda.encode_units(*args, filter_count=4, shift_range=12,
+                                      stats_out=stats)
+        got = (out[0], adpcm_cuda.unpack_words(out[1], 12), *out[2:])
+        t0 = time.perf_counter()
+        want = tiers.adpcm_encode_units(*host, 4, 12)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        *model, model_stats = adpcm_cuda.encode_units_segmented_plain(
+            *(torch.from_numpy(a) for a in host), filter_count=4,
+            shift_range=12, rows="native")
+        model = (model[0], adpcm_cuda.unpack_words(model[1], 12), *model[2:])
+        err = max(max_abs_err(torch, g, torch.from_numpy(
+            np.asarray(w, np.int32)).to(dev), "adpcm_encode_units")
+            for g, w in zip(got, want))
+        err = max(err, max_abs_err(torch, got, tuple(m.to(dev)
+                                                    for m in model),
+                                   "adpcm_encode_units"))
+        stats, model_stats = stats.tolist(), model_stats.tolist()
+        if err or stats != model_stats:
+            raise AssertionError(f"K5 on the {label}: max |kernel - native| "
+                                 f"= {err}, stats {stats} against the "
+                                 f"model's {model_stats}")
+        ms = graph_ms(torch, lambda: adpcm_cuda.encode_units(
+            *args, filter_count=4, shift_range=12), reps=5)
+        serial_ms = graph_ms(torch, lambda: adpcm_cuda.encode_units(
+            *args, filter_count=4, shift_range=12, segments=1), reps=3)
+        B, T = host[1].shape
+        bound_ms, bound_by = rl.bound(rl.nbytes(*args, *out),
+                                      rl.adpcm_ops(B * T, 4))
+        names = dict(zip(adpcm_cuda.STAT_NAMES, stats))
+        say(f"[8] adpcm_encode_units (4, 12) on a 60 s stereo XA track of "
+            f"{what} ({B} x {T} units, {adpcm_cuda.plan_segments(B, T)} segments a "
+            f"stream): equal to the native tier and to the scheme's plain "
+            f"model, stats {names} equal the model's; in a CUDA graph "
+            f"{ms:.4f} ms, segments=1 {serial_ms:.4f} ms "
+            f"({ms / serial_ms:.4f}x, {serial_ms / ms:.1f} times faster); "
+            f"bound {bound_ms:.4f} ms ({bound_by}); the native tier "
+            f"{native_ms:.1f} ms on the host ({os.cpu_count()} cores); on "
+            f"{card}")
+        row.update({f"{label}_ms": ms, f"{label}_serial_ms": serial_ms,
+                    f"{label}_bound_ms": bound_ms,
+                    f"{label}_native_ms": native_ms,
+                    f"{label}_stats": names})
+    tiers.COUNTERS.update(paths_calls)
+    return row
 
 
 def av_path(torch, digests, tmp, card, out_dir):
@@ -1791,7 +1898,7 @@ def av_path(torch, digests, tmp, card, out_dir):
                 f.write(rows.table(sort_by="self_device_time_total",
                                    row_limit=30))
             k5 = sum(e.self_device_time_total for e in rows
-                     if "adpcm_units_kernel" in e.key) / 1000
+                     if "adpcm_" in e.key and "_kernel" in e.key) / 1000
             extra = f"; K5 device time {k5:.1f} ms (profiler)"
         say(f"[9] cli {' '.join(argv)} {src}: equals the JAX package's "
             f"digest; {secs:.2f} s in process{extra}; launches {ran} on "
@@ -2632,8 +2739,11 @@ def main():
         throughput(torch, np, synth, card, out_dir)
         full, ref, rows["adpcm_encode_units"] = adpcm_kernel(torch, np,
                                                              synth, card)
-        adpcm_batch(torch, full, ref, card)
+        rows["adpcm_encode_units"].update(adpcm_batch(torch, full, ref,
+                                                      card))
         del full, ref
+        rows["adpcm_encode_units"].update(adpcm_tracks(torch, np, synth,
+                                                       card))
         av = av_path(torch, digests, tmp, card, out_dir)
         k10_rows, k3_inputs = block_stream_kernels(torch, np, synth, card)
         for name, row in k10_rows.items():

@@ -141,3 +141,13 @@ def rand_pcm(n, channels=1, seed=0, scale=22000):
     spikes = rng.random(shape) < 0.001
     z = np.where(spikes, rng.choice([-1.0, 1.0], shape), z)
     return np.clip(z * scale, -32768, 32767).astype(np.int16)
+
+
+def tone(n, channels=1, freq=440.0, sample_rate=37800, amplitude=30000):
+    """(n, channels) int16 sine at ``freq``, channel c a radian later in
+    phase than channel c - 1: a loud steady tone, on which ADPCM encodes
+    started from different states can stay apart for good."""
+    t = np.arange(n)[:, None] / sample_rate
+    phase = np.arange(channels)[None, :]
+    return np.round(amplitude * np.sin(2 * np.pi * freq * t + phase)) \
+        .astype(np.int16)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card: each equals its plain version (the
 BS and block-stream kernels at the video path's shapes, K5 on a ragged
-stream batch), and the encoder's bytes equal the native C++ tier.
+stream batch and, segmented, against the native tier and the plain model
+of its scheme), and the encoder's bytes equal the native C++ tier.
 
 Skipped without a CUDA device. This file imports no JAX, so it runs on a
 machine that has none:
@@ -1185,6 +1186,84 @@ def test_adpcm_kernel_matches_native_tier(dev, filter_count, shift_range):
     for g, w in zip(got, want):
         assert np.array_equal(g.cpu().numpy().astype(np.int64),
                               w.astype(np.int64))
+
+
+def _segment_streams(T, seed):
+    """Five streams with nonzero states: synthetic audio, a 440 Hz tone at
+    30,000 in two phases, silence, and synthetic audio with masked units
+    every 37 units and partial ones every 11."""
+    from psxavenc_tpu_torch.utils.synth import rand_pcm, tone
+
+    rng = np.random.default_rng(seed)
+    pcm = rand_pcm(T * 28, channels=2, seed=seed).reshape(-1, 2).T
+    tones = tone(T * 28, channels=2).T
+    units = np.stack([pcm[0], tones[0], tones[1], np.zeros(T * 28),
+                      pcm[1]]).astype(np.int32).reshape(5, T, 28)
+    lim = np.full((5, T), 28, np.int32)
+    lim[4, ::37] = 0
+    lim[4, 5::11] = 9
+    lim[4, 18::37] = -3
+    p1 = rng.integers(-0x8000, 0x8000, 5).astype(np.int32)
+    p2 = rng.integers(-0x8000, 0x8000, 5).astype(np.int32)
+    return units, lim, p1, p2
+
+
+@pytest.mark.parametrize("segments", [None, 2, 9, 64])
+@pytest.mark.parametrize("filter_count,shift_range",
+                         adpcm_cuda.KERNEL_VARIANTS)
+def test_adpcm_segmented_matches_model(dev, filter_count, shift_range,
+                                       segments):
+    """The segmented K5 (the plan's S, and S forced) equals the native
+    tier's whole-stream encode, and its stats equal the plain model's
+    count for count; 2 + ROUNDS launches a segmented call."""
+    from psxavenc_tpu_torch.native import tiers
+
+    T = 1000
+    host = _segment_streams(T, seed=filter_count * 7 + shift_range)
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    before = adpcm_cuda.LAUNCHES["adpcm_encode_units"]
+    got = adpcm_cuda.encode_units(*args, filter_count=filter_count,
+                                  shift_range=shift_range,
+                                  segments=segments, stats_out=stats)
+    S = segments or adpcm_cuda.plan_segments(5, T)
+    assert adpcm_cuda.LAUNCHES["adpcm_encode_units"] - before == (
+        1 if S == 1 else 2 + adpcm_cuda.ROUNDS)
+    *model, want_stats = adpcm_cuda.encode_units_segmented_plain(
+        *(torch.from_numpy(a) for a in host), filter_count=filter_count,
+        shift_range=shift_range, segments=segments, rows="native")
+    want = tiers.adpcm_encode_units(*host, filter_count, shift_range)
+    got = (got[0], adpcm_cuda.unpack_words(got[1], shift_range), *got[2:])
+    for g, m, w in zip(got, (model[0], adpcm_cuda.unpack_words(
+            model[1], shift_range), *model[2:]), want):
+        assert np.array_equal(g.cpu().numpy().astype(np.int64),
+                              w.astype(np.int64))
+        assert torch.equal(g.cpu(), m)
+    assert stats.cpu().tolist() == want_stats.tolist()
+
+
+def test_adpcm_segmented_replays_in_a_graph(dev):
+    """A segmented K5 call makes no host sync and a fixed number of
+    launches: captured in a CUDA graph it replays to the eager outputs."""
+    T = 4096
+    args = [torch.from_numpy(a).to(dev) for a in _segment_streams(T, 3)]
+    assert adpcm_cuda.plan_segments(5, T) > 1
+    eager = adpcm_cuda.encode_units(*args, filter_count=4, shift_range=12)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        adpcm_cuda.encode_units(*args, filter_count=4, shift_range=12)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = adpcm_cuda.encode_units(*args, filter_count=4, shift_range=12)
+    for o in out:
+        o.fill_(-1)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for o, e in zip(out, eager):
+        assert torch.equal(o, e)
 
 
 def test_cuda_encoder_under_auto_makes_no_native_call(dev, monkeypatch):

@@ -17,8 +17,11 @@ of each one's grid (see small_rows). select: K1 on phase 3's batches
 (v2 and v3dc) and K6 on the FDCT coefficients of the same pixels and on
 phase 10's symbols. adpcm: K5 at 4,096 x 1,000 SPU units (its first 64
 units held to the plain version) and on the two streams of a 60 s stereo
-37,800 Hz XA track (81,000 units each, held to the native C++ unit
-encoder), with ms, bound, % of the bound and ns a unit (ports
+37,800 Hz XA track of synthetic audio and of a 440 Hz tone at 30,000
+(81,000 units each, held to the native C++ unit encoder), with ms, bound,
+% of the bound and ns a unit, each beside the serial route
+(segments=1), and the batch's first 512, 1,024, 2,048 and 4,096 streams
+on the plan's route and at 1, 2 and 4 segments a stream (ports
 tools/audio_kernel_bench.py). --tree measures another checkout's
 package (for example the parent commit unpacked under build/) with this
 checkout's checks and timers (it needs that package's
@@ -242,7 +245,9 @@ def select_rows(torch, np, synth, cs, card):
 
 
 def adpcm_rows(torch, np, synth, cs, card):
-    """K5 at 4,096 x 1,000 SPU units and on a 60 s stereo XA track."""
+    """K5 at 4,096 x 1,000 SPU units, on a 60 s stereo XA track of
+    synthetic audio and of a 440 Hz tone, each beside the serial route
+    (segments=1), and the plan over the batch's first B streams."""
     from psxavenc_tpu_torch.native import tiers
     from psxavenc_tpu_torch.ops import adpcm_cuda
 
@@ -250,51 +255,97 @@ def adpcm_rows(torch, np, synth, cs, card):
     n = cs.ADPCM_CHECK_UNITS
     batch_host = cs.adpcm_units(np, synth, cs.ADPCM_STREAMS,
                                 cs.ADPCM_UNITS)
-    track_host = cs.xa_track_units(np, synth)
+    plan = getattr(adpcm_cuda, "plan_segments", None)
 
-    def plain_head(args, out, fc, sr):
+    def plain_head(host, args, out, fc, sr):
         head = [a[:, :n].contiguous() for a in args[:2]] + args[2:]
         return (tuple(o[:, :n] for o in out),
                 adpcm_cuda.encode_units_plain(*head, filter_count=fc,
                                               shift_range=sr))
 
-    def native(args, out, fc, sr):
+    def native(host, args, out, fc, sr):
         return ((out[0], adpcm_cuda.unpack_words(out[1], sr), *out[2:]),
-                tiers.adpcm_encode_units(*track_host, fc, sr))
+                tiers.adpcm_encode_units(*host, fc, sr))
 
     cases = (("4,096 x 1,000 SPU units", batch_host, 5, 12, plain_head,
               f"the plain version on the first {n} units"),
-             ("60 s stereo XA track, 2 x 81,000 units", track_host, 4, 12,
-              native, "the native C++ unit encoder"))
+             ("60 s stereo XA track, 2 x 81,000 units",
+              cs.xa_track_units(np, synth), 4, 12, native,
+              "the native C++ unit encoder"),
+             ("60 s stereo XA 440 Hz tone, 2 x 81,000 units",
+              cs.tone_track_units(np, _with_tone(synth)), 4, 12, native,
+              "the native C++ unit encoder"))
     for label, host, fc, sr, reference, check in cases:
         args = [torch.from_numpy(a).to(dev) for a in host]
 
-        def kernel_fn():
+        def kernel_fn(**kw):
             return adpcm_cuda.encode_units(*args, filter_count=fc,
-                                           shift_range=sr)
+                                           shift_range=sr, **kw)
 
         out = kernel_fn()
         B, T = args[1].shape
-        got, want = reference(args, out, fc, sr)
+        got, want = reference(host, args, out, fc, sr)
         err = max(int((torch.as_tensor(g).to("cpu", torch.int64)
                        - torch.as_tensor(w).to("cpu", torch.int64))
                       .abs().max()) for g, w in zip(got, want))
         if err:
             raise AssertionError(f"K5 on {label} differs from {check}")
         ms = cs.graph_ms(torch, kernel_fn, reps=5)
+        serial_ms = cs.graph_ms(
+            torch, lambda: kernel_fn(segments=1), reps=3) if plan else None
         bound_ms, bound_by = cs.rl.bound(cs.rl.nbytes(*args, *out),
                                          cs.rl.adpcm_ops(B * T, fc))
+        serial = (f"; segments=1 {serial_ms:.4f} ms, the plan's "
+                  f"{plan(B, T)} segments a stream "
+                  f"{ms / serial_ms:.4f}x of it" if plan else "")
         print(f"[bench] adpcm_encode_units ({fc}, {sr}) {label}: equal to "
               f"{check}; kernel {ms:.4f} ms on the device (graph replay), "
               f"bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.2f}% of the bound; "
               f"{ms * 1e6 / (B * T):.2f} ns a unit, {ms * 1e6 / T:.1f} ns "
-              f"a unit of one stream, on {card}", flush=True)
+              f"a unit of one stream{serial}, on {card}", flush=True)
         yield label, {"adpcm_encode_units": {
-            "max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "pct_of_bound": 100 * bound_ms / ms,
+            "max_abs_err": err, "ms": ms, "serial_ms": serial_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "pct_of_bound": 100 * bound_ms / ms,
             "ns_per_unit": ms * 1e6 / (B * T),
             "ns_per_stream_unit": ms * 1e6 / T}}
+    if not plan:
+        return
+    args = [torch.from_numpy(a).to(dev) for a in batch_host]
+    for B in PLAN_STREAMS:
+        sub = [a[:B].contiguous() for a in args]
+        times = {segs: cs.graph_ms(torch, lambda: adpcm_cuda.encode_units(
+            *sub, filter_count=5, shift_range=12, segments=segs), reps=10)
+            for segs in (None, 1, 2, 4)}
+        text = ", ".join(f"{'plan' if k is None else k}: {v:.4f} ms"
+                         for k, v in times.items())
+        print(f"[bench] adpcm_encode_units (5, 12) {B} x "
+              f"{cs.ADPCM_UNITS} SPU units, the plan's "
+              f"{plan(B, cs.ADPCM_UNITS)} segments a stream; by segments a "
+              f"stream in a CUDA graph: {text}, on {card}", flush=True)
+        yield f"{B} x {cs.ADPCM_UNITS} SPU units", {"adpcm_encode_units": {
+            "plan_segments": plan(B, cs.ADPCM_UNITS),
+            "ms_by_segments": {str(k): v for k, v in times.items()}}}
+
+
+def _with_tone(synth):
+    """``synth``, or this checkout's where the measured tree's has no
+    ``tone`` (a tree from before it)."""
+    if hasattr(synth, "tone"):
+        return synth
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_synth", os.path.join(ROOT, "psxavenc_tpu_torch", "utils",
+                                    "synth.py"))
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    return own
+
+
+# The batch sizes of the plan's sweep (adpcm_rows).
+PLAN_STREAMS = (512, 1024, 2048, 4096)
 
 
 GROUPS = {"dc": dc_rows, "pack": pack_rows, "emit": emit_rows,
