@@ -140,13 +140,18 @@ Phases, one or more lines each:
    native unit encoder on 256 random streams x 300 units for the three
    variants and on a 60 s stereo XA track's two streams (81,000 units
    each); the native tier's frames/s and units/s on the host, with its
-   core count.
+   core count;
+14. bench_torch.py --quick in a subprocess on the card (its validation,
+   one repetition of each measurement, no details file): exit 0, and a
+   last line whose value is over 0 and whose device is the card's name;
+   the line is printed.
 
 The digests (psxavenc_tpu_torch/data/smoke_digests.json) are the JAX
 package's outputs for the same inputs; tests/test_torch_smoke_refs.py
 recomputes them on the CPU from the recipes below. The ptxas report, the
 profiler tables and phase 9's trace are written under ``--out`` (default
-``smoke_out/``). Every bound is psxavenc_tpu_torch/utils/roofline.py's.
+``smoke_out/``). Every bound is a work function of
+psxavenc_tpu_torch/utils/roofline.py on the call's shapes and data.
 
 Any failure ends the run with a nonzero exit and no result; so does a
 machine without a CUDA device. The last three lines are the kernel table
@@ -552,18 +557,17 @@ def small_row(torch, tag, name, label, kernel_fn, grid, card,
     return row
 
 
-def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
-            ops_fn, card, library_fn=None, bytes_fn=None, grid=None,
-            size=f"B={B}, {W}x{H}", ten=False):
+def compare(torch, results, tag, name, label, kernel_fn, plain_fn, work_fn,
+            card, library_fn=None, grid=None, size=f"B={B}, {W}x{H}",
+            ten=False):
     """The kernel == its plain version, exactly; prints and keeps (the
     first time per name) the wrapper's device time (``graph_ms``), the
     wrapper call's and the plain version's times (CUDA events, median)
-    and the bound computed from ``inputs``, the outputs and
-    ``ops_fn(out)``. ``library_fn`` is one PyTorch call computing the same
-    function, timed as the wrapper is. ``bytes_fn(out)``: the bytes this
-    run's data makes the function move, where that is not all of the
-    inputs and outputs. A kernel under SMALL_MS (any, with ``ten``) is
-    also read by ``small_row``, beside an empty launch of ``grid`` where
+    and the bound of ``work_fn(out)``: the (bytes, operations) of this
+    run's call, from the kernel's work function in utils/roofline.py.
+    ``library_fn`` is one PyTorch call computing the same function, timed
+    as the wrapper is. A kernel under SMALL_MS (any, with ``ten``) is also
+    read by ``small_row``, beside an empty launch of ``grid`` where
     given."""
     got = kernel_fn()
     want = plain_fn()
@@ -573,10 +577,7 @@ def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
     call_ms = time_ms(torch, kernel_fn)
     plain_ms = time_ms(torch, plain_fn, reps=3)
     library_ms = graph_ms(torch, library_fn) if library_fn else None
-    outs = got if isinstance(got, tuple) else (got,)
-    bound_ms, bound_by = rl.bound(
-        bytes_fn(got) if bytes_fn else rl.nbytes(*inputs, *outs),
-        ops_fn(got))
+    bound_ms, bound_by = rl.bound(*work_fn(got))
     lib = f", one PyTorch call {library_ms:.4f} ms" if library_fn else ""
     say(f"[{tag}] {name} {label}: max |kernel - plain| = {err}; kernel "
         f"{ms:.4f} ms on the device (graph replay; one wrapper call "
@@ -595,15 +596,34 @@ def compare(torch, results, tag, name, label, kernel_fn, plain_fn, inputs,
     return got
 
 
-def select_ops(torch, nb, fdct):
-    """The operations of K1 (with ``fdct``) and K6 on their output: the
-    data needs the exact total at the chosen scale and at the scale below
-    it (one evaluation for scale 1 and for unfittable frames)."""
-    def ops(out):
-        evals = torch.where((out[0] > 1) & (out[0] <= 63), 2, 1)
-        return nb * (B * rl.OPS_FDCT_BLOCK * fdct
-                     + 63 * rl.OPS_SCALE_EVAL * int(evals.sum()))
-    return ops
+def select_work_of(torch, nb, fdct):
+    """The work of K1 (with ``fdct``) or K6 on its output: the data needs
+    the exact total at the chosen scale and at the scale below it (one
+    evaluation for scale 1 and for unfittable frames)."""
+    def work(out):
+        evals = int(torch.where((out[0] > 1) & (out[0] <= 63), 2, 1).sum())
+        if fdct:
+            return rl.fdct_select_work(out[0].shape[0], nb, out[3].shape[2],
+                                       evals)
+        return rl.select_work(out[0].shape[0], nb, evals)
+    return work
+
+
+def emit_work_of(fn, coefs, sidx, nb):
+    """``fn`` (rl.emit_prep_work or rl.emit_pack_work) on ``coefs`` at the
+    scales ``sidx``: their bytes and this run's nonzero levels."""
+    n = rl.nonzero_count(coefs, sidx, nb)
+    return lambda out: fn(coefs.shape[0], nb, rl.nbytes(coefs), n)
+
+
+def place_work_of(e0):
+    """The work of K4 or K8 on K3's offsets ``e0`` (B, NBe)."""
+    return lambda out: rl.place_work(*e0.shape, out.shape[1])
+
+
+def place_streams_work_of(goff):
+    """The work of K9 on the block offsets ``goff`` (B, NBe)."""
+    return lambda out: rl.place_streams_work(*goff.shape, out.shape[1])
 
 
 def select_inputs(torch, frames, budgets, w=W, h=H):
@@ -979,13 +999,12 @@ def tail_compare(torch, results, tag, label, placed, coefs, emit_args,
                                   count=count, **kw)[0],
         lambda: bs_cuda.emit_tail_plain(placed, coefs, *emit_args,
                                         block_bits, **kw)[0],
-        (), lambda out: (block_bits.numel() * rl.OPS_TAIL_BLOCK
-                         + rl.emit_ops(coefs, emit_args[0],
-                                    block_bits.shape[1], long_blocks)),
-        card, bytes_fn=lambda out: (
-            rl.nbytes(block_bits, emit_args[0])
-            + n_long * (63 * coefs.element_size() + 8)
-            + 2 * (tail_bytes + 8 * n_long)), grid=grid, size=size, ten=True)
+        lambda out: rl.tail_work(
+            *block_bits.shape, n_long,
+            rl.nonzero_count(coefs, emit_args[0], block_bits.shape[1],
+                             long_blocks),
+            coefs.element_size(), tail_bytes),
+        card, grid=grid, size=size, ten=True)
 
 
 def check_kernels(torch, np, synth, card):
@@ -1015,8 +1034,8 @@ def check_kernels(torch, np, synth, card):
         scale, _, _, coefs = check(
             "select_scale_pix", label,
             lambda: bs_cuda.select_scale_pix(pix, thr),
-            lambda: bs_cuda.select_scale_pix_plain(pix, thr), (pix, thr),
-            select_ops(torch, nb, 1))
+            lambda: bs_cuda.select_scale_pix_plain(pix, thr),
+            select_work_of(torch, nb, True))
         if codec == bs_ops.BS_V2:
             select_pix_checks(torch, np, synth, card, results, pix, budgets,
                               dc_bits, thr, scale)
@@ -1027,8 +1046,7 @@ def check_kernels(torch, np, synth, card):
             lambda: bs_cuda.emit_prep(coefs, sidx, dc_code, dc_bits, eof=eof),
             lambda: bs_cuda.emit_prep_plain(coefs, sidx, dc_code, dc_bits,
                                             eof=eof),
-            (coefs, sidx, dc_code, dc_bits),
-            lambda out: rl.emit_ops(coefs, sidx, nb))
+            emit_work_of(rl.emit_prep_work, coefs, sidx, nb))
         if codec == bs_ops.BS_V2:
             emit_stats_line(torch, 3, coefs, (sidx, dc_code, dc_bits), eof,
                             card)
@@ -1038,8 +1056,7 @@ def check_kernels(torch, np, synth, card):
             lambda: bitpack_cuda.place_vals(vals32, e0,
                                             capacity_words=CAP_WORDS),
             lambda: bitpack_cuda.place_vals_plain(
-                vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-            lambda out: vals32.numel() * rl.OPS_PLACE_WORD,
+                vals32, e0, capacity_words=CAP_WORDS), place_work_of(e0),
             library_fn=lib_fn, grid=bitpack_cuda.place_vals_grid(
                 B, CAP_WORDS))
         if not torch.equal(lib_words, placed):
@@ -1050,8 +1067,7 @@ def check_kernels(torch, np, synth, card):
             lambda: bitpack_cuda.place_vals_gather(
                 vals32, e0, capacity_words=CAP_WORDS),
             lambda: bitpack_cuda.place_vals_gather_plain(
-                vals32, e0, capacity_words=CAP_WORDS), (vals32, e0),
-            lambda out: vals32.numel() * rl.OPS_PLACE_WORD, card,
+                vals32, e0, capacity_words=CAP_WORDS), place_work_of(e0), card,
             library_fn=lib_fn, grid=bitpack_cuda.place_vals_gather_grid(
                 B, CAP_WORDS), ten=True)
         if not torch.equal(gathered, placed):
@@ -1086,8 +1102,7 @@ def place_case(torch, card, label, vals32, e0, capacity_words):
     got = compare(torch, {}, 3, "place_vals", label,
                   lambda: bitpack_cuda.place_vals(vals32, e0, **kw),
                   lambda: bitpack_cuda.place_vals_plain(vals32, e0, **kw),
-                  (vals32, e0), lambda out: vals32.numel() * rl.OPS_PLACE_WORD,
-                  card, library_fn=lib_fn,
+                  place_work_of(e0), card, library_fn=lib_fn,
                   grid=bitpack_cuda.place_vals_grid(b, capacity_words),
                   size=f"B={b}, NBe={nbe}, cap32={cap32}", ten=True)
     words = bitpack_cuda.place_range_words(
@@ -1206,7 +1221,7 @@ def check_dc(torch, results, card, dc_q):
     return compare(torch, results, 3, "dc_stage", "v3dc",
                    lambda: bs_cuda.dc_stage(dc_q, bs_ops.BS_V3DC),
                    lambda: bs_cuda.dc_stage_plain(dc_q, bs_ops.BS_V3DC),
-                   (dc_q,), lambda out: dc_q.numel() * rl.OPS_DC_BLOCK, card)
+                   lambda out: rl.dc_work(*dc_q.shape), card)
 
 
 def dc_checks(torch, np, synth, card, row, dc_q):
@@ -1249,7 +1264,7 @@ def dc_checks(torch, np, synth, card, row, dc_q):
 
 
 def bound_evals(torch, scale):
-    """Evaluations per frame that the bound counts (see select_ops)."""
+    """Evaluations per frame that the bound counts (see select_work)."""
     return float(torch.where((scale > 1) & (scale <= 63), 2, 1).to(
         torch.float64).mean())
 
@@ -1713,9 +1728,8 @@ def adpcm_kernel(torch, np, synth, card):
         ms = graph_ms(torch, kernel_fn)
         call_ms = time_ms(torch, kernel_fn)
         plain_ms = time_ms(torch, plain_fn, reps=1)
-        n_units = ADPCM_STREAMS * ADPCM_CHECK_UNITS
-        bound_ms, bound_by = rl.bound(rl.nbytes(*head, *got),
-                                      rl.adpcm_ops(n_units, fc))
+        bound_ms, bound_by = rl.bound(*rl.adpcm_work(
+            ADPCM_STREAMS, ADPCM_CHECK_UNITS, fc, got[1].shape[2]))
         say(f"[7] adpcm_encode_units ({fc}, {sr}): headers, words, s1, s2 "
             f"max |kernel - plain| = {err}; kernel {ms:.4f} ms on the device "
             f"(graph replay; one wrapper call {call_ms:.4f} ms with its host "
@@ -1766,8 +1780,8 @@ def adpcm_batch(torch, full, ref, card):
         *full, filter_count=5, shift_range=12, segments=1), reps=10)
     out = adpcm_cuda.encode_units(*full, filter_count=5, shift_range=12)
     n_units = ADPCM_STREAMS * ADPCM_UNITS
-    bound_ms, bound_by = rl.bound(rl.nbytes(*full, *out),
-                                  rl.adpcm_ops(n_units, 5))
+    bound_ms, bound_by = rl.bound(*rl.adpcm_work(
+        ADPCM_STREAMS, ADPCM_UNITS, 5, out[1].shape[2]))
     api_ms = time_ms(torch, lambda: api.spu_encode_batch(*full), reps=3)
     say(f"[8] spu_encode_batch {ADPCM_STREAMS} x {ADPCM_UNITS} units "
         f"({n_units * 28 / 1e6:.1f} M samples, "
@@ -1836,8 +1850,8 @@ def adpcm_tracks(torch, np, synth, card):
         serial_ms = graph_ms(torch, lambda: adpcm_cuda.encode_units(
             *args, filter_count=4, shift_range=12, segments=1), reps=3)
         B, T = host[1].shape
-        bound_ms, bound_by = rl.bound(rl.nbytes(*args, *out),
-                                      rl.adpcm_ops(B * T, 4))
+        bound_ms, bound_by = rl.bound(*rl.adpcm_work(B, T, 4,
+                                                     out[1].shape[2]))
         names = dict(zip(adpcm_cuda.STAT_NAMES, stats))
         say(f"[8] adpcm_encode_units (4, 12) on a 60 s stereo XA track of "
             f"{what} ({B} x {T} units, {adpcm_cuda.plan_segments(B, T)} segments a "
@@ -1985,26 +1999,25 @@ def block_stream_kernels(torch, np, synth, card):
     scale, _, _ = check(
         "select_scale", "(63, NB) int32",
         lambda: bs_cuda.select_scale(c, thr),
-        lambda: bs_cuda.select_scale_plain(c, thr), (c, thr),
-        select_ops(torch, nb, 0))
+        lambda: bs_cuda.select_scale_plain(c, thr),
+        select_work_of(torch, nb, False))
     if int(scale[UNFIT_FRAME]) != 64 or not (scale[:UNFIT_FRAME] <= 63).all():
         raise AssertionError("phase 10: the unfittable frame was not found")
     select_checks(torch, np, synth, card, results, c, thr, scale,
                   bs_ops.rearrange_nv21_rows(frames, W, H))
     sidx = torch.where(scale <= 63, scale, 1)
-    pack_ops = rl.emit_ops(c, sidx, nb)
     emit_args = (sidx, dc_code, dc_bits)
     streams, block_bits = check(
         "emit_pack", "(63, NB) int32",
         lambda: bs_cuda.emit_pack(c, *emit_args),
-        lambda: bs_cuda.emit_pack_plain(c, *emit_args), (c, *emit_args),
-        lambda out: pack_ops)
+        lambda: bs_cuda.emit_pack_plain(c, *emit_args),
+        emit_work_of(rl.emit_pack_work, c, sidx, nb))
     c64 = bs_cuda.select_scale_pix(bs_ops.rearrange_nv21_rows(frames, W, H),
                                    thr)[3]
     check("emit_pack", "(64, nb_pad) int16",
           lambda: bs_cuda.emit_pack(c64, *emit_args),
           lambda: bs_cuda.emit_pack_plain(c64, *emit_args),
-          (c64, *emit_args), lambda out: pack_ops)
+          emit_work_of(rl.emit_pack_work, c64, sidx, nb))
 
     vals32, e0, prep_bits, _ = bs_cuda.emit_prep(c64, *emit_args, eof=0x1FF)
     if not torch.equal(prep_bits, block_bits):
@@ -2021,17 +2034,15 @@ def block_stream_kernels(torch, np, synth, card):
     streams, bb = bitpack_ops.with_eof_block(streams, block_bits, 0x1FF)
     goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
     total = goff[:, -1] + bb[:, -1]
-    nbe = nb + 1
     vals32, e0 = bitpack_ops.streams_to_u32(streams, goff)
     lib_fn, lib_words = scatter_add_call(
         torch, bitpack_ops.u32_to_i32(vals32), e0)
     kw = dict(capacity_words=CAP_WORDS)
-    k9_ops = B * nbe * (16 * rl.OPS_FUNNEL_WORD + 9 * rl.OPS_PLACE_WORD)
     got = check("place_streams", "(u32 words)",
                 lambda: bitpack_cuda.place_streams_u32(streams, goff, **kw),
                 lambda: bitpack_cuda.place_streams_u32_plain(streams, goff,
                                                              **kw),
-                (streams, goff), lambda out: k9_ops, library_fn=lib_fn,
+                place_streams_work_of(goff), library_fn=lib_fn,
                 grid=bitpack_cuda.place_streams_grid(B, CAP_WORDS), ten=True)
     if not torch.equal(got, lib_words):
         raise AssertionError("K9 differs from one scatter_add_ on the "
@@ -2043,7 +2054,7 @@ def block_stream_kernels(torch, np, synth, card):
             lambda: bitpack_cuda.place_streams(streams, goff, total, **kw),
             lambda: bitpack_cuda.place_streams_plain(streams, goff, total,
                                                      **kw),
-            (streams, goff), lambda out: k9_ops, card, ten=True)
+            place_streams_work_of(goff), card, ten=True)
 
     check_pack(torch, results, card, c, emit_args)
     return results, (c64, sidx, dc_code, dc_bits)
@@ -2087,8 +2098,7 @@ def check_pack(torch, results, card, c, emit_args):
     out = compare(torch, results, 10, "pack_block_streams", "(B, NB + 1, 65)",
                   lambda: bitpack_cuda.pack_block_streams(codes, bits),
                   lambda: bitpack_cuda.pack_block_streams_plain(codes, bits),
-                  (codes, bits),
-                  lambda out: codes.numel() * rl.OPS_PACK_SYMBOL, card)
+                  lambda out: rl.pack_work(*codes.shape), card)
     row = results["pack_block_streams"]
     say(f"[10] pack_block_streams {tuple(codes.shape)} int32: "
         f"{rl.nbytes(codes, bits, *out) / row['ms'] / 1e6:.0f} GB/s moved, "
@@ -2293,8 +2303,7 @@ def gather_kernel(torch, k3_inputs, card):
                       vals32, e0, capacity_words=CAP_WORDS),
                   lambda: bitpack_cuda.place_vals_gather_plain(
                       vals32, e0, capacity_words=CAP_WORDS),
-                  (vals32, e0), lambda out: vals32.numel() * rl.OPS_PLACE_WORD,
-                  card, library_fn=lib_fn,
+                  place_work_of(e0), card, library_fn=lib_fn,
                   grid=bitpack_cuda.place_vals_gather_grid(B, CAP_WORDS))
     k4 = bitpack_cuda.place_vals(vals32, e0, capacity_words=CAP_WORDS)
     past = int(e0[UNFIT_FRAME, -1]) - (CAP_WORDS + 1) // 2
@@ -2678,6 +2687,29 @@ def native_phase(torch, np, synth, card):
     return launches
 
 
+BENCH_TIMEOUT_S = 300
+
+
+def bench_phase(torch, card):
+    """Phase 14: ``bench_torch.py --quick`` in a subprocess on the card
+    (the kernels and the native library already built); its last line
+    parsed and printed."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--quick"],
+        cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 14: bench_torch.py --quick exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not line.get("value", 0) > 0 \
+            or line.get("device") != torch.cuda.get_device_name(0):
+        raise AssertionError(f"phase 14: bench_torch.py's last line {line}")
+    say(f"[14] bench_torch.py --quick exited 0 in {time.time() - t0:.1f} s "
+        f"on {card}; its last line: {json.dumps(line)}")
+
+
 def main():
     import argparse
 
@@ -2758,6 +2790,7 @@ def main():
         raise AssertionError(f"phases 4-12 called the native library: "
                              f"{tiers.COUNTERS}")
     native = native_phase(torch, np, synth, card)
+    bench_phase(torch, card)
 
     kernels = []
     for name, source, replaces in KERNELS:

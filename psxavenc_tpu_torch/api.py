@@ -240,38 +240,17 @@ def bs_encode_frames(frames, budgets, *, codec, width, height,
 
 def _select_stages(codec, width, height, st):
     """The fused select stage (psxavenc_tpu's ``select_frames_pixels``) as
-    ordered (name, fn) stages: pixel rows, DC stage, AC threshold, FDCT +
-    scale search (K1), totals. Each fn(s) reads what the stages before it
+    ordered (name, fn) stages: pixel rows, then ``ops.bs.select_stages``
+    (DC stage, AC threshold, FDCT + scale search (K1), totals) on ``st``'s
+    kernels or plain versions. Each fn(s) reads what the stages before it
     put into the dict ``s`` (first ``frames`` and ``budgets``) and adds
     its own results."""
 
     def nv21(s):
         s["pix"] = bs_ops.rearrange_nv21_rows(s["frames"], width, height)
 
-    def dc(s):
-        dc_q = bs_ops.dc_quant_from_pixrows(s["pix"])
-        if codec == bs_ops.BS_V2:
-            s["dc_bits"], s["dc_code"] = bs_ops._dc_stage(dc_q, codec)
-        else:
-            s["dc_bits"], s["dc_code"] = st.dc_stage(dc_q, codec)
-        s["dc_total"] = s["dc_bits"].sum(dim=1, dtype=torch.int32)
-
-    def threshold(s):
-        s["thr"] = bs_ops.ac_threshold(s["budgets"], s["dc_total"],
-                                       s["pix"].shape[2])
-
-    def k1(s):
-        s["scale"], s["ac_bits"], s["nz_count"], s["c"] = st.select(
-            s["pix"], s["thr"])
-
-    def totals(s):
-        # Unfittable frames emit at scale 1 (the caller raises for them).
-        s["scale_idx"] = torch.where(s["scale"] <= 63, s["scale"] - 1, 0)
-        s["total_bits"] = s["ac_bits"] + s["dc_total"] + \
-            2 * s["pix"].shape[2] + 10
-
-    return [("nv21", nv21), ("dc", dc), ("threshold", threshold),
-            ("k1", k1), ("totals", totals)]
+    return [("nv21", nv21)] + bs_ops.select_stages(codec, st.dc_stage,
+                                                   st.select)
 
 
 def _emit_stages(packer, prep, eof, capacity_words, st):

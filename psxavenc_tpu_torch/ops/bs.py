@@ -561,3 +561,64 @@ def ac_threshold(budgets, dc_total, nb):
     mdec.c:321-333)."""
     half = torch.div(budgets.to(torch.int32) - 8, 2, rounding_mode="floor")
     return half * 16 - (dc_total + 2 * nb + 10)
+
+
+
+def select_stages(codec, dc_stage, select):
+    """The fused select stage after the rearrange as ordered (name, fn)
+    stages: ``dc`` (the DC sums; ``dc_stage``, K2 or its plain version, for
+    v3/v3dc), ``threshold`` (the AC fit threshold), ``k1`` (``select``:
+    K1's FDCT and scale search, or its plain version) and ``totals``. Each
+    fn(s) reads what the stages before it put into the dict ``s`` (first
+    ``pix`` and ``budgets``) and adds its own results."""
+
+    def dc(s):
+        dc_q = dc_quant_from_pixrows(s["pix"])
+        if codec == BS_V2:
+            s["dc_bits"], s["dc_code"] = _dc_stage(dc_q, codec)
+        else:
+            s["dc_bits"], s["dc_code"] = dc_stage(dc_q, codec)
+        s["dc_total"] = s["dc_bits"].sum(dim=1, dtype=torch.int32)
+
+    def threshold(s):
+        s["thr"] = ac_threshold(s["budgets"], s["dc_total"],
+                                s["pix"].shape[2])
+
+    def k1(s):
+        s["scale"], s["ac_bits"], s["nz_count"], s["c"] = select(
+            s["pix"], s["thr"])
+
+    def totals(s):
+        # Unfittable frames emit at scale 1 (the caller raises for them).
+        s["scale_idx"] = torch.where(s["scale"] <= 63, s["scale"] - 1, 0)
+        s["total_bits"] = s["ac_bits"] + s["dc_total"] + \
+            2 * s["pix"].shape[2] + 10
+
+    return [("dc", dc), ("threshold", threshold), ("k1", k1),
+            ("totals", totals)]
+
+
+def select_frames_pixels(pix, frame_max_sizes, *, codec):
+    """Scale selection straight from the (B, 64, NB) pixel-row layout (see
+    :func:`rearrange_nv21_rows`) and (B,) byte budgets: :func:`select_stages`
+    through the kernels' wrappers (K2 for v3/v3dc, K1) on the pixels'
+    device.
+
+    Counterpart of psxavenc_tpu's ``select_frames_pixels``, with its dict:
+    ``scale`` (64 = unfittable), ``scale_idx``, ``nz_count``,
+    ``total_bits``, ``dc_bits``, ``dc_code`` and ``c64``, K1's (B, 64,
+    nb_pad) int16 signed zigzag coefficient rows (row 63 and the pad lanes
+    zero), the input of the emission kernels.
+    """
+    from . import bs_cuda           # bs_cuda imports this module
+
+    if pix.dim() != 3 or pix.shape[1] != 64:
+        raise ValueError("select_frames_pixels: pix must be (B, 64, NB)")
+    s = {"pix": pix, "budgets": frame_max_sizes}
+    for _, fn in select_stages(codec, bs_cuda.dc_stage,
+                               bs_cuda.select_scale_pix):
+        fn(s)
+    return {"scale": s["scale"], "scale_idx": s["scale_idx"],
+            "nz_count": s["nz_count"], "total_bits": s["total_bits"],
+            "dc_bits": s["dc_bits"], "dc_code": s["dc_code"],
+            "c64": s["c"]}

@@ -8,9 +8,9 @@ shardings over a device mesh and lets jit move the data, a step here
 takes an explicit list of devices, copies shard i of every input to
 device i, runs the single-device API on it and concatenates the outputs
 on the first device; ``encode_step_sharded``'s statistics are summed
-after that gather, which is what the JAX ``psum`` gives. So the JAX
-module's ``shard_batch`` has no counterpart: a step takes the whole
-batch.
+after that gather, which is what the JAX ``psum`` gives. A step takes
+the whole batch; ``shard_batch`` gives the shards themselves, each on its
+device, as the JAX module's ``shard_batch`` places a sharded array.
 
 On CUDA each shard runs on a stream of its own on its own device. The
 shard streams wait for the caller's current stream before they read the
@@ -53,6 +53,25 @@ def make_mesh(devices=None):
     return device_list(devices)
 
 
+def _shard_sizes(n_devices, batch):
+    if batch % n_devices:
+        raise ValueError(f"a batch of {batch} does not divide over "
+                         f"{n_devices} devices; pad it to a multiple")
+    return [batch // n_devices] * n_devices
+
+
+def shard_batch(devices, tensor):
+    """``tensor``'s leading (batch) axis cut into one equal shard per
+    device of ``devices`` (the shard sizes of a split step), shard i
+    copied to device i -> the list of shards. A batch that does not
+    divide raises."""
+    devices = make_mesh(devices)
+    tensor = torch.as_tensor(tensor)
+    sizes = _shard_sizes(len(devices), tensor.shape[0])
+    return [part.to(dev) for part, dev in
+            zip(torch.split(tensor, sizes), devices)]
+
+
 def _tensors(out):
     return list(out.values()) if isinstance(out, dict) else list(out)
 
@@ -76,11 +95,7 @@ class _Split:
 
     def shard_shapes(self, batch):
         """The batch size of each shard of a ``batch``-row call."""
-        n = len(self.devices)
-        if batch % n:
-            raise ValueError(f"a batch of {batch} does not divide over "
-                             f"{n} devices; pad it to a multiple")
-        return [batch // n] * n
+        return _shard_sizes(len(self.devices), batch)
 
     def __call__(self, *args):
         args = [torch.as_tensor(a) for a in args]

@@ -6,8 +6,10 @@ port's CUDA kernels (``csrc/``) instead of the TPU's vector unit. The
 least time the card could take for a piece of work is the larger of its
 bytes (each input read once, each output written once) over the card's
 memory rate and its integer operations over the SMs' int32 rate.
-``chip_smoke.py`` prints every kernel's bound from here, and a benchmark
-shares the same copy.
+Each kernel's bytes and operations are one ``*_work`` function here, of
+the kernel's shapes and of the counts that this run's data sets;
+``chip_smoke.py``, ``tools/torch_kernel_bench.py`` and
+``tools/torch_lint_docs.py`` (``PERF.md``'s kernel table) all call them.
 
 The per-element counts are read from the kernels' code (a quantize, a
 compare, a shift, a table lookup: one operation each); they are estimates
@@ -76,30 +78,129 @@ def _nonzero(coefs, scale, nb):
     return coefs[:, :63, :nb].abs() >= (d + 1) >> 1
 
 
-def emit_ops(coefs, scale, nb, blocks=None):
-    """The operations of the emission (K3, K7; the tail emission on the
-    (B, NB) mask ``blocks``) on this run's data: a zero test for every
-    coefficient, the quantize-and-code work for those whose level at the
-    frame's scale is nonzero, counted here, and the per-block work."""
+def nonzero_count(coefs, scale, nb, blocks=None):
+    """The AC levels of ``coefs`` nonzero at each frame's ``scale``, in
+    the blocks of the (B, NB) mask ``blocks`` where given."""
     nonzero = _nonzero(coefs, scale, nb)
-    n_blocks = coefs.shape[0] * nb
     if blocks is not None:
         nonzero = nonzero & blocks[:, None, :]
-        n_blocks = int(blocks.sum())
+    return int(nonzero.sum())
+
+
+def emit_block_ops(n_blocks, n_nonzero):
+    """The emission's operations (K3, K7, the tail emission's long
+    blocks): a zero test for every coefficient of ``n_blocks`` blocks, the
+    per-block work, and the quantize-and-code work of ``n_nonzero``
+    nonzero levels."""
     return (n_blocks * (63 * OPS_EMIT_ZERO + OPS_EMIT_BLOCK)
-            + int(nonzero.sum()) * OPS_EMIT_NONZERO)
+            + n_nonzero * OPS_EMIT_NONZERO)
 
 
 def nonzero_share(coefs, scale, nb):
     """The share of the AC levels that are nonzero at their frame's scale
     (``video_census``'s density)."""
-    return int(_nonzero(coefs, scale, nb).sum()) / (coefs.shape[0] * 63 * nb)
+    return nonzero_count(coefs, scale, nb) / (coefs.shape[0] * 63 * nb)
 
 
 def adpcm_ops(n_units, filter_count):
     """K5's operations on ``n_units`` units of 28 samples."""
     return n_units * 28 * (3 * filter_count * OPS_ADPCM_STEP
                            + filter_count * OPS_ADPCM_RESID)
+
+
+# ---- each kernel's work: (bytes, operations) --------------------------------
+# Bytes are each input read once and each output written once, at the
+# wrappers' dtypes: int8 pixel rows, int16 (B, 64, nb_pad) or int32 (B, 63,
+# NB) coefficients, int32 everything else. ``batch`` frames of ``nb``
+# blocks; ``nbe`` = nb + 1 with the end-of-frame block.
+I32 = 4
+
+
+def fdct_select_work(batch, nb, nb_pad, evals):
+    """K1: pixel rows and thresholds in; scale, AC bits, nonzero count
+    and the int16 coefficients out. ``evals``: the scale evaluations the
+    frames need (two a frame, one for scale 1 and unfittable frames)."""
+    return (batch * 64 * nb + batch * I32 + 3 * batch * I32
+            + batch * 64 * nb_pad * 2,
+            nb * (batch * OPS_FDCT_BLOCK + 63 * OPS_SCALE_EVAL * evals))
+
+
+def select_work(batch, nb, evals):
+    """K6: int32 (B, 63, NB) coefficients and thresholds in; scale, AC
+    bits and nonzero count out."""
+    return (batch * 63 * nb * I32 + batch * I32 + 3 * batch * I32,
+            nb * 63 * OPS_SCALE_EVAL * evals)
+
+
+def dc_work(batch, nb):
+    """K2: the quantized DCs in, DC bits and codes out."""
+    return 3 * batch * nb * I32, batch * nb * OPS_DC_BLOCK
+
+
+def emit_prep_work(batch, nb, coef_bytes, n_nonzero):
+    """K3: coefficients (``coef_bytes``), scales, DC codes and bits in;
+    nine placement words and an offset a block (and the EOF block), the
+    block totals and the frame totals out."""
+    nbe = nb + 1
+    return (coef_bytes + batch * I32 + 2 * batch * nb * I32
+            + batch * nbe * 9 * I32 + batch * nbe * I32
+            + batch * nb * I32 + batch * I32,
+            emit_block_ops(batch * nb, n_nonzero))
+
+
+def emit_pack_work(batch, nb, coef_bytes, n_nonzero):
+    """K7: K3's inputs; 16 stream words and the total a block out."""
+    return (coef_bytes + batch * I32 + 2 * batch * nb * I32
+            + batch * nb * 16 * I32 + batch * nb * I32,
+            emit_block_ops(batch * nb, n_nonzero))
+
+
+def place_work(batch, nbe, out_words):
+    """K4, K8: nine words and an offset a block in, ``out_words`` words a
+    frame out."""
+    return (batch * nbe * 9 * I32 + batch * nbe * I32
+            + batch * out_words * I32,
+            batch * nbe * 9 * OPS_PLACE_WORD)
+
+
+def place_streams_work(batch, nbe, out_words):
+    """K9: 16 stream words and an offset a block in, ``out_words`` words a
+    frame out."""
+    return (batch * nbe * 16 * I32 + batch * nbe * I32
+            + batch * out_words * I32,
+            batch * nbe * (16 * OPS_FUNNEL_WORD + 9 * OPS_PLACE_WORD))
+
+
+def pack_work(batch, nbe, slots):
+    """K10: codes and bit lengths of ``slots`` symbols a block in, 16
+    stream words and the total a block out."""
+    return (2 * batch * nbe * slots * I32 + batch * nbe * 16 * I32
+            + batch * nbe * I32,
+            batch * nbe * slots * OPS_PACK_SYMBOL)
+
+
+def tail_work(batch, nb, n_long=0, long_nonzero=0, coef_size=2,
+              tail_bytes=0):
+    """The tail emission: every block's total and the frames' scales read
+    and tested; for each of the ``n_long`` blocks over 256 bits, its
+    column of coefficients (``coef_size`` bytes each), its DC code and
+    bits and the emission of its ``long_nonzero`` nonzero levels; the
+    ``tail_bytes`` past the window and each long block's two boundary
+    words read and written."""
+    return (batch * nb * I32 + batch * I32
+            + n_long * (63 * coef_size + 8)
+            + 2 * (tail_bytes + 8 * n_long),
+            batch * nb * OPS_TAIL_BLOCK + emit_block_ops(n_long,
+                                                         long_nonzero))
+
+
+def adpcm_work(streams, units, filter_count, words):
+    """K5: 28 samples and a limit a unit and two states a stream in; the
+    header, ``words`` packed words and two states a unit out."""
+    n = streams * units
+    return (n * 28 * I32 + n * I32 + 2 * streams * I32
+            + n * (3 + words) * I32,
+            adpcm_ops(n, filter_count))
 
 
 # ---- the JAX module's API ---------------------------------------------------
@@ -141,30 +242,17 @@ def video_census(width=320, height=240, batch=128, capacity_words=9068,
     nine u32 words and an offset a block (and the EOF block)."""
     nb = (width // 16) * (height // 16) * 6
     nb_pad = -(-nb // 512) * 512              # ops.bs_cuda.nb_padded
-    i32 = 4
     cap32 = (capacity_words + 1) // 2
-    coefs = batch * 64 * nb_pad * 2
-    dc = batch * nb * i32
-    vals = batch * (nb + 1) * 9 * i32
-    e0 = batch * (nb + 1) * i32
-    stages = {
-        "K1": {"ops": nb * (batch * OPS_FDCT_BLOCK
-                            + 63 * OPS_SCALE_EVAL * EVALS_PER_FRAME * batch),
-               "bytes": batch * 64 * nb + batch * i32 + 3 * batch * i32
-               + coefs},
-    }
+    work = {"K1": fdct_select_work(batch, nb, nb_pad,
+                                   EVALS_PER_FRAME * batch)}
     if codec != 0:
-        stages["K2"] = {"ops": batch * nb * OPS_DC_BLOCK, "bytes": 3 * dc}
-    stages["K3"] = {
-        "ops": batch * nb * (63 * OPS_EMIT_ZERO + OPS_EMIT_BLOCK)
-        + nonzero_density * 63 * batch * nb * OPS_EMIT_NONZERO,
-        "bytes": coefs + batch * i32 + 2 * dc + vals + e0 + dc
-        + batch * i32}
-    stages["K4"] = {"ops": batch * (nb + 1) * 9 * OPS_PLACE_WORD,
-                    "bytes": vals + e0 + batch * cap32 * i32}
-    stages["tail"] = {"ops": batch * nb * OPS_TAIL_BLOCK,
-                      "bytes": dc + batch * i32}
-    return stages
+        work["K2"] = dc_work(batch, nb)
+    work["K3"] = emit_prep_work(batch, nb, batch * 64 * nb_pad * 2,
+                                nonzero_density * 63 * batch * nb)
+    work["K4"] = place_work(batch, nb + 1, cap32)
+    work["tail"] = tail_work(batch, nb)
+    return {k: {"ops": ops, "bytes": n_bytes}
+            for k, (n_bytes, ops) in work.items()}
 
 
 def speed_of_light_s(census, chip):

@@ -1,5 +1,5 @@
 """The port stands alone: no module of psxavenc_tpu_torch, and neither
-chip_smoke.py, the benches of the kernels nor the card tests' input
+chip_smoke.py, bench_torch.py, the port's tools nor the card tests' input
 helpers, imports JAX or the JAX package (psxavenc_tpu). Each file is
 parsed with ``ast``, so imports inside functions count too."""
 
@@ -13,7 +13,8 @@ FILES = sorted(p.relative_to(REPO).as_posix() for p in [
     *(REPO / "psxavenc_tpu_torch").rglob("*.py"),
     *(REPO / "tools").glob("torch_*.py")]) + \
     ["chip_smoke.py", "examples/torch_batch_api.py",
-     "tests/torch_emit_cases.py", "tests/torch_dc_pack_cases.py"]
+     "tests/torch_emit_cases.py", "tests/torch_dc_pack_cases.py",
+     "bench_torch.py"]
 FORBIDDEN = ("psxavenc_tpu", "jax")
 
 

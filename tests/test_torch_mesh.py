@@ -209,3 +209,27 @@ def test_batch_runner_with_several_devices(tmp_path, monkeypatch):
         one = pathlib.Path(jobs["g"][k][-1]).read_bytes()
         assert pathlib.Path(jobs["s"][k][-1]).read_bytes() == one
         assert len(one) > 0
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_shard_batch_matches_jax(split):
+    """shard_batch over the CPU named two and four times gives the shards
+    of psxavenc_tpu's shard_batch on a mesh of as many of the JAX tests'
+    virtual CPU devices: the same shapes and contents, shard for shard,
+    each on its device; a batch that does not divide raises."""
+    import jax
+
+    devices = SPLITS[split]
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (8, 3, 5)).astype(np.uint8)
+    jarr = jmesh.shard_batch(jmesh.make_mesh(jax.devices()[:len(devices)]),
+                             frames)
+    want = [np.asarray(s.data) for s in sorted(
+        jarr.addressable_shards, key=lambda s: s.index[0].start or 0)]
+    got = mesh.shard_batch(devices, torch.from_numpy(frames))
+    assert len(got) == len(want) == len(devices)
+    for g, w, dev in zip(got, want, devices):
+        assert g.device == dev and g.dtype == torch.uint8
+        assert g.shape == w.shape and np.array_equal(g.numpy(), w)
+    with pytest.raises(ValueError, match="does not divide"):
+        mesh.shard_batch(devices, frames[:len(devices) + 1])

@@ -112,3 +112,28 @@ def test_streams_to_u32_matches_jax():
                              torch.from_numpy(goff))
     assert_same(want[0], got[0], u32=True)
     assert_same(want[1], got[1])
+
+
+@pytest.mark.parametrize("codec", [jbs.BS_V2, jbs.BS_V3, jbs.BS_V3DC])
+def test_select_frames_pixels_matches_jax(monkeypatch, codec):
+    """ops.bs.select_frames_pixels equals psxavenc_tpu's (its Pallas
+    kernels in interpret mode) key for key on 32x32 frames, one of them
+    noise and one with a budget too small for any scale."""
+    from psxavenc_tpu.ops import bs_pallas as jbsp
+
+    for fn in ("select_scale_pix_pallas", "dc_stage_pallas"):
+        monkeypatch.setattr(jbsp, fn, functools.partial(getattr(jbsp, fn),
+                                                        interpret=True))
+    frames = video_frames(32, 32, 3, seed=9)
+    budgets = np.array([900, 400, 1500, 60], np.int32)
+    pix = np.stack([np.asarray(jbs.rearrange_nv21_rows(jnp.asarray(f), 32,
+                                                       32)) for f in frames])
+    want = jbs.select_frames_pixels(jnp.asarray(pix), jnp.asarray(budgets),
+                                    codec=codec)
+    got = tbs.select_frames_pixels(
+        tbs.rearrange_nv21_rows(torch.from_numpy(frames), 32, 32),
+        torch.from_numpy(budgets), codec=codec)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert_same(want[k], got[k], name=k, u32=k == "dc_code")
+    assert int(got["scale"][3]) == 64

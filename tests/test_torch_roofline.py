@@ -35,7 +35,9 @@ def test_chip_smoke_assigns_no_bound_constants():
             names.add(node.name)
     own = sorted(n for n in names if n.startswith("OPS_")
                  or n in ("INT32_OPS_PER_S", "HBM_BYTES_PER_S", "bound",
-                          "nbytes", "emit_ops", "adpcm_ops"))
+                          "nbytes", "nonzero_count", "emit_block_ops",
+                          "adpcm_ops")
+                 or (n.endswith("_work") and hasattr(rl, n)))
     assert own == []
     assert cs.rl is rl
 
@@ -50,7 +52,9 @@ def _k5_bytes(streams, units, shift_range=12):
 
 @pytest.mark.parametrize("units,ms", [(64, 0.1492), (1000, 2.331)])
 def test_k5_bound_is_the_tables(units, ms):
-    got, by = rl.bound(_k5_bytes(4096, units), rl.adpcm_ops(4096 * units, 5))
+    work = rl.adpcm_work(4096, units, 5, adpcm_cuda.n_words(12))
+    assert work == (_k5_bytes(4096, units), rl.adpcm_ops(4096 * units, 5))
+    got, by = rl.bound(*work)
     assert by == "operations"
     assert round(got, 4 if units == 64 else 3) == ms
     # The audio report's speed of light is the same bound.
@@ -125,9 +129,109 @@ def test_emit_ops_counts_this_runs_nonzero_levels():
     nb = 300
     share = rl.nonzero_share(coefs, scale, nb)
     assert 0 < share < 1
-    ops = rl.emit_ops(coefs, scale, nb)
+    n = rl.nonzero_count(coefs, scale, nb)
+    assert n == round(share * 2 * 63 * nb)
+    ops = rl.emit_prep_work(2, nb, rl.nbytes(coefs), n)[1]
     assert ops == (2 * nb * (63 * rl.OPS_EMIT_ZERO + rl.OPS_EMIT_BLOCK)
-                   + round(share * 2 * 63 * nb) * rl.OPS_EMIT_NONZERO)
+                   + n * rl.OPS_EMIT_NONZERO)
+    assert rl.emit_pack_work(2, nb, rl.nbytes(coefs), n)[1] == ops
     blocks = torch.zeros((2, nb), dtype=torch.bool)
-    blocks[1, :10] = True
-    assert rl.emit_ops(coefs, scale, nb, blocks) < ops
+    blocks[0, :10] = True
+    n_long = rl.nonzero_count(coefs, scale, nb, blocks)
+    assert 0 < n_long < n
+    assert rl.tail_work(2, nb, 10, n_long)[1] == (
+        2 * nb * rl.OPS_TAIL_BLOCK + rl.emit_block_ops(10, n_long))
+
+
+def _video_case():
+    """Three 32x32 noise frames of a numpy seed, the last unfittable, as
+    the main path selects them on the plain versions (BS v2)."""
+    from psxavenc_tpu_torch.ops import bs as bs_ops
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    frames = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (3, 32 * 32 * 3 // 2)).astype(np.uint8))
+    budgets = torch.tensor([900, 1500, 60], dtype=torch.int32)
+    pix = bs_ops.rearrange_nv21_rows(frames, 32, 32)
+    dc_q = bs_ops.dc_quant_from_pixrows(pix)
+    dc_bits, dc_code = bs_ops._dc_stage(dc_q, bs_ops.BS_V2)
+    thr = bs_ops.ac_threshold(budgets, dc_bits.sum(dim=1, dtype=torch.int32),
+                              pix.shape[2])
+    k1 = bs_cuda.select_scale_pix_plain(pix, thr)
+    assert k1[0].tolist()[2] == 64 and 1 < min(k1[0].tolist()[:2])
+    sidx = torch.where(k1[0] <= 63, k1[0], 1)
+    return {"pix": pix, "thr": thr, "dc_q": dc_q, "k1": k1,
+            "c": bs_ops.pixrows_to_coefs_zz(pix).contiguous(),
+            "emit_args": (sidx, dc_code, dc_bits)}
+
+
+def _calls(v):
+    """kernel -> (inputs, plain version's outputs, chip_smoke's work
+    function for the call) on ``_video_case``'s data."""
+    from psxavenc_tpu_torch.ops import bitpack as bitpack_ops
+    from psxavenc_tpu_torch.ops import bitpack_cuda, bs_cuda
+
+    cap = 400
+    nb = v["pix"].shape[2]
+    c64, (sidx, dc_code, dc_bits) = v["k1"][3], v["emit_args"]
+    prep = bs_cuda.emit_prep_plain(c64, *v["emit_args"], eof=0x1FF)
+    pack = bs_cuda.emit_pack_plain(v["c"], *v["emit_args"])
+    streams, bb = bitpack_ops.with_eof_block(*pack, 0x1FF)
+    goff = torch.cumsum(bb, dim=1, dtype=torch.int32) - bb
+    codes, bits = torch.zeros((3, nb + 1, 65), dtype=torch.int32), \
+        torch.zeros((3, nb + 1, 65), dtype=torch.int32)
+    units = torch.zeros((2, 3, 28), dtype=torch.int32)
+    limits = torch.full((2, 3), 28, dtype=torch.int32)
+    z = torch.zeros((2,), dtype=torch.int32)
+    k5 = adpcm_cuda.encode_units_plain(units, limits, z, z, filter_count=5,
+                                       shift_range=12)
+    return {
+        "K1": ((v["pix"], v["thr"]), v["k1"],
+               cs.select_work_of(torch, nb, True)),
+        "K2": ((v["dc_q"],), bs_cuda.dc_stage_plain(v["dc_q"], 2),
+               lambda out: rl.dc_work(*v["dc_q"].shape)),
+        "K3": ((c64, *v["emit_args"]), prep,
+               cs.emit_work_of(rl.emit_prep_work, c64, sidx, nb)),
+        "K4": (prep[:2], bitpack_cuda.place_vals_plain(
+            *prep[:2], capacity_words=cap), cs.place_work_of(prep[1])),
+        "K5": ((units, limits, z, z), k5,
+               lambda out: rl.adpcm_work(2, 3, 5, out[1].shape[2])),
+        "K6": ((v["c"], v["thr"]), bs_cuda.select_scale_plain(v["c"],
+                                                              v["thr"]),
+               cs.select_work_of(torch, nb, False)),
+        "K7": ((v["c"], *v["emit_args"]), pack,
+               cs.emit_work_of(rl.emit_pack_work, v["c"], sidx, nb)),
+        "K8": (prep[:2], bitpack_cuda.place_vals_gather_plain(
+            *prep[:2], capacity_words=cap), cs.place_work_of(prep[1])),
+        "K9": ((streams, goff), bitpack_cuda.place_streams_u32_plain(
+            streams, goff, capacity_words=cap),
+            cs.place_streams_work_of(goff)),
+        "K10": ((codes, bits), bitpack_cuda.pack_block_streams_plain(
+            codes, bits), lambda out: rl.pack_work(*codes.shape)),
+        "tail": ((prep[2], sidx), None,
+                 lambda out: rl.tail_work(*prep[2].shape)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6",
+                                    "K7", "K8", "K9", "K10", "tail"])
+def test_work_bytes_are_the_calls_inputs_and_outputs(kernel):
+    """Each kernel's work function, as chip_smoke.py calls it, counts
+    every input and output of the call once at its dtype (the tail
+    emission with no block over 256 bits reads the block totals and the
+    scales only)."""
+    inputs, out, work = _calls(_video_case())[kernel]
+    outs = () if out is None else out if isinstance(out, tuple) else (out,)
+    assert work(out)[0] == rl.nbytes(*inputs, *outs)
+
+
+def test_select_work_counts_the_datas_evaluations():
+    """K1 and K6 evaluate two scales a fitting frame and one for the
+    unfittable frame (the 2B - 1 of PERF.md's K6 row)."""
+    v = _video_case()
+    nb = v["pix"].shape[2]
+    k1 = cs.select_work_of(torch, nb, True)(v["k1"])
+    assert k1 == rl.fdct_select_work(3, nb, v["k1"][3].shape[2], 5)
+    assert k1[1] == nb * (3 * rl.OPS_FDCT_BLOCK + 63 * rl.OPS_SCALE_EVAL * 5)
+    assert cs.select_work_of(torch, nb, False)(v["k1"])[1] == \
+        nb * 63 * rl.OPS_SCALE_EVAL * 5

@@ -25,7 +25,8 @@ on the plan's route and at 1, 2 and 4 segments a stream (ports
 tools/audio_kernel_bench.py). --tree measures another checkout's
 package (for example the parent commit unpacked under build/) with this
 checkout's checks and timers (it needs that package's
-``utils/roofline.py``, which chip_smoke.py imports); where that package
+``utils/roofline.py`` with its ``*_work`` functions, which chip_smoke.py
+imports); where that package
 names no launch grid, the empty launches are left out. Each kernel is held to its plain version as
 chip_smoke holds it (a mismatch raises) and timed as its rows are
 (``chip_smoke.graph_ms``); chip_smoke's lines are printed as they come, and
@@ -93,15 +94,16 @@ def emit_rows(torch, np, synth, cs, card):
             torch, rows, "bench", "emit_prep", label,
             lambda: bs_cuda.emit_prep(c64, *args, eof=0x1FF),
             lambda: bs_cuda.emit_prep_plain(c64, *args, eof=0x1FF),
-            (c64, *args), lambda out: cs.rl.emit_ops(c64, sidx, nb), card)
+            cs.emit_work_of(cs.rl.emit_prep_work, c64, sidx, nb), card)
         cs.emit_stats_line(torch, "bench", c64, args, 0x1FF, card)
         c63 = c64[:, :63, :nb].to(torch.int32).contiguous()
         for form, c in (("(63, NB) int32", c63), ("(64, nb_pad) int16", c64)):
             row = {}
             cs.compare(torch, row, "bench", "emit_pack", f"{label}, {form}",
                        lambda: bs_cuda.emit_pack(c, *args),
-                       lambda: bs_cuda.emit_pack_plain(c, *args), (c, *args),
-                       lambda out: cs.rl.emit_ops(c, sidx, nb), card)
+                       lambda: bs_cuda.emit_pack_plain(c, *args),
+                       cs.emit_work_of(cs.rl.emit_pack_work, c, sidx, nb),
+                       card)
             rows[f"emit_pack {form}"] = row["emit_pack"]
         placed = bitpack_cuda.place_vals(vals32, e0,
                                          capacity_words=cs.CAP_WORDS)
@@ -153,20 +155,19 @@ def small_rows(torch, np, synth, cs, card):
         vals32, e0, block_bits, _ = bs_cuda.emit_prep(c64, *args, eof=0x1FF)
         b, nbe = e0.shape
         lib_fn, _ = cs.scatter_add_call(torch, vals32, e0)
-        place_ops = vals32.numel() * cs.rl.OPS_PLACE_WORD
         rows = {}
         placed = cs.compare(
             torch, rows, "bench", "place_vals", label,
             lambda: bitpack_cuda.place_vals(vals32, e0, **kw),
             lambda: bitpack_cuda.place_vals_plain(vals32, e0, **kw),
-            (vals32, e0), lambda out: place_ops, card, library_fn=lib_fn,
+            cs.place_work_of(e0), card, library_fn=lib_fn,
             grid=_grid(bitpack_cuda, "place_vals_grid", batch=b,
                        capacity_words=cs.CAP_WORDS))
         cs.compare(
             torch, rows, "bench", "place_vals_gather", label,
             lambda: bitpack_cuda.place_vals_gather(vals32, e0, **kw),
             lambda: bitpack_cuda.place_vals_gather_plain(vals32, e0, **kw),
-            (vals32, e0), lambda out: place_ops, card, library_fn=lib_fn,
+            cs.place_work_of(e0), card, library_fn=lib_fn,
             grid=_grid(bitpack_cuda, "place_vals_gather_grid", batch=b,
                        capacity_words=cs.CAP_WORDS))
         cs.tail_compare(torch, rows, "bench", label, placed, c64, args,
@@ -178,15 +179,12 @@ def small_rows(torch, np, synth, cs, card):
         total = goff[:, -1] + bb[:, -1]
         k9_grid = _grid(bitpack_cuda, "place_streams_grid", batch=b,
                         nbe=nbe, capacity_words=cs.CAP_WORDS)
-        k9_ops = b * nbe * (16 * cs.rl.OPS_FUNNEL_WORD
-                            + 9 * cs.rl.OPS_PLACE_WORD)
         cs.compare(
             torch, rows, "bench", "place_streams", f"{label}, u16 values",
             lambda: bitpack_cuda.place_streams(streams, goff, total, **kw),
             lambda: bitpack_cuda.place_streams_plain(streams, goff, total,
                                                      **kw),
-            (streams, goff), lambda out: k9_ops, card, grid=k9_grid,
-            ten=True)
+            cs.place_streams_work_of(goff), card, grid=k9_grid, ten=True)
         if hasattr(bitpack_cuda, "place_streams_u32"):
             vals, e0s = bitpack_ops.streams_to_u32(streams, goff)
             lib_fn, _ = cs.scatter_add_call(
@@ -197,8 +195,8 @@ def small_rows(torch, np, synth, cs, card):
                 lambda: bitpack_cuda.place_streams_u32(streams, goff, **kw),
                 lambda: bitpack_cuda.place_streams_u32_plain(streams, goff,
                                                              **kw),
-                (streams, goff), lambda out: k9_ops, card,
-                library_fn=lib_fn, grid=k9_grid, ten=True)
+                cs.place_streams_work_of(goff), card, library_fn=lib_fn,
+                grid=k9_grid, ten=True)
             rows["place_streams_u32"] = row["place_streams"]
         yield label, rows
 
@@ -228,19 +226,19 @@ def select_rows(torch, np, synth, cs, card):
                    f"phase 3, {label}",
                    lambda: bs_cuda.select_scale_pix(pix, thr),
                    lambda: bs_cuda.select_scale_pix_plain(pix, thr),
-                   (pix, thr), cs.select_ops(torch, nb, 1), card)
+                   cs.select_work_of(torch, nb, True), card)
         cs.compare(torch, rows, "bench", "select_scale",
                    f"phase 3's pixels as coefficient rows, {label}",
                    lambda: bs_cuda.select_scale(c, thr),
-                   lambda: bs_cuda.select_scale_plain(c, thr), (c, thr),
-                   cs.select_ops(torch, nb, 0), card)
+                   lambda: bs_cuda.select_scale_plain(c, thr),
+                   cs.select_work_of(torch, nb, False), card)
         yield f"phase 3, {label}", rows
     _, c, thr, _, _ = cs.symbol_inputs(torch, np, synth)
     rows = {}
     cs.compare(torch, rows, "bench", "select_scale", "phase 10",
                lambda: bs_cuda.select_scale(c, thr),
-               lambda: bs_cuda.select_scale_plain(c, thr), (c, thr),
-               cs.select_ops(torch, c.shape[2], 0), card)
+               lambda: bs_cuda.select_scale_plain(c, thr),
+               cs.select_work_of(torch, c.shape[2], False), card)
     yield "phase 10", rows
 
 
@@ -293,8 +291,8 @@ def adpcm_rows(torch, np, synth, cs, card):
         ms = cs.graph_ms(torch, kernel_fn, reps=5)
         serial_ms = cs.graph_ms(
             torch, lambda: kernel_fn(segments=1), reps=3) if plan else None
-        bound_ms, bound_by = cs.rl.bound(cs.rl.nbytes(*args, *out),
-                                         cs.rl.adpcm_ops(B * T, fc))
+        bound_ms, bound_by = cs.rl.bound(*cs.rl.adpcm_work(
+            B, T, fc, out[1].shape[2]))
         serial = (f"; segments=1 {serial_ms:.4f} ms, the plan's "
                   f"{plan(B, T)} segments a stream "
                   f"{ms / serial_ms:.4f}x of it" if plan else "")
