@@ -59,6 +59,7 @@ from . import cli_args as ca
 from .io import ingest
 from .models import adpcm_stream as streams
 from .parallel import mesh
+from .utils import spans
 
 AUDIO_FORMATS = (ca.FORMAT_XA, ca.FORMAT_XACD, ca.FORMAT_SPU,
                  ca.FORMAT_VAG, ca.FORMAT_SPUI, ca.FORMAT_VAGI)
@@ -114,37 +115,38 @@ def _encode_audio_groups(reqs, device, quiet=False):
     for i, r in enumerate(reqs):
         groups.setdefault((r["fc"], r["sr"]), []).append(i)
     for (fc, sr), idxs in groups.items():
-        t_max = max(reqs[i]["lim"].shape[1] for i in idxs)
-        b_tot = sum(reqs[i]["lim"].shape[0] for i in idxs)
-        units = torch.zeros((b_tot, t_max, streams.SAMPLES_PER_UNIT),
-                            dtype=torch.int32)
-        lim = torch.zeros((b_tot, t_max), dtype=torch.int32)
-        p1 = np.zeros(b_tot, np.int32)
-        p2 = np.zeros(b_tot, np.int32)
-        state_t = np.zeros(b_tot, np.int64)
-        b0 = 0
-        for i in idxs:
-            r = reqs[i]
-            b, t = r["lim"].shape
-            units[b0:b0 + b, :t] = r["units"]
-            lim[b0:b0 + b, :t] = r["lim"]
-            state_t[b0:b0 + b] = t - 1
-            if r["prev1"] is not None:
-                p1[b0:b0 + b] = r["prev1"]
-                p2[b0:b0 + b] = r["prev2"]
-            b0 += b
-        if not quiet:
-            print(f"[batch] audio group fc={fc} sr={sr}: "
-                  f"{len(idxs)} jobs, {b_tot} streams x {t_max} units "
-                  f"in one device call", file=sys.stderr)
-        h, n, s1, s2 = _grouped_unit_encode(units, lim, fc, sr, p1, p2,
-                                            state_t, device)
-        b0 = 0
-        for i in idxs:
-            b, t = reqs[i]["lim"].shape
-            out[i] = (h[b0:b0 + b, :t], n[b0:b0 + b, :t],
-                      s1[b0:b0 + b], s2[b0:b0 + b])
-            b0 += b
+        with spans.span("batch.encode"):
+            t_max = max(reqs[i]["lim"].shape[1] for i in idxs)
+            b_tot = sum(reqs[i]["lim"].shape[0] for i in idxs)
+            units = torch.zeros((b_tot, t_max, streams.SAMPLES_PER_UNIT),
+                                dtype=torch.int32)
+            lim = torch.zeros((b_tot, t_max), dtype=torch.int32)
+            p1 = np.zeros(b_tot, np.int32)
+            p2 = np.zeros(b_tot, np.int32)
+            state_t = np.zeros(b_tot, np.int64)
+            b0 = 0
+            for i in idxs:
+                r = reqs[i]
+                b, t = r["lim"].shape
+                units[b0:b0 + b, :t] = r["units"]
+                lim[b0:b0 + b, :t] = r["lim"]
+                state_t[b0:b0 + b] = t - 1
+                if r["prev1"] is not None:
+                    p1[b0:b0 + b] = r["prev1"]
+                    p2[b0:b0 + b] = r["prev2"]
+                b0 += b
+            if not quiet:
+                print(f"[batch] audio group fc={fc} sr={sr}: "
+                      f"{len(idxs)} jobs, {b_tot} streams x {t_max} units "
+                      f"in one device call", file=sys.stderr)
+            h, n, s1, s2 = _grouped_unit_encode(units, lim, fc, sr, p1, p2,
+                                                state_t, device)
+            b0 = 0
+            for i in idxs:
+                b, t = reqs[i]["lim"].shape
+                out[i] = (h[b0:b0 + b, :t], n[b0:b0 + b, :t],
+                          s1[b0:b0 + b], s2[b0:b0 + b])
+                b0 += b
     return out
 
 
@@ -168,10 +170,12 @@ def _grouped_unit_encode(units, lim, fc, sr, p1, p2, state_t, devices):
     step = mesh.unit_encode_step(devices, filter_count=fc, shift_range=sr)
     h, values, s1, s2 = step(units, lim, p1, p2)
     rows = torch.arange(B, device=s1.device)
-    t_idx = torch.from_numpy(np.asarray(state_t, np.int64)).to(s1.device)
-    return (h[:B].to(torch.uint8).cpu().numpy(),
-            values[:B].to(torch.uint8).cpu().numpy(),
-            s1[rows, t_idx].cpu().numpy(), s2[rows, t_idx].cpu().numpy())
+    t_idx = streams.upload(np.asarray(state_t, np.int64), s1.device)
+    h, values = h[:B].to(torch.uint8), values[:B].to(torch.uint8)
+    s1, s2 = s1[rows, t_idx], s2[rows, t_idx]
+    with spans.span("adpcm.read_back"):
+        return (streams.read_back(h), streams.read_back(values),
+                streams.read_back(s1), streams.read_back(s2))
 
 
 class _ThreadStderr:
@@ -286,22 +290,23 @@ class _ChunkBatcher:
         self.cv.notify_all()
 
 
-def _finish(args, dec, device, **inject):
-    """The mux pass of a planned job: open the output and run the
-    container with the injected encoder or frames; returns the exit
-    code."""
-    try:
-        output = open(args.output_file, "wb")
-    except OSError:
-        print(f"Failed to open output file: {args.output_file}",
-              file=sys.stderr)
-        return 1
-    try:
-        with output:
-            return cli._dispatch(args, dec, output, device, **inject)
-    except (RuntimeError, NotImplementedError) as e:
-        print(f"Error: {e}", file=sys.stderr)
-        return 1
+def _finish(args, dec, device, key=None, **inject):
+    """The mux pass of a planned job (span ``batch.replay``, keyed by the
+    job's index ``key``): open the output and run the container with the
+    injected encoder or frames; returns the exit code."""
+    with spans.span("batch.replay", key):
+        try:
+            output = open(args.output_file, "wb")
+        except OSError:
+            print(f"Failed to open output file: {args.output_file}",
+                  file=sys.stderr)
+            return 1
+        try:
+            with output:
+                return cli._dispatch(args, dec, output, device, **inject)
+        except (RuntimeError, NotImplementedError) as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 1
 
 
 def _run_streaming_audio(plan, rcs, device, quiet=False):
@@ -316,7 +321,7 @@ def _run_streaming_audio(plan, rcs, device, quiet=False):
     def run_one(k, i, args, dec):
         bufs[k] = mux.register()
         try:
-            rcs[i] = _finish(args, dec, device,
+            rcs[i] = _finish(args, dec, device, key=i,
                              unit_encoder=batcher.encoder())
         except BaseException:
             rcs[i] = 1
@@ -418,16 +423,17 @@ def run_jobs(jobs, group=True, quiet=False, device="cuda"):
     rcs = [None] * len(jobs)
 
     parsed = []
-    for i, argv in enumerate(jobs):
-        args = ca.Args()
-        try:
-            ok = ca.parse_args(args, list(argv))
-        except ca.ArgError:
-            ok = False
-        if not ok:
-            rcs[i] = 1
-            continue
-        parsed.append((i, args))
+    with spans.span("batch.parse"):
+        for i, argv in enumerate(jobs):
+            args = ca.Args()
+            try:
+                ok = ca.parse_args(args, list(argv))
+            except ca.ArgError:
+                ok = False
+            if not ok:
+                rcs[i] = 1
+                continue
+            parsed.append((i, args))
 
     plan_audio = []   # (job index, args, dec, request index)
     plan_video = []   # (job index, args, dec, sources, budgets)
@@ -441,56 +447,58 @@ def run_jobs(jobs, group=True, quiet=False, device="cuda"):
                          and fmt not in VIDEO_FORMATS):
             serial.append((i, jobs[i]))
             continue
-        try:
-            dec = ingest.open_av_data(args, cli._DECODER_FLAGS[fmt])
-        except ingest.OpenError:
-            print(f"Failed to open input file: {args.input_file}",
-                  file=sys.stderr)
-            rcs[i] = 1
-            continue
-        except Exception as e:  # noqa: BLE001 — mirror cli.encode
-            print(str(e), file=sys.stderr)
-            print(f"Failed to open input file: {args.input_file}",
-                  file=sys.stderr)
-            rcs[i] = 1
-            continue
-        if isinstance(dec, ingest.StreamingDecoder):
+        with spans.span("batch.plan", i):
+            try:
+                dec = ingest.open_av_data(args, cli._DECODER_FLAGS[fmt])
+            except ingest.OpenError:
+                print(f"Failed to open input file: {args.input_file}",
+                      file=sys.stderr)
+                rcs[i] = 1
+                continue
+            except Exception as e:  # noqa: BLE001 — mirror cli.encode
+                print(str(e), file=sys.stderr)
+                print(f"Failed to open input file: {args.input_file}",
+                      file=sys.stderr)
+                rcs[i] = 1
+                continue
+            if isinstance(dec, ingest.StreamingDecoder):
+                if fmt in AUDIO_FORMATS:
+                    plan_stream.append((i, args, dec))
+                else:
+                    # Streaming video encodes lazily through the frame
+                    # encoder's own device batches; run it serially.
+                    dec.close()
+                    serial.append((i, jobs[i]))
+                continue
             if fmt in AUDIO_FORMATS:
-                plan_stream.append((i, args, dec))
+                n_before = len(audio_reqs)
+                capture = _capture_encoder(audio_reqs)
+                try:
+                    with contextlib.redirect_stderr(iomod.StringIO()):
+                        cli._dispatch(args, dec, iomod.BytesIO(), device,
+                                      unit_encoder=capture)
+                except _CaptureDone:
+                    pass
+                except (RuntimeError, NotImplementedError) as e:
+                    print(f"Error: {e}", file=sys.stderr)
+                    rcs[i] = 1
+                    continue
+                dec.reset()
+                if len(audio_reqs) == n_before:
+                    # No unit encode happened (an empty input): the planning
+                    # pass finished the job against a throwaway sink; run it
+                    # for real, serially.
+                    serial.append((i, jobs[i]))
+                    continue
+                plan_audio.append((i, args, dec, n_before))
             else:
-                # Streaming video encodes lazily through the frame
-                # encoder's own device batches; run it serially.
-                dec.close()
-                serial.append((i, jobs[i]))
-            continue
-        if fmt in AUDIO_FORMATS:
-            n_before = len(audio_reqs)
-            try:
-                with contextlib.redirect_stderr(iomod.StringIO()):
-                    cli._dispatch(args, dec, iomod.BytesIO(), device,
-                                  unit_encoder=_capture_encoder(audio_reqs))
-            except _CaptureDone:
-                pass
-            except (RuntimeError, NotImplementedError) as e:
-                print(f"Error: {e}", file=sys.stderr)
-                rcs[i] = 1
-                continue
-            dec.reset()
-            if len(audio_reqs) == n_before:
-                # No unit encode happened (an empty input): the planning
-                # pass finished the job against a throwaway sink; run it
-                # for real, serially.
-                serial.append((i, jobs[i]))
-                continue
-            plan_audio.append((i, args, dec, n_before))
-        else:
-            try:
-                sources, budgets = _video_plan(args, dec)
-            except (RuntimeError, NotImplementedError) as e:
-                print(f"Error: {e}", file=sys.stderr)
-                rcs[i] = 1
-                continue
-            plan_video.append((i, args, dec, sources, budgets))
+                try:
+                    sources, budgets = _video_plan(args, dec)
+                except (RuntimeError, NotImplementedError) as e:
+                    print(f"Error: {e}", file=sys.stderr)
+                    rcs[i] = 1
+                    continue
+                plan_video.append((i, args, dec, sources, budgets))
 
     audio_results = _encode_audio_groups(audio_reqs, device, quiet=quiet) \
         if audio_reqs else []
@@ -500,12 +508,13 @@ def run_jobs(jobs, group=True, quiet=False, device="cuda"):
 
     for (i, args, dec, req0) in plan_audio:
         # Each audio container makes exactly one unit-encode call.
-        rcs[i] = _finish(args, dec, device,
+        rcs[i] = _finish(args, dec, device, key=i,
                          unit_encoder=_replay_encoder([audio_results[req0]]))
     if plan_stream:
         _run_streaming_audio(plan_stream, rcs, device, quiet=quiet)
     for k, (i, args, dec, _s, _b) in enumerate(plan_video):
-        rcs[i] = _finish(args, dec, device, frame_results=video_results[k])
+        rcs[i] = _finish(args, dec, device, key=i,
+                         frame_results=video_results[k])
     for (i, argv) in serial:
         rcs[i] = _serial(argv, device)
 

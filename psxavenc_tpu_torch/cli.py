@@ -14,9 +14,17 @@ PSXAVENC_PROFILE=DIR runs the job under ``torch.profiler`` (host
 activity, and the cards' when the job runs on them) and writes a Chrome
 trace (``trace_<pid>_<ns>.json``) into DIR, also when the job fails; the
 CLI then prints "Profile written to DIR" on stderr unless ``-q``. The
-profiler's per-kernel device times read low late in a long process (about
-0.6 of a CUDA-graph replay's; PERF.md): time kernels with CUDA events or
-graph replays, and use the trace for the order of operations.
+trace carries the port's spans (``utils/spans.py``, on only while a
+profiler runs) as ``user_annotation`` events on the clock of the kernels
+and copies, one a batch, chunk or file: ``bs.open``, ``bs.stack``,
+``bs.stage``, ``bs.launch``, ``bs.wait``, ``bs.collect`` (the video
+encoder), ``ingest.open``, ``ingest.demux``, ``ingest.nv21``,
+``ingest.stack``, ``str.schedule``, ``str.sectors``, ``xa.encode``,
+``xa.assemble``, ``batch.parse``, ``batch.plan``, ``batch.encode``,
+``batch.replay``, ``adpcm.upload``, ``adpcm.kernel`` and
+``adpcm.read_back``. The profiler's per-kernel device times read low late
+in a long process: time kernels with CUDA events or graph replays, and use
+the trace for the order of operations and the host's stages.
 
     python -m psxavenc_tpu_torch.cli -t strcd -x 2 in.avi out.str
 """

@@ -22,6 +22,7 @@ from .. import cli_args as ca
 from ..io.ingest import source_for
 from ..models.bs_video import BsFrameEncoder
 from ..native import host
+from ..utils import spans
 from ..utils.progress import Progress
 from . import xa as xamod
 
@@ -257,23 +258,26 @@ def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
     buffer = np.zeros(buffer_size, dtype=np.uint8)
     progress = Progress(args)
     frame_count = 0
-    for desc in sectors:
-        if desc["video"]:
-            frame_count = desc["frame"]
-            fb, info = frames.frame(frame_count)
-            _write_video_sector(args, buffer, desc, fb, info, enc)
-            if desc["chunk_index"] == desc["chunk_count"] - 1:
-                frames.evict_below(frame_count + 1)
-        elif desc["length"] > 0:
-            xs, i = audio.sector(desc["audio_index"])
-            xs.write_sector(buffer, i, desc["lba"], desc["eoi"])
-            audio.evict(desc["audio_index"])
-        # length == 0: the reference writes the untouched buffer
-        # (filefmt.c:482-494 with an empty encode), i.e. previous bytes.
-        output.write(buffer[:sector_size].tobytes())
-        progress.print_str(frame_count, desc["lba"],
-                           frames.quant_scale_sum(frame_count),
-                           args.str_fps_num, args.str_fps_den)
+    # One span over the loop: its self time is the per-sector host work;
+    # the frame batches and audio chunks it pulls open their own.
+    with spans.span("str.sectors"):
+        for desc in sectors:
+            if desc["video"]:
+                frame_count = desc["frame"]
+                fb, info = frames.frame(frame_count)
+                _write_video_sector(args, buffer, desc, fb, info, enc)
+                if desc["chunk_index"] == desc["chunk_count"] - 1:
+                    frames.evict_below(frame_count + 1)
+            elif desc["length"] > 0:
+                xs, i = audio.sector(desc["audio_index"])
+                xs.write_sector(buffer, i, desc["lba"], desc["eoi"])
+                audio.evict(desc["audio_index"])
+            # length == 0: the reference writes the untouched buffer
+            # (filefmt.c:482-494 with an empty encode), i.e. previous bytes.
+            output.write(buffer[:sector_size].tobytes())
+            progress.print_str(frame_count, desc["lba"],
+                               frames.quant_scale_sum(frame_count),
+                               args.str_fps_num, args.str_fps_den)
     if hasattr(dec, "close"):
         dec.close()
 
@@ -296,8 +300,9 @@ def str_schedule(args, dec, quiet=False):
     if not quiet:
         _video_banner(args, interleave, vspb, frame_size)
     frames_needed = max(2, math.ceil(vspb / frame_size))
-    return _schedule(args, dec, asps, interleave, vspb, base_overflow,
-                     overflow_den, frames_needed)
+    with spans.span("str.schedule"):
+        return _schedule(args, dec, asps, interleave, vspb, base_overflow,
+                         overflow_den, frames_needed)
 
 
 def strspu_schedule(args, dec, quiet=False):
@@ -309,8 +314,9 @@ def strspu_schedule(args, dec, quiet=False):
     if not quiet:
         _video_banner(args, interleave, vspb, frame_size)
     frames_needed = max(2, math.ceil(vspb / frame_size))
-    return _schedule(args, dec, asps, interleave, vspb, base_overflow,
-                     overflow_den, frames_needed)
+    with spans.span("str.schedule"):
+        return _schedule(args, dec, asps, interleave, vspb, base_overflow,
+                         overflow_den, frames_needed)
 
 
 def encode_file_str(args, dec, output, device, frame_results=None):

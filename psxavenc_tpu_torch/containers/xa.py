@@ -23,6 +23,7 @@ from .. import cli_args as ca
 from ..models import adpcm_stream as streams
 from ..native import host
 from ..ops import adpcm as ops
+from ..utils import spans
 from ..utils.progress import Progress
 
 SUBMODE_AUDIO_RT_FORM2 = 0x64  # AUDIO | FORM2 | RT (adpcm.c:272-275)
@@ -86,39 +87,43 @@ class XaAudioSectors:
             self.payloads = np.zeros((0, 2304), np.uint8)
             return
 
-        units_per_sector = 18 * upb_pc
-        pcm = np.asarray(pcm_interleaved, dtype=np.int32)
-        chans = np.stack([pcm[c::ch] for c in range(ch)]) if ch > 1 \
-            else pcm[None, :]
+        with spans.span("xa.encode"):
+            units_per_sector = 18 * upb_pc
+            pcm = np.asarray(pcm_interleaved, dtype=np.int32)
+            chans = np.stack([pcm[c::ch] for c in range(ch)]) if ch > 1 \
+                else pcm[None, :]
 
-        prefix = np.concatenate([[0], np.cumsum(lengths)[:-1]])
-        k = 28 * np.arange(units_per_sector, dtype=np.int64)
-        offsets = (prefix[:, None] + k[None, :]).reshape(-1)
-        limits = (np.asarray(lengths)[:, None] - k[None, :]).reshape(-1)
-        B = chans.shape[0]
-        headers, nibbles, f1, f2 = unit_encoder(
-            chans, np.broadcast_to(offsets, (B, len(offsets))),
-            np.broadcast_to(limits, (B, len(limits))),
-            ops.XA_FILTER_COUNT,
-            ops.SHIFT_RANGE_8BPS if bits8 else ops.SHIFT_RANGE_4BPS,
-            prev1=prev1, prev2=prev2, device=device)
-        self.final_state = (f1, f2)
+            prefix = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+            k = 28 * np.arange(units_per_sector, dtype=np.int64)
+            offsets = (prefix[:, None] + k[None, :]).reshape(-1)
+            limits = (np.asarray(lengths)[:, None]
+                      - k[None, :]).reshape(-1)
+            B = chans.shape[0]
+            headers, nibbles, f1, f2 = unit_encoder(
+                chans, np.broadcast_to(offsets, (B, len(offsets))),
+                np.broadcast_to(limits, (B, len(limits))),
+                ops.XA_FILTER_COUNT,
+                ops.SHIFT_RANGE_8BPS if bits8 else ops.SHIFT_RANGE_4BPS,
+                prev1=prev1, prev2=prev2, device=device)
+            self.final_state = (f1, f2)
 
-        # Arrange into block-unit encode order (adpcm.c:202-231): stereo
-        # interleaves L/R per unit pair, mono is sequential.
-        headers = headers.reshape(B, S, 18, upb_pc)
-        nibbles = nibbles.reshape(B, S, 18, upb_pc, 28)
-        if stereo:
-            h = np.stack([headers[0], headers[1]], axis=-1)  # (S,18,upb,2)
-            n = np.stack([nibbles[0], nibbles[1]], axis=-2)
-            h = h.reshape(S, 18, self.upb_total)
-            n = n.reshape(S, 18, self.upb_total, 28)
-        else:
-            h, n = headers[0], nibbles[0]
+        with spans.span("xa.assemble"):
+            # Arrange into block-unit encode order (adpcm.c:202-231): stereo
+            # interleaves L/R per unit pair, mono is sequential.
+            headers = headers.reshape(B, S, 18, upb_pc)
+            nibbles = nibbles.reshape(B, S, 18, upb_pc, 28)
+            if stereo:
+                # (S, 18, upb, 2)
+                h = np.stack([headers[0], headers[1]], axis=-1)
+                n = np.stack([nibbles[0], nibbles[1]], axis=-2)
+                h = h.reshape(S, 18, self.upb_total)
+                n = n.reshape(S, 18, self.upb_total, 28)
+            else:
+                h, n = headers[0], nibbles[0]
 
-        self.payloads = np.stack([
-            host.xa_assemble(h[s], n[s], self.upb_total, bits8)
-            for s in range(S)])
+            self.payloads = np.stack([
+                host.xa_assemble(h[s], n[s], self.upb_total, bits8)
+                for s in range(S)])
 
     def write_sector(self, buffer, index, lba, eof):
         """Fill the persistent sector buffer with audio sector ``index``.

@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 
+from ..utils import spans
 from . import wav as wavmod
 
 DECODER_USE_AUDIO = 1 << 0
@@ -847,8 +848,16 @@ def open_av_data(args, flags):
     own L0 stack, bit-exact by construction. Fallbacks (no ffmpeg dev
     libraries): pure-Python WAV/AVI readers, then the ffmpeg CLI. Raw
     escape-hatch extensions (.pcm/.s16/.nv21/.yuv) always bypass
-    libavformat.
+    libavformat. Spans: ``ingest.open`` around it all; inside it, where
+    Python does the steps, ``ingest.demux`` (the AVI or WAV reader),
+    ``ingest.nv21`` (I420 to NV21, scaling and the frame-rate grid) and
+    ``ingest.stack`` (the frames into one array).
     """
+    with spans.span("ingest.open"):
+        return _open_av_data(args, flags)
+
+
+def _open_av_data(args, flags):
     dec = Decoder()
     dec.video_fps_num = args.str_fps_num
     dec.video_fps_den = args.str_fps_den
@@ -870,7 +879,8 @@ def open_av_data(args, flags):
     if ext == ".avi":
         from . import avi as avimod
 
-        avi = avimod.read_avi(path)
+        with spans.span("ingest.demux"):
+            avi = avimod.read_avi(path)
 
     # The -R/-S option strings are applied verbatim to the real
     # libswresample/libswscale (decoding.c:250-252,312-314), so any input
@@ -898,7 +908,8 @@ def open_av_data(args, flags):
             ch = args.audio_channels
             audio = raw[: len(raw) // ch * ch].reshape(-1, ch)
         elif ext == ".wav" and not force_ffmpeg_audio:
-            w = wavmod.read_wav(path)
+            with spans.span("ingest.demux"):
+                w = wavmod.read_wav(path)
             _warn_channels(args, w.samples.shape[1])
             audio = _remix_resample(w.samples, w.sample_rate,
                                     args.audio_channels,
@@ -974,11 +985,13 @@ def open_av_data(args, flags):
             _warn_resolution(args, v.width, v.height)
             dst_w, dst_h = adjust_video_size(args, v.width, v.height)
             dec.video_width, dec.video_height = dst_w, dst_h
-            raw = [_scale_frame_nv21(y, cb, cr, v.width, v.height, dst_w,
-                                     dst_h) for (y, cb, cr) in v.frames]
-            ptss = [i * v.fps_den / v.fps_num for i in range(len(raw))]
-            frames = _cfr_retime(raw, ptss, args.str_fps_num,
-                                 args.str_fps_den)
+            with spans.span("ingest.nv21"):
+                raw = [_scale_frame_nv21(y, cb, cr, v.width, v.height,
+                                         dst_w, dst_h)
+                       for (y, cb, cr) in v.frames]
+                ptss = [i * v.fps_den / v.fps_num for i in range(len(raw))]
+                frames = _cfr_retime(raw, ptss, args.str_fps_num,
+                                     args.str_fps_den)
         else:
             p = get_probe()
             if p is None and force_ffmpeg_video:
@@ -995,7 +1008,8 @@ def open_av_data(args, flags):
                     if res is not None:
                         frames, dec.video_width, dec.video_height = res
         if frames:
-            dec.video = np.stack(frames)
+            with spans.span("ingest.stack"):
+                dec.video = np.stack(frames)
             dec.has_video = True
         elif frames is not None:
             # Stream present but zero frames decoded: the reference's

@@ -12,6 +12,12 @@ PSXAVENC_NO_NATIVE_ADPCM is set: then K5's plain version runs. On the
 card it is always K5. The TPU-only parts of the JAX module (the 128-lane
 pad, the time segments, the power-of-two time buckets, the fused
 read-back) have no counterpart here.
+
+Spans (``utils/spans.py``), one each a K5 call: ``adpcm.upload`` (the
+host arrays to the device, and the units' gather there), ``adpcm.kernel``
+(the states, K5 and the unpack on the device, or the native call on the
+CPU) and ``adpcm.read_back``; the copies through pageable host memory
+count their bytes.
 """
 
 import os
@@ -22,6 +28,7 @@ import torch
 from ..native import tiers
 from ..ops import adpcm as ops
 from ..ops import adpcm_cuda
+from ..utils import spans
 
 SAMPLES_PER_UNIT = ops.SAMPLES_PER_UNIT
 
@@ -81,6 +88,21 @@ def _state(prev, B):
         else np.asarray(prev, np.int32)
 
 
+def upload(x, device, dtype=None):
+    """A host array or a tensor -> a tensor on ``device`` (of ``dtype``);
+    a copy from pageable host memory to a card counts its bytes."""
+    t = torch.as_tensor(x)
+    spans.count_h2d(t, device)
+    return t.to(device=device, dtype=dtype)
+
+
+def read_back(t):
+    """A tensor -> a host numpy array; a copy from a card counts its
+    bytes."""
+    spans.count_d2h(t)
+    return t.cpu().numpy()
+
+
 def _encode(units, lim, prev1, prev2, filter_count, shift_range, state_t):
     """K5 on device tensors (the native tier on the CPU, unless
     PSXAVENC_NO_NATIVE_ADPCM is set) -> host (headers uint8, values
@@ -88,28 +110,29 @@ def _encode(units, lim, prev1, prev2, filter_count, shift_range, state_t):
     B, T = lim.shape
     dev = units.device
     if dev.type == "cpu" and not os.environ.get("PSXAVENC_NO_NATIVE_ADPCM"):
-        h, v, s1, s2 = tiers.adpcm_encode_units(
-            units.numpy(), lim.numpy(), _state(prev1, B), _state(prev2, B),
-            filter_count, shift_range)
+        with spans.span("adpcm.kernel"):
+            h, v, s1, s2 = tiers.adpcm_encode_units(
+                units.numpy(), lim.numpy(), _state(prev1, B),
+                _state(prev2, B), filter_count, shift_range)
         t_idx = np.full(B, T - 1) if state_t is None \
             else np.asarray(state_t, np.int64)
         rows = np.arange(B)
         return h, v, s1[rows, t_idx], s2[rows, t_idx]
-    h, w, s1, s2 = adpcm_cuda.encode_units(
-        units, lim, torch.tensor(_state(prev1, B), device=dev),
-        torch.tensor(_state(prev2, B), device=dev),
-        filter_count=filter_count, shift_range=shift_range)
-    if state_t is None:
-        t_idx = torch.full((B, 1), T - 1, dtype=torch.int64, device=dev)
-    else:
-        t_idx = torch.as_tensor(np.asarray(state_t, np.int64),
-                                device=dev)[:, None]
-    f1 = s1.gather(1, t_idx)[:, 0]
-    f2 = s2.gather(1, t_idx)[:, 0]
-    values = adpcm_cuda.unpack_words(w, shift_range)
-    return (h.to(torch.uint8).cpu().numpy(),
-            values.to(torch.uint8).cpu().numpy(),
-            f1.cpu().numpy(), f2.cpu().numpy())
+    with spans.span("adpcm.kernel"):
+        h, w, s1, s2 = adpcm_cuda.encode_units(
+            units, lim, upload(_state(prev1, B), dev),
+            upload(_state(prev2, B), dev),
+            filter_count=filter_count, shift_range=shift_range)
+        if state_t is None:
+            t_idx = torch.full((B, 1), T - 1, dtype=torch.int64, device=dev)
+        else:
+            t_idx = upload(np.asarray(state_t, np.int64), dev)[:, None]
+        f1 = s1.gather(1, t_idx)[:, 0]
+        f2 = s2.gather(1, t_idx)[:, 0]
+        h = h.to(torch.uint8)
+        values = adpcm_cuda.unpack_words(w, shift_range).to(torch.uint8)
+    with spans.span("adpcm.read_back"):
+        return read_back(h), read_back(values), read_back(f1), read_back(f2)
 
 
 def encode_unit_streams(channel_samples, offsets, limits, filter_count,
@@ -138,12 +161,12 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),
                 np.zeros(B, np.int32), np.zeros(B, np.int32))
     dev = torch.device(device)
-    pcm = torch.tensor(channel_samples.astype(np.int16), device=dev)
-    offs = torch.tensor(offsets.astype(np.int64), device=dev)
-    lims = torch.tensor(np.clip(np.asarray(limits), -(1 << 30),
-                                SAMPLES_PER_UNIT).astype(np.int32),
-                        device=dev)
-    units, lim = gather_units(pcm, offs, lims)
+    with spans.span("adpcm.upload"):
+        pcm = upload(channel_samples.astype(np.int16), dev)
+        offs = upload(offsets.astype(np.int64), dev)
+        lims = upload(np.clip(np.asarray(limits), -(1 << 30),
+                              SAMPLES_PER_UNIT).astype(np.int32), dev)
+        units, lim = gather_units(pcm, offs, lims)
     return _encode(units, lim, prev1, prev2, filter_count, shift_range,
                    None)
 
@@ -169,9 +192,9 @@ def encode_prepared_units(units, lim, filter_count, shift_range,
     the last column.
     """
     dev = torch.device(device)
-    units = torch.as_tensor(units).to(device=dev,
-                                      dtype=torch.int32).contiguous()
-    lim = adpcm_cuda.clip_limits(torch.as_tensor(lim).to(dev)).contiguous()
+    with spans.span("adpcm.upload"):
+        units = upload(units, dev, torch.int32).contiguous()
+        lim = adpcm_cuda.clip_limits(upload(lim, dev)).contiguous()
     B, T = lim.shape
     if T == 0:
         return (np.zeros((B, 0), np.uint8),

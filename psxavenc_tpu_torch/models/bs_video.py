@@ -24,6 +24,13 @@ host an uploader thread was no faster end to end
 (``tools/torch_pipeline_bench.py``, PERF.md), so none is started. On the
 CPU a batch is encoded when it is enqueued.
 
+Spans (``utils/spans.py``, on only under a profiler): ``bs.open`` (the
+constructor) and, once a batch keyed by its sequence number, ``bs.stack``
+(the frames and budgets stacked), ``bs.stage`` (the pinned staging copy
+and its wait on the last upload), ``bs.launch`` (the uploads, the step's
+launches, the read-back copies and events), ``bs.wait`` (``fetch``'s wait
+on the event) and ``bs.collect`` (the headers and buffers).
+
 The compute tier is read from PSXAVENC_VIDEO_TIER at construction
 (``video_tier``): ``device`` runs ``api.bs_encode_frames_packed`` on the
 encoder's devices (the kernels on the card, their plain versions on the
@@ -45,6 +52,7 @@ from .. import api
 from ..native import tiers
 from ..ops import bs as bs_ops
 from ..parallel import mesh
+from ..utils import spans
 
 TIERS = ("auto", "device", "native")
 
@@ -143,27 +151,30 @@ class BsFrameEncoder:
     CHUNK = 8  # smallest device batch
 
     def __init__(self, codec, width, height, device):
-        assert width % 16 == 0 and height % 16 == 0
-        self._closed = False
-        self.codec = codec  # bs_ops.BS_V2 / BS_V3 / BS_V3DC
-        self.width = width
-        self.height = height
-        self.devices = mesh.device_list(device)
-        self.device = self.devices[0]
-        self.tier = video_tier(self.devices)
-        if self.tier == "native":
-            tiers.lib()         # a failed build raises here
-        self.quant_scale_sum = 0
-        # The step per capacity, the staging buffers and the stream of the
-        # uploads, steps and read-backs.
-        self._steps = {}
-        self._staging = [_Staging(), _Staging()]
-        self._turn = 0
-        self._stream = None
-        # The native tier's search seeds, one (workers, 2) array per
-        # worker count, carried across calls; they steer the order of the
-        # search only, never a byte.
-        self._native_seeds = {}
+        with spans.span("bs.open"):
+            assert width % 16 == 0 and height % 16 == 0
+            self._closed = False
+            self.codec = codec  # bs_ops.BS_V2 / BS_V3 / BS_V3DC
+            self.width = width
+            self.height = height
+            self.devices = mesh.device_list(device)
+            self.device = self.devices[0]
+            self.tier = video_tier(self.devices)
+            if self.tier == "native":
+                tiers.lib()         # a failed build raises here
+            self.quant_scale_sum = 0
+            # The step per capacity, the staging buffers and the stream of
+            # the uploads, steps and read-backs; the next batch's sequence
+            # number (its spans' key).
+            self._steps = {}
+            self._staging = [_Staging(), _Staging()]
+            self._turn = 0
+            self._stream = None
+            self._seq = 0
+            # The native tier's search seeds, one (workers, 2) array per
+            # worker count, carried across calls; they steer the order of
+            # the search only, never a byte.
+            self._native_seeds = {}
 
     def close(self):
         """Wait for the batches enqueued on the encoder's stream, then
@@ -219,27 +230,33 @@ class BsFrameEncoder:
         """Enqueue one batch: its host prep, upload, step and read-back ->
         a handle for :meth:`fetch`: (budgets, dict of host arrays, the
         event after the read-back, or None on the CPU and the native
-        tier)."""
+        tier, the batch's sequence number)."""
         if self._closed:
             raise RuntimeError("BsFrameEncoder is closed")
+        seq = self._seq
+        self._seq += 1
         sizes = list(sizes)
-        fr = _stack_frames(list(frames_nv21), pad_to)
-        budgets = np.array(sizes + [sizes[-1]] * (pad_to - len(sizes)),
-                           np.int32)
+        with spans.span("bs.stack", seq):
+            fr = _stack_frames(list(frames_nv21), pad_to)
+            budgets = np.array(sizes + [sizes[-1]] * (pad_to - len(sizes)),
+                               np.int32)
         if self.tier == "native":
-            return sizes, self._native_encode(fr, budgets, cap_words), None
+            with spans.span("bs.launch", seq):
+                out = self._native_encode(fr, budgets, cap_words)
+            return sizes, out, None, seq
         step = self._step(cap_words)
         if self.device.type != "cuda":
-            return sizes, step(torch.tensor(np.asarray(fr),
-                                            device=self.device),
-                               torch.from_numpy(budgets).to(self.device)), \
-                None
+            with spans.span("bs.launch", seq):
+                out = step(torch.tensor(np.asarray(fr), device=self.device),
+                           torch.from_numpy(budgets).to(self.device))
+            return sizes, out, None, seq
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=self.device)
         staging = self._staging[self._turn]
         self._turn ^= 1
-        frames_h, budgets_h = staging.fill(fr, budgets)
-        with torch.cuda.stream(self._stream):
+        with spans.span("bs.stage", seq):
+            frames_h, budgets_h = staging.fill(fr, budgets)
+        with spans.span("bs.launch", seq), torch.cuda.stream(self._stream):
             frames_d = frames_h.to(self.device, non_blocking=True)
             budgets_d = budgets_h.to(self.device, non_blocking=True)
             staging.uploaded = torch.cuda.Event()
@@ -252,7 +269,7 @@ class BsFrameEncoder:
                 host[k].copy_(v, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
-        return sizes, host, done
+        return sizes, host, done, seq
 
     def encode_frames(self, frames_nv21, frame_max_sizes):
         """Encode N frames with per-frame budgets -> list of (buffer, info),
@@ -293,11 +310,13 @@ class BsFrameEncoder:
 
     def fetch(self, handle):
         """Wait for an enqueued batch -> list of (buffer, info)."""
-        sizes, out, done = handle
+        sizes, out, done, seq = handle
         if done is not None:
-            done.synchronize()
-        return self._collect({k: np.asarray(v) for k, v in out.items()},
-                             sizes)
+            with spans.span("bs.wait", seq):
+                done.synchronize()
+        with spans.span("bs.collect", seq):
+            return self._collect({k: np.asarray(v) for k, v in out.items()},
+                                 sizes)
 
     def _collect(self, out, sizes):
         """A batch's host results -> list of (buffer, info), the 8-byte BS

@@ -26,6 +26,7 @@ the JAX package (``models/bs_video.py``, ``batch.py``).
 import torch
 
 from .. import api
+from ..utils import spans
 
 
 def device_list(device):
@@ -68,8 +69,10 @@ def shard_batch(devices, tensor):
     devices = make_mesh(devices)
     tensor = torch.as_tensor(tensor)
     sizes = _shard_sizes(len(devices), tensor.shape[0])
-    return [part.to(dev) for part, dev in
-            zip(torch.split(tensor, sizes), devices)]
+    parts = torch.split(tensor, sizes)
+    for part, dev in zip(parts, devices):
+        spans.count_h2d(part, dev)
+    return [part.to(dev) for part, dev in zip(parts, devices)]
 
 
 def _tensors(out):
@@ -114,6 +117,8 @@ class _Split:
         outs = []
         for i, dev in enumerate(self.devices):
             parts = [a[i * b:(i + 1) * b] for a in args]
+            for p in parts:
+                spans.count_h2d(p, dev)
             if on_cuda:
                 stream = self._streams[i]
                 stream.wait_stream(caller)
