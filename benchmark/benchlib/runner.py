@@ -10,13 +10,16 @@ movie, a job list), each started only after the last one ended. With
 under ``torch.profiler`` first, and the window of ``--seconds`` untraced
 units follows them, for the spans and the host rates; the result line
 then carries the cell's per-layer metrics, the device's busy and window
-seconds and a breakdown, instead of its end-to-end metrics.
+seconds and a breakdown, instead of its end-to-end metrics. The card's
+memory peak is reset once set-up has ended, so it covers the program's
+units alone.
 """
 
 import argparse
 import contextlib
 import json
 import shutil
+import statistics
 import sys
 import tempfile
 import time
@@ -75,6 +78,30 @@ class Context:
         self.work = None
 
 
+def run_unit(driver, spans):
+    """One unit: its wall seconds under ``unit``, its main thread's CPU
+    seconds (``time.thread_time``) under ``unit_cpu``."""
+    c0 = time.thread_time()
+    with spans("unit"):
+        driver.unit()
+    spans.record("unit_cpu", time.thread_time() - c0)
+
+
+def unit_summary(spans):
+    """The window's unit times in a few numbers, for the record: their
+    count, the wall seconds' minimum, lower quartile, median and mean, and
+    the CPU seconds' median and mean."""
+    wall, cpu = spans.seconds("unit"), spans.seconds("unit_cpu")
+    if not wall:
+        return {"count": 0}
+    q1 = statistics.quantiles(wall, n=4)[0] if len(wall) > 1 else wall[0]
+    return {"count": len(wall), "wall_min_s": min(wall), "wall_q1_s": q1,
+            "wall_median_s": statistics.median(wall),
+            "wall_mean_s": statistics.fmean(wall),
+            "cpu_median_s": statistics.median(cpu),
+            "cpu_mean_s": statistics.fmean(cpu)}
+
+
 def parse(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -86,7 +113,8 @@ def parse(argv):
 
 def run(cell, seed, seconds, trace_on, t_start, device, tmp):
     """Run ``cell`` -> the result dict: the contract's keys, the
-    reference's seconds (``reference_s``), and last ``checks``."""
+    window's unit times (``units``), the reference's seconds
+    (``reference_s``), and last ``checks``."""
     import torch
 
     spans = Spans()
@@ -94,6 +122,9 @@ def run(cell, seed, seconds, trace_on, t_start, device, tmp):
     driver.setup()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        # The peak from here on is the program's units' alone: set-up's
+        # inputs are gone, what the program keeps from its warm-up stays.
+        torch.cuda.reset_peak_memory_stats(device)
     ctx = Context(cell, driver, spans)
     ctx.setup_s = time.perf_counter() - t_start
 
@@ -106,8 +137,7 @@ def run(cell, seed, seconds, trace_on, t_start, device, tmp):
             with trace.span(trace.WINDOW):
                 t0 = time.perf_counter()
                 while True:
-                    with spans("unit"):
-                        driver.unit()
+                    run_unit(driver, spans)
                     ctx.traced_units += 1
                     if time.perf_counter() - t0 >= min(trace_s, seconds):
                         break
@@ -116,8 +146,7 @@ def run(cell, seed, seconds, trace_on, t_start, device, tmp):
         spans.traced = False
         w0 = time.perf_counter()
     while time.perf_counter() - w0 < seconds:
-        with spans("unit"):
-            driver.unit()
+        run_unit(driver, spans)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     ctx.window_s = time.perf_counter() - w0
@@ -159,6 +188,7 @@ def run(cell, seed, seconds, trace_on, t_start, device, tmp):
             "device_ops": [[n[:160], s] for n, s in
                            ctx.trace.device_ops[:10]],
             "idle_gaps": [[n, s] for n, s in ctx.trace.idle_gaps[:10]]}
+    result["units"] = unit_summary(spans)
     result["reference_s"] = check_s
     result["checks"] = {n: {"value": v, "limit": lim}
                         for n, v, lim in checks}

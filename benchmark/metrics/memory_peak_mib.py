@@ -1,6 +1,8 @@
-"""memory_peak_mib: the most device memory the run's tensors held at
-once, from set-up to the window's close (torch.cuda.max_memory_allocated
-on the card, before the plain reference runs), in MiB: the share of the
+"""memory_peak_mib: the most device memory the program's units held at
+once, in MiB: torch.cuda.max_memory_allocated on the card over every unit
+after set-up (the peak is reset once set-up has ended, so the inputs that
+set-up makes on the card are not in it; what the program still holds from
+its warm-up is), read before the plain reference runs. The share of the
 card an encode takes from whatever else runs on it."""
 
 
