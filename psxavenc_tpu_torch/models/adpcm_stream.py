@@ -103,10 +103,17 @@ def read_back(t):
     return t.cpu().numpy()
 
 
-def _encode(units, lim, prev1, prev2, filter_count, shift_range, state_t):
+def _encode(held, prev1, prev2, filter_count, shift_range, state_t):
     """K5 on device tensors (the native tier on the CPU, unless
     PSXAVENC_NO_NATIVE_ADPCM is set) -> host (headers uint8, values
-    uint8, final prev1, final prev2)."""
+    uint8, final prev1, final prev2).
+
+    ``held`` is the list [units (B, T, 28), limits (B, T)], which _encode
+    empties: the callers keep no other reference, so the units are freed
+    once K5 has run, before the unpack, and the call's device peak is K5's
+    own working set."""
+    units, lim = held
+    held.clear()
     B, T = lim.shape
     dev = units.device
     if dev.type == "cpu" and not os.environ.get("PSXAVENC_NO_NATIVE_ADPCM"):
@@ -123,6 +130,7 @@ def _encode(units, lim, prev1, prev2, filter_count, shift_range, state_t):
             units, lim, upload(_state(prev1, B), dev),
             upload(_state(prev2, B), dev),
             filter_count=filter_count, shift_range=shift_range)
+        del units, lim
         if state_t is None:
             t_idx = torch.full((B, 1), T - 1, dtype=torch.int64, device=dev)
         else:
@@ -130,7 +138,7 @@ def _encode(units, lim, prev1, prev2, filter_count, shift_range, state_t):
         f1 = s1.gather(1, t_idx)[:, 0]
         f2 = s2.gather(1, t_idx)[:, 0]
         h = h.to(torch.uint8)
-        values = adpcm_cuda.unpack_words(w, shift_range).to(torch.uint8)
+        values = adpcm_cuda.unpack_words_u8(w, shift_range)
     with spans.span("adpcm.read_back"):
         return read_back(h), read_back(values), read_back(f1), read_back(f2)
 
@@ -162,13 +170,12 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
                 np.zeros(B, np.int32), np.zeros(B, np.int32))
     dev = torch.device(device)
     with spans.span("adpcm.upload"):
-        pcm = upload(channel_samples.astype(np.int16), dev)
-        offs = upload(offsets.astype(np.int64), dev)
-        lims = upload(np.clip(np.asarray(limits), -(1 << 30),
-                              SAMPLES_PER_UNIT).astype(np.int32), dev)
-        units, lim = gather_units(pcm, offs, lims)
-    return _encode(units, lim, prev1, prev2, filter_count, shift_range,
-                   None)
+        held = list(gather_units(
+            upload(channel_samples.astype(np.int16), dev),
+            upload(offsets.astype(np.int64), dev),
+            upload(np.clip(np.asarray(limits), -(1 << 30),
+                           SAMPLES_PER_UNIT).astype(np.int32), dev)))
+    return _encode(held, prev1, prev2, filter_count, shift_range, None)
 
 
 def whole_file(unit_encoder):
@@ -193,15 +200,14 @@ def encode_prepared_units(units, lim, filter_count, shift_range,
     """
     dev = torch.device(device)
     with spans.span("adpcm.upload"):
-        units = upload(units, dev, torch.int32).contiguous()
-        lim = adpcm_cuda.clip_limits(upload(lim, dev)).contiguous()
-    B, T = lim.shape
+        held = [upload(units, dev, torch.int32).contiguous(),
+                adpcm_cuda.clip_limits(upload(lim, dev)).contiguous()]
+    B, T = held[1].shape
     if T == 0:
         return (np.zeros((B, 0), np.uint8),
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),
                 _state(prev1, B).copy(), _state(prev2, B).copy())
-    return _encode(units, lim, prev1, prev2, filter_count, shift_range,
-                   state_t)
+    return _encode(held, prev1, prev2, filter_count, shift_range, state_t)
 
 
 def pack_spu_blocks(headers, nibbles, flags=None):

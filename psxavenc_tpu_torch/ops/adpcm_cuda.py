@@ -116,6 +116,28 @@ def unpack_words(words, shift_range):
     return v.reshape(*words.shape[:2], -1)[..., :adpcm.SAMPLES_PER_UNIT]
 
 
+def unpack_words_u8(words, shift_range):
+    """(B, T, W) packed words -> (B, T, 28) uint8 sample values, contiguous,
+    equal to ``unpack_words(words, shift_range).to(torch.uint8)``.
+
+    Reads the words' little-endian bytes: for 8-bit they are the 28 values
+    (a view of ``words``); for 4-bit byte i holds value 2i in its low
+    nibble and 2i + 1 in its high one, written into the result's two
+    strided halves. Nothing is allocated but the 4-bit result: no int32
+    temporary, so unpacking a grouped call's words costs 28 bytes a
+    unit."""
+    B, T, _ = words.shape
+    b = words.view(torch.uint8)
+    if shift_range != adpcm.SHIFT_RANGE_4BPS:
+        return b
+    b = b[..., :adpcm.SAMPLES_PER_UNIT // 2]
+    out = torch.empty((B, T, adpcm.SAMPLES_PER_UNIT // 2, 2),
+                      dtype=torch.uint8, device=words.device)
+    torch.bitwise_and(b, 15, out=out[..., 0])
+    torch.bitwise_right_shift(b, 4, out=out[..., 1])
+    return out.view(B, T, adpcm.SAMPLES_PER_UNIT)
+
+
 def encode_units_plain(units, limits, prev1, prev2, *, filter_count,
                        shift_range):
     """(B, T, 28) units, (B, T) limits, (B,) prev1/prev2 -> headers (B, T),

@@ -119,6 +119,28 @@ def test_wrapper_layout_matches_pallas(filter_count, shift_range):
                 np.asarray(v_ref) & mask)
 
 
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (2, 37)])
+@pytest.mark.parametrize("shift_range", [12, 8])
+def test_unpack_words_u8_matches_unpack_words(shift_range, shape):
+    """The byte unpack equals the int32 unpack cast to uint8 on words over
+    every bit pattern (bit 31 set included), as a contiguous (B, T, 28)
+    uint8 tensor; for 8-bit it is a view of the words."""
+    W = adpcm_cuda.n_words(shift_range)
+    rng = np.random.default_rng(shift_range * 100 + shape[1])
+    words = rng.integers(0, 1 << 32, (*shape, W), dtype=np.uint64)
+    words = words.astype(np.uint32).view(np.int32)
+    words.reshape(-1)[:4] = [0, -1, -(1 << 31), (1 << 31) - 1]
+    words = torch.from_numpy(words)
+    got = adpcm_cuda.unpack_words_u8(words, shift_range)
+    assert got.dtype == torch.uint8
+    assert got.shape == (*shape, 28)
+    assert got.is_contiguous()
+    assert torch.equal(got, adpcm_cuda.unpack_words(words, shift_range).to(
+        torch.uint8))
+    if shift_range == 8:
+        assert got.data_ptr() == words.data_ptr()
+
+
 def test_spu_words_are_block_bytes():
     """4-bit words in little-endian byte order are bytes 2..15 of the SPU
     block (adpcm_pallas.py:14-16)."""

@@ -1266,6 +1266,48 @@ def test_adpcm_segmented_replays_in_a_graph(dev):
         assert torch.equal(o, e)
 
 
+def test_grouped_unit_call_peak_is_k5_working_set(dev):
+    """One ``encode_prepared_units`` call on a bank's zero-padded (256,
+    7,816) SPU units holds at most 150 bytes a unit on the card (the units
+    112, two clipped limits 8, K5's outputs 28: the unpack runs after the
+    units are freed) and gives K5's headers, values and states."""
+    from psxavenc_tpu_torch.models import adpcm_stream as streams
+
+    B, T = 256, 7816
+    rng = np.random.default_rng(18)
+    amp = rng.uniform(30, 20000, (B, 1, 1))
+    units = np.clip(rng.standard_normal((B, T, 28)) * amp, -32768,
+                    32767).astype(np.int32)
+    lens = rng.integers(1, T + 1, B)
+    lens[0] = T
+    lim = np.where(np.arange(T) < lens[:, None], 28, 0).astype(np.int32)
+    lim[np.arange(B), lens - 1] = rng.integers(1, 29, B)
+    state_t = lens - 1
+    p1 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    p2 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    units_t, lim_t = torch.from_numpy(units), torch.from_numpy(lim)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = streams.encode_prepared_units(units_t, lim_t, 5, 12, prev1=p1,
+                                        prev2=p2, state_t=state_t,
+                                        device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"peak {peak} B, {peak / (B * T):.2f} B a unit")
+    assert peak <= 150 * B * T + (1 << 20)
+    h, w, s1, s2 = adpcm_cuda.encode_units(
+        *(torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)),
+        filter_count=5, shift_range=12)
+    rows = torch.arange(B, device=dev)
+    t_idx = torch.from_numpy(state_t).to(dev)
+    want = (h.to(torch.uint8), adpcm_cuda.unpack_words(w, 12).to(torch.uint8),
+            s1[rows, t_idx], s2[rows, t_idx])
+    for name, g, wnt in zip(("headers", "values", "prev1", "prev2"), got,
+                            want):
+        wnt = wnt.cpu().numpy()
+        assert g.dtype == wnt.dtype and np.array_equal(g, wnt), name
+
+
 def test_cuda_encoder_under_auto_makes_no_native_call(dev, monkeypatch):
     """The default tier of an encoder on the card is the card's kernels;
     ``native`` asked for by name is refused on the card and runs on the
