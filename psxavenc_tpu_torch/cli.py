@@ -18,13 +18,14 @@ trace carries the port's spans (``utils/spans.py``, on only while a
 profiler runs) as ``user_annotation`` events on the clock of the kernels
 and copies, one a batch, chunk or file: ``bs.open``, ``bs.stack``,
 ``bs.stage``, ``bs.launch``, ``bs.wait``, ``bs.collect`` (the video
-encoder), ``ingest.open``, ``ingest.demux``, ``ingest.nv21``,
-``ingest.stack``, ``str.schedule``, ``str.sectors``, ``xa.encode``,
-``xa.assemble``, ``batch.parse``, ``batch.plan``, ``batch.encode``,
-``batch.replay``, ``adpcm.upload``, ``adpcm.kernel`` and
-``adpcm.read_back``. The profiler's per-kernel device times read low late
-in a long process: time kernels with CUDA events or graph replays, and use
-the trace for the order of operations and the host's stages.
+encoder), ``ingest.open``, ``ingest.demux``, ``ingest.resample``,
+``ingest.nv21``, ``ingest.stack``, ``str.schedule``, ``str.sectors``,
+``xa.sectors``, ``xa.encode``, ``xa.assemble``, ``batch.parse``,
+``batch.plan``, ``batch.encode``, ``batch.replay``, ``adpcm.upload``,
+``adpcm.kernel`` and ``adpcm.read_back``. The profiler's per-kernel device
+times read low late in a long process: time kernels with CUDA events or
+graph replays, and use the trace for the order of operations and the
+host's stages.
 
     python -m psxavenc_tpu_torch.cli -t strcd -x 2 in.avi out.str
 """

@@ -210,7 +210,11 @@ def encode_file_xa(args, dec, output, device, unit_encoder=None):
     """filefmt.c:167-210. An injected non-chunked ``unit_encoder`` gets the
     whole file in one call (the batch runner's capture and replay count
     on exactly one unit encode per file); a ``chunked`` one keeps the
-    bounded feed, so concurrent jobs' chunks can share device calls."""
+    bounded feed, so concurrent jobs' chunks can share device calls.
+
+    Span ``xa.sectors`` around the sector loop: its self time is the
+    per-sector host work (subheaders, EDC, writes), less the chunks it
+    pulls (their ``xa.encode`` and ``xa.assemble``)."""
     from ..io import ingest
 
     ch = args.audio_channels
@@ -231,13 +235,14 @@ def encode_file_xa(args, dec, output, device, unit_encoder=None):
                            unit_encoder=unit_encoder)
     buffer = np.zeros(2352, dtype=np.uint8)
     progress = Progress(args)
-    for s in range(len(lengths)):
-        xs, i = feed.sector(s)
-        xs.write_sector(buffer, i, s, eois[s])
-        feed.evict(s)
-        output.write(buffer[:sector_size].tobytes())
-        # The reference prints the pre-increment loop counter
-        # (filefmt.c:177,199-208).
-        progress.print_xa(s, sps, args.audio_frequency)
+    with spans.span("xa.sectors"):
+        for s in range(len(lengths)):
+            xs, i = feed.sector(s)
+            xs.write_sector(buffer, i, s, eois[s])
+            feed.evict(s)
+            output.write(buffer[:sector_size].tobytes())
+            # The reference prints the pre-increment loop counter
+            # (filefmt.c:177,199-208).
+            progress.print_xa(s, sps, args.audio_frequency)
     if hasattr(dec, "close"):
         dec.close()

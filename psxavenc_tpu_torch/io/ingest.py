@@ -850,8 +850,10 @@ def open_av_data(args, flags):
     escape-hatch extensions (.pcm/.s16/.nv21/.yuv) always bypass
     libavformat. Spans: ``ingest.open`` around it all; inside it, where
     Python does the steps, ``ingest.demux`` (the AVI or WAV reader),
-    ``ingest.nv21`` (I420 to NV21, scaling and the frame-rate grid) and
-    ``ingest.stack`` (the frames into one array).
+    ``ingest.resample`` (the sound's rematrix and rate conversion, one a
+    file, also where neither changes it), ``ingest.nv21`` (I420 to NV21,
+    scaling and the frame-rate grid) and ``ingest.stack`` (the frames into
+    one array).
     """
     with spans.span("ingest.open"):
         return _open_av_data(args, flags)
@@ -911,9 +913,10 @@ def _open_av_data(args, flags):
             with spans.span("ingest.demux"):
                 w = wavmod.read_wav(path)
             _warn_channels(args, w.samples.shape[1])
-            audio = _remix_resample(w.samples, w.sample_rate,
-                                    args.audio_channels,
-                                    args.audio_frequency)
+            with spans.span("ingest.resample"):
+                audio = _remix_resample(w.samples, w.sample_rate,
+                                        args.audio_channels,
+                                        args.audio_frequency)
             if w.loop_start_offset >= 0:
                 # decoding.c:334-336: ms from the *source* sample rate.
                 pts = w.loop_start_offset / w.sample_rate
@@ -923,9 +926,10 @@ def _open_av_data(args, flags):
         elif avi is not None and avi.audio is not None \
                 and not force_ffmpeg_audio:
             _warn_channels(args, avi.audio.shape[1])
-            audio = _remix_resample(avi.audio, avi.audio_rate,
-                                    args.audio_channels,
-                                    args.audio_frequency)
+            with spans.span("ingest.resample"):
+                audio = _remix_resample(avi.audio, avi.audio_rate,
+                                        args.audio_channels,
+                                        args.audio_frequency)
         else:
             if ext == ".wav" and force_ffmpeg_audio:
                 # -R reroutes decoding through the ffmpeg CLI, but the

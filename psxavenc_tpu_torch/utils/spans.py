@@ -38,9 +38,10 @@ NAMES = frozenset({
     # models/bs_video.py
     "bs.open", "bs.stack", "bs.stage", "bs.launch", "bs.wait", "bs.collect",
     # io/ingest.py
-    "ingest.open", "ingest.demux", "ingest.nv21", "ingest.stack",
+    "ingest.open", "ingest.demux", "ingest.resample", "ingest.nv21",
+    "ingest.stack",
     # containers/strf.py, containers/xa.py
-    "str.schedule", "str.sectors", "xa.encode", "xa.assemble",
+    "str.schedule", "str.sectors", "xa.sectors", "xa.encode", "xa.assemble",
     # batch.py
     "batch.parse", "batch.plan", "batch.encode", "batch.replay",
     # models/adpcm_stream.py

@@ -1,12 +1,14 @@
 """The port's spans and counters (``utils/spans.py``), on the CPU.
 
 Off (no profiler running): ``span()`` is one shared no-op, ``count()``
-does nothing, and a ``-t vag`` job list through ``batch.run_jobs`` and a
-60 s ``-t str`` movie through ``cli.main`` leave ``snapshot()`` empty.
-On: the same jobs put every span they reach into the profiler's Chrome
-trace as a ``user_annotation`` inside its parent, the aggregates count
-one ``bs.launch`` a batch and one ``batch.plan`` and ``batch.replay`` a
-file, and the outputs are byte-equal to the untraced ones. Spans open at
+does nothing, and a ``-t vag`` job list through ``batch.run_jobs``, a
+60 s ``-t str`` movie and a ``-t xa`` track from a 44,100 Hz master
+through ``cli.main`` leave ``snapshot()`` empty. On: the same jobs put
+every span they reach into the profiler's Chrome trace as a
+``user_annotation`` inside its parent, the aggregates count one
+``bs.launch`` a batch, one ``batch.plan`` and ``batch.replay`` a file and
+one ``ingest.resample`` and ``xa.sectors`` a track, and the outputs are
+byte-equal to the untraced ones. Spans open at
 batch, chunk and file granularity only, and every literal passed to
 ``span(`` in the package is in ``NAMES``."""
 
@@ -34,7 +36,8 @@ EMPTY = {"spans": {}, "counters": {}}
 # The innermost program span around each span, in the two jobs.
 MOVIE_PARENTS = {
     "ingest.open": None, "ingest.demux": "ingest.open",
-    "ingest.nv21": "ingest.open", "ingest.stack": "ingest.open",
+    "ingest.resample": "ingest.open", "ingest.nv21": "ingest.open",
+    "ingest.stack": "ingest.open",
     "str.schedule": None, "bs.open": None, "str.sectors": None,
     **{f"bs.{k}": "str.sectors"
        for k in ("stack", "stage", "launch", "wait", "collect")},
@@ -43,10 +46,17 @@ MOVIE_PARENTS = {
 }
 LIST_PARENTS = {
     "batch.parse": None, "batch.plan": None, "ingest.open": "batch.plan",
-    "ingest.demux": "ingest.open", "batch.encode": None,
+    "ingest.demux": "ingest.open", "ingest.resample": "ingest.open",
+    "batch.encode": None,
     "batch.replay": None,
     **{f"adpcm.{k}": "batch.encode"
        for k in ("upload", "kernel", "read_back")},
+}
+TRACK_PARENTS = {
+    "ingest.open": None, "ingest.demux": "ingest.open",
+    "ingest.resample": "ingest.open", "xa.sectors": None,
+    "xa.encode": "xa.sectors", "xa.assemble": "xa.sectors",
+    **{f"adpcm.{k}": "xa.encode" for k in ("upload", "kernel", "read_back")},
 }
 CLIPS = 6
 
@@ -231,7 +241,7 @@ def test_threads_lose_no_update():
 def test_job_list_off_and_on(tmp_path, cpu):
     """A grouped ``-t vag`` list: nothing recorded untraced; traced, one
     ``batch.plan`` and one ``batch.replay`` a file, each span in the
-    trace inside its parent, at most 4 spans a file and 6 a list; the
+    trace inside its parent, at most 5 spans a file and 6 a list; the
     same bytes."""
     plain = _list(tmp_path, "plain")
     assert batch.run_jobs(plain, quiet=True, device="cpu") == [0] * CLIPS
@@ -245,8 +255,9 @@ def test_job_list_off_and_on(tmp_path, cpu):
     counts = {n: s["count"] for n, s in snap["spans"].items()}
     assert counts["batch.plan"] == counts["batch.replay"] == CLIPS
     assert counts["ingest.open"] == counts["ingest.demux"] == CLIPS
+    assert counts["ingest.resample"] == CLIPS
     assert counts["batch.encode"] == counts["batch.parse"] == 1
-    assert sum(counts.values()) <= 4 * CLIPS + 6
+    assert sum(counts.values()) <= 5 * CLIPS + 6
     _check_times(snap)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
@@ -278,14 +289,45 @@ def test_movie_off_and_on(tmp_path, cpu, monkeypatch, movie):
     assert len(launches) >= math.ceil(900 / 128)
     for k in ("stack", "launch", "collect"):
         assert counts[f"bs.{k}"] == len(launches)
-    for k in ("ingest.open", "ingest.demux", "ingest.nv21", "ingest.stack",
-              "str.schedule", "str.sectors", "bs.open"):
+    for k in ("ingest.open", "ingest.demux", "ingest.resample",
+              "ingest.nv21", "ingest.stack", "str.schedule", "str.sectors",
+              "bs.open"):
         assert counts[k] == 1, k
     assert counts["xa.encode"] == counts["xa.assemble"] > 1
     assert sum(counts.values()) <= 200
     _check_times(snap)
     (trace,) = (tmp_path / "prof").glob("trace_*.json")
     _check_trace(_annotations(trace), MOVIE_PARENTS, snap)
+
+
+def test_xa_track_off_and_on(tmp_path, cpu, monkeypatch):
+    """A ``-t xa`` track at its defaults from a 44,100 Hz stereo master
+    (30 s: 563 sectors, one chunk): nothing recorded untraced; under
+    PSXAVENC_PROFILE one ``ingest.resample`` and one ``xa.sectors``, the
+    chunk's spans inside ``xa.sectors``, every span in the trace inside
+    its parent; the same bytes."""
+    src = tmp_path / "track.wav"
+    synth.write_wav(src, synth.rand_pcm(30 * 44100, channels=2, seed=9),
+                    44100, channels=2)
+    assert cli.main(["-q", "-t", "xa", str(src),
+                     str(tmp_path / "plain.xa")]) == 0
+    assert spans.snapshot() == EMPTY
+    monkeypatch.setenv("PSXAVENC_PROFILE", str(tmp_path / "prof"))
+    assert cli.main(["-q", "-t", "xa", str(src),
+                     str(tmp_path / "traced.xa")]) == 0
+    assert (tmp_path / "traced.xa").read_bytes() == \
+        (tmp_path / "plain.xa").read_bytes()
+    snap = spans.snapshot()
+    counts = {n: s["count"] for n, s in snap["spans"].items()}
+    assert set(counts) <= set(TRACK_PARENTS)
+    for k in ("ingest.open", "ingest.demux", "ingest.resample",
+              "xa.sectors", "xa.encode", "xa.assemble"):
+        assert counts[k] == 1, k
+    sectors = snap["spans"]["xa.sectors"]
+    assert sectors["self_ns"] < sectors["total_ns"]
+    _check_times(snap)
+    (trace,) = (tmp_path / "prof").glob("trace_*.json")
+    _check_trace(_annotations(trace), TRACK_PARENTS, snap)
 
 
 def test_encoder_feed_spans_a_batch(cpu):
