@@ -265,9 +265,9 @@ def validate_adpcm(dev):
                   -32768, 32767).astype(np.int16)
     offs, lims = streams.uniform_unit_layout(720, n - 13)
     offs2, lims2 = np.stack([offs, offs]), np.stack([lims, lims])
-    units, lim = streams.gather_units(
-        torch.from_numpy(pcm).to(dev), torch.from_numpy(offs2).to(dev),
-        torch.from_numpy(lims2.astype(np.int32)).to(dev))
+    units = adpcm_cuda.gather_units_plain(
+        torch.from_numpy(pcm).to(dev), torch.from_numpy(offs2).to(dev), 720)
+    lim = adpcm_cuda.clip_limits(torch.from_numpy(lims2).to(dev))
     z = torch.zeros(2, dtype=torch.int32, device=dev)
     kw = dict(filter_count=4, shift_range=12)
     want = adpcm_cuda.encode_units_plain(units, lim, z, z, **kw)

@@ -422,6 +422,26 @@ def xa_track_units(np, synth, seed=61):
     return units.reshape(2, XA_TRACK_UNITS, 28), lim, zero, zero
 
 
+def xa_chunk_layout(np, synth, seed=61):
+    """The 60 s stereo track's two streams as the XA CLI hands them to K5
+    (containers/xa.py::XaAudioSectors): (2, N) int16 PCM and (2, T) int32
+    offsets and limits, 72 units a sector at 28 k from the sector's start.
+    Every 97th sector is 13 samples short and the last 1,000, so offsets
+    leave the 28-grid and the tail's units read past the end."""
+    per_sector = 72
+    lengths = np.full(XA_TRACK_UNITS // per_sector, 28 * per_sector)
+    lengths[96::97] -= 13
+    lengths[-1] -= 1000
+    pcm = synth.rand_pcm(int(lengths.sum()), channels=2, seed=seed)
+    pcm = np.ascontiguousarray(pcm.T)
+    prefix = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    k = 28 * np.arange(per_sector)
+    offs = (prefix[:, None] + k).reshape(-1)
+    lim = np.clip((lengths[:, None] - k).reshape(-1), -(1 << 30), 28)
+    return (pcm, np.stack([offs, offs]).astype(np.int32),
+            np.stack([lim, lim]).astype(np.int32))
+
+
 def tone_track_units(np, synth):
     """The two channel streams of a 60 s stereo 37,800 Hz track of a 440 Hz
     tone at 30,000 (synth.tone), the case where guessed ADPCM states stay
@@ -1866,6 +1886,52 @@ def adpcm_tracks(torch, np, synth, card):
                     f"{label}_bound_ms": bound_ms,
                     f"{label}_native_ms": native_ms,
                     f"{label}_stats": names})
+    # The CLI's chunk route: K5 reads the same kind of track straight from
+    # its int16 PCM by XaAudioSectors' offsets (the index clamp on), held
+    # to the native tier and the scheme's model on the units gathered on
+    # the host, and counted as the offsets layout.
+    pcm, offs, lim = xa_chunk_layout(np, synth)
+    B, T = lim.shape
+    zero = np.zeros(B, np.int32)
+    units = adpcm_cuda.gather_units_plain(torch.from_numpy(pcm),
+                                          torch.from_numpy(offs), T)
+    host = (units.numpy(), lim, zero, zero)
+    want = tiers.adpcm_encode_units(*host, 4, 12)
+    *model, model_stats = adpcm_cuda.encode_units_segmented_plain(
+        *(torch.from_numpy(a) for a in host), filter_count=4,
+        shift_range=12, rows="native")
+    model = (model[0], adpcm_cuda.unpack_words(model[1], 12), *model[2:])
+    args = [torch.from_numpy(a).to(dev) for a in (pcm, offs, lim, zero,
+                                                   zero)]
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    inputs = dict(adpcm_cuda.INPUTS)
+    out = adpcm_cuda.encode_pcm_units(*args, filter_count=4, shift_range=12,
+                                      stats_out=stats)
+    if adpcm_cuda.INPUTS != {"offsets": inputs["offsets"] + 1,
+                             "dense": inputs["dense"]}:
+        raise AssertionError(f"K5's chunk call counted as {adpcm_cuda.INPUTS}"
+                             f" after {inputs}")
+    got = (out[0], adpcm_cuda.unpack_words(out[1], 12), *out[2:])
+    err = max(max_abs_err(torch, g, torch.from_numpy(
+        np.asarray(w, np.int32)).to(dev), "adpcm_encode_pcm_units")
+        for g, w in zip(got, want))
+    err = max(err, max_abs_err(torch, got, tuple(m.to(dev) for m in model),
+                               "adpcm_encode_pcm_units"))
+    stats, model_stats = stats.tolist(), model_stats.tolist()
+    if err or stats != model_stats:
+        raise AssertionError(f"K5 on the track's chunk offsets: max |kernel "
+                             f"- native| = {err}, stats {stats} against the "
+                             f"model's {model_stats}")
+    ms = graph_ms(torch, lambda: adpcm_cuda.encode_pcm_units(
+        *args, filter_count=4, shift_range=12), reps=5)
+    say(f"[8] adpcm_encode_pcm_units (4, 12) on the track's int16 PCM by "
+        f"the XA CLI's chunk offsets ({B} x {T} units, {pcm.shape[1]} "
+        f"samples a stream, offsets off the 28-grid, the tail past the "
+        f"end): equal to the native tier and to the scheme's plain model on "
+        f"the host's gather, stats {dict(zip(adpcm_cuda.STAT_NAMES, stats))}"
+        f" equal the model's, counted as the offsets layout; in a CUDA graph"
+        f" {ms:.4f} ms; on {card}")
+    row["chunk_ms"] = ms
     tiers.COUNTERS.update(paths_calls)
     return row
 

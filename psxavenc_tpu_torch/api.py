@@ -103,10 +103,12 @@ COUNTERS = _Counters()
 
 
 def _adpcm_words(units, limits, prev1, prev2, filter_count, shift_range):
-    """K5 on int32 contiguous copies (where needed) of the inputs."""
-    args = [t.to(torch.int32).contiguous()
-            for t in (units, limits, prev1, prev2)]
-    return adpcm_cuda.encode_units(*args, filter_count=filter_count,
+    """K5 on the units as int16 samples (ValueError where one lies outside
+    s16: ``adpcm_cuda.s16_units``) and int32 contiguous copies (where
+    needed) of the limits and states."""
+    args = [t.to(torch.int32).contiguous() for t in (limits, prev1, prev2)]
+    return adpcm_cuda.encode_units(adpcm_cuda.s16_units(units).contiguous(),
+                                   *args, filter_count=filter_count,
                                    shift_range=shift_range)
 
 
@@ -117,8 +119,9 @@ def _adpcm_batch(units, limits, prev1, prev2, filter_count, shift_range):
 
 
 def spu_encode_batch(units, limits, prev1, prev2):
-    """SPU-ADPCM: (B, T, 28) int32 units, (B, T) int32 limits, (B,) int32
-    prev1/prev2 -> headers (B, T), sample values (B, T, 28) and the
+    """SPU-ADPCM: (B, T, 28) units of s16 samples (any integer dtype; a
+    sample outside s16 raises ValueError), (B, T) int32 limits, (B,)
+    int32 prev1/prev2 -> headers (B, T), sample values (B, T, 28) and the
     decoder state after each unit, s1 and s2 (B, T); int32 tensors."""
     return _adpcm_batch(units, limits, prev1, prev2,
                         adpcm_ops.SPU_FILTER_COUNT,
@@ -126,9 +129,10 @@ def spu_encode_batch(units, limits, prev1, prev2):
 
 
 def spu_encode_blocks(units, limits, prev1, prev2):
-    """SPU-ADPCM straight to 16-byte blocks on the device: -> ((B, T, 16)
-    uint8 blocks with the loop-flag byte 0 for the muxer to fill
-    (adpcm.c:356-376), s1, s2 (B, T))."""
+    """SPU-ADPCM straight to 16-byte blocks on the device, inputs as
+    :func:`spu_encode_batch`: -> ((B, T, 16) uint8 blocks with the
+    loop-flag byte 0 for the muxer to fill (adpcm.c:356-376), s1, s2
+    (B, T))."""
     h, words, s1, s2 = _adpcm_words(units, limits, prev1, prev2,
                                     adpcm_ops.SPU_FILTER_COUNT,
                                     adpcm_ops.SHIFT_RANGE_4BPS)
@@ -143,8 +147,8 @@ def spu_encode_blocks(units, limits, prev1, prev2):
 
 
 def xa_encode_batch(units, limits, prev1, prev2, *, bits8=False):
-    """XA-ADPCM unit batch (4 filters; 4- or 8-bit): outputs as
-    :func:`spu_encode_batch`."""
+    """XA-ADPCM unit batch (4 filters; 4- or 8-bit): inputs and outputs
+    as :func:`spu_encode_batch`."""
     return _adpcm_batch(units, limits, prev1, prev2,
                         adpcm_ops.XA_FILTER_COUNT,
                         adpcm_ops.SHIFT_RANGE_8BPS if bits8

@@ -58,6 +58,7 @@ from . import cli
 from . import cli_args as ca
 from .io import ingest
 from .models import adpcm_stream as streams
+from .ops import adpcm_cuda
 from .parallel import mesh
 from .utils import spans
 
@@ -76,9 +77,10 @@ def _request(channel_samples, offsets, limits, filter_count, shift_range,
              prev1, prev2):
     """One unit-encode request, its (B, T, 28) int32 units and (B, T)
     clipped limits gathered on the host (CPU tensors)."""
-    units, lim = streams.gather_units(
+    units = adpcm_cuda.gather_units_plain(
         torch.from_numpy(np.array(channel_samples, np.int32)),
-        torch.from_numpy(np.array(offsets, np.int64)),
+        torch.from_numpy(np.array(offsets, np.int64)), np.shape(limits)[1])
+    lim = adpcm_cuda.clip_limits(
         torch.from_numpy(np.array(limits, np.int64)))
     return {"units": units, "lim": lim, "fc": filter_count,
             "sr": shift_range, "prev1": prev1, "prev2": prev2}
@@ -119,7 +121,7 @@ def _encode_audio_groups(reqs, device, quiet=False):
             t_max = max(reqs[i]["lim"].shape[1] for i in idxs)
             b_tot = sum(reqs[i]["lim"].shape[0] for i in idxs)
             units = torch.zeros((b_tot, t_max, streams.SAMPLES_PER_UNIT),
-                                dtype=torch.int32)
+                                dtype=torch.int16)
             lim = torch.zeros((b_tot, t_max), dtype=torch.int32)
             p1 = np.zeros(b_tot, np.int32)
             p2 = np.zeros(b_tot, np.int32)

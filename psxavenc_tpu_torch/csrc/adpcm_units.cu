@@ -5,6 +5,19 @@
 // ops/adpcm_cuda.py::encode_units_plain); plain model of the segmented
 // scheme: ops/adpcm_cuda.py::encode_units_segmented_plain.
 //
+// The input. Each stream is a row of int16 PCM, n samples; unit t of
+// stream b starts at sample offsets[b * T + t] (the CLI's chunk layout,
+// where a chunk's last unit is partial and the next chunk starts at the
+// next sample), or at 28 t where offsets is null (the dense layout: the
+// batch runner's zero-padded files, the tensor API's (B, T, 28) units).
+// A lane reads its two samples straight from the PCM. On the chunk layout
+// the index is clamped to [0, n - 1] as ops/adpcm_cuda.py::
+// gather_units_plain clamps it: a unit past the end repeats the last
+// sample and its limit masks it. The dense layout has n = 28 T (the
+// wrapper holds it), so its indices need no clamp. No
+// unit tensor is materialised: a sample costs 2 bytes on the card, a unit
+// 4 more for its offset on the chunk layout.
+//
 // Per stream and per 28-sample unit, in time order: samples at or past the
 // unit's limit count as 0; each filter's minimum shift comes from the
 // residual extrema of the raw samples; every (filter, shift) candidate
@@ -69,12 +82,12 @@
 // of leading zeros of its extrema, where adpcm.c loops over the shifts.
 //
 // What bounds it on the H100. The work, int32 issue: per SPU unit about
-// 15 x 28 dependent steps of about 20 integer operations against 144
-// bytes of traffic (serial route at the batch shape). On few streams, the
-// latency of one unit's chain (about 1.2 us: the 28-step recurrence, the
-// reductions) times the longest chain: the speculation's L + warmup
-// units, then each round's longest repair, then the walk's boundary steps
-// (S / 16) and the units it re-encodes.
+// 15 x 28 dependent steps of about 20 integer operations against 88 bytes
+// of traffic on the dense layout, 92 on the chunk layout (serial route at
+// the batch shape). On few streams, the latency of one unit's chain (about
+// 1.2 us: the 28-step recurrence, the reductions) times the longest chain:
+// the speculation's L + warmup units, then each round's longest repair,
+// then the walk's boundary steps (S / 16) and the units it re-encodes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -130,6 +143,33 @@ struct Group {
   int* raw;
 };
 
+// The call's input (the note at the top): n >= 1 samples a stream (the
+// wrapper hands a stream of none one zero sample), n = 28 T on the dense
+// layout. Sample indices are int32: the wrapper holds every offset + 27
+// and n under 2^31.
+struct Source {
+  const int16_t* pcm;
+  const int* offsets;   // null: the dense layout
+  const int* limits;
+  int n;
+  int T;
+};
+
+// Where unit t of stream b starts in its stream.
+__device__ __forceinline__ int unit_offset(const Source& src, int b, int t) {
+  return src.offsets
+             ? __ldg(src.offsets + static_cast<long long>(b) * src.T + t)
+             : t * kSamples;
+}
+
+// Sample i of the unit that starts at `off` in stream b; the clamp only
+// on the chunk layout (a branch uniform over the launch).
+__device__ __forceinline__ int unit_sample(const Source& src, int b, int off,
+                                           int i) {
+  const int j = src.offsets ? min(max(off + i, 0), src.n - 1) : off + i;
+  return __ldg(src.pcm + static_cast<long long>(b) * src.n + j);
+}
+
 // One unit's inputs as lane l holds them: samples l and l + 16 (the latter
 // 0 for l >= 12) and the unit's limit. Loaded unconditionally, so the
 // loads do not wait for the limit.
@@ -137,14 +177,14 @@ struct UnitIn {
   int a, b, lim;
 };
 
-__device__ __forceinline__ UnitIn load_unit(const int* __restrict__ units,
-                                            const int* __restrict__ limits,
-                                            long long u, int lane) {
-  const int* src = units + u * kSamples;
+__device__ __forceinline__ UnitIn load_unit(const Source& src, int b, int t,
+                                            int lane) {
+  const int off = unit_offset(src, b, t);
   UnitIn in;
-  in.a = src[lane];
-  in.b = lane < kSamples - kGroup ? src[lane + kGroup] : 0;
-  in.lim = limits[u];
+  in.a = unit_sample(src, b, off, lane);
+  in.b = lane < kSamples - kGroup ? unit_sample(src, b, off, lane + kGroup)
+                                  : 0;
+  in.lim = __ldg(src.limits + static_cast<long long>(b) * src.T + t);
   return in;
 }
 
@@ -310,10 +350,8 @@ __device__ __forceinline__ void count(unsigned long long* stats, int slot,
 
 template <int F, int SR>
 __global__ void __launch_bounds__(kThreads)
-adpcm_serial_kernel(const int* __restrict__ units,
-                    const int* __restrict__ limits,
-                    const int* __restrict__ prev1,
-                    const int* __restrict__ prev2, int batch, int T,
+adpcm_serial_kernel(const Source src, const int* __restrict__ prev1,
+                    const int* __restrict__ prev2, int batch,
                     int* __restrict__ hdr, int* __restrict__ words,
                     int* __restrict__ s1, int* __restrict__ s2,
                     unsigned long long* __restrict__ stats) {
@@ -321,7 +359,8 @@ adpcm_serial_kernel(const int* __restrict__ units,
   const int slot = threadIdx.x / kGroup;
   const int stream = blockIdx.x * kGroupsPerBlock + slot;
   const bool live = stream < batch;
-  const long long b = live ? stream : batch - 1;
+  const int b = live ? stream : batch - 1;
+  const int T = src.T;
   // Both groups of a warp walk in lockstep: the whole warp's mask, known
   // at compile time (a per-group mask made this route slower on the card).
   const Group g{static_cast<int>(threadIdx.x & (kGroup - 1)), kFull,
@@ -329,11 +368,11 @@ adpcm_serial_kernel(const int* __restrict__ units,
 
   int p1 = prev1[b];
   int p2 = prev2[b];
-  UnitIn next = load_unit(units, limits, b * T, g.lane);
+  UnitIn next = load_unit(src, b, 0, g.lane);
   for (int t = 0; t < T; ++t) {
-    const long long u = b * T + t;
+    const long long u = static_cast<long long>(b) * T + t;
     const UnitIn cur = next;
-    if (t + 1 < T) next = load_unit(units, limits, u + 1, g.lane);
+    if (t + 1 < T) next = load_unit(src, b, t + 1, g.lane);
     const UnitOut o = encode_unit<F, SR>(g, cur, p1, p2);
     p1 = o.p1;
     p2 = o.p2;
@@ -369,10 +408,8 @@ __device__ __forceinline__ bool segment_group(int* raw_base, int batch,
 
 template <int F, int SR>
 __global__ void __launch_bounds__(kThreads)
-adpcm_spec_kernel(const int* __restrict__ units,
-                  const int* __restrict__ limits,
-                  const int* __restrict__ prev1,
-                  const int* __restrict__ prev2, int batch, int T, int S,
+adpcm_spec_kernel(const Source src, const int* __restrict__ prev1,
+                  const int* __restrict__ prev2, int batch, int S,
                   int warmup, int* __restrict__ hdr, int* __restrict__ words,
                   int* __restrict__ s1, int* __restrict__ s2,
                   int2* __restrict__ starts, int2* __restrict__ ends,
@@ -381,6 +418,7 @@ adpcm_spec_kernel(const int* __restrict__ units,
   SegmentGroup sg;
   if (!segment_group(s_raw, batch, S, &sg)) return;
   const Group& g = sg.g;
+  const int T = src.T;
   const int t0 = seg_start(sg.k, T, S);
   const int t1 = seg_start(sg.k + 1, T, S);
   const long long base = static_cast<long long>(sg.b) * T;
@@ -390,16 +428,16 @@ adpcm_spec_kernel(const int* __restrict__ units,
     p1 = prev1[sg.b];
     p2 = prev2[sg.b];
   } else {  // the guess: the raw samples before the warm-up
-    const long long u = base + w0 - 1;
-    const int lim = limits[u];
-    p1 = lim > kSamples - 1 ? units[u * kSamples + kSamples - 1] : 0;
-    p2 = lim > kSamples - 2 ? units[u * kSamples + kSamples - 2] : 0;
+    const int off = unit_offset(src, sg.b, w0 - 1);
+    const int lim = __ldg(src.limits + base + w0 - 1);
+    p1 = lim > kSamples - 1 ? unit_sample(src, sg.b, off, kSamples - 1) : 0;
+    p2 = lim > kSamples - 2 ? unit_sample(src, sg.b, off, kSamples - 2) : 0;
   }
-  UnitIn next = load_unit(units, limits, base + w0, g.lane);
+  UnitIn next = load_unit(src, sg.b, w0, g.lane);
   for (int t = w0; t < t1; ++t) {
     if (t == t0 && g.lane == 0) starts[sg.gi] = make_int2(p1, p2);
     const UnitIn cur = next;
-    if (t + 1 < t1) next = load_unit(units, limits, base + t + 1, g.lane);
+    if (t + 1 < t1) next = load_unit(src, sg.b, t + 1, g.lane);
     const UnitOut o = encode_unit<F, SR>(g, cur, p1, p2);
     p1 = o.p1;
     p2 = o.p2;
@@ -414,9 +452,8 @@ adpcm_spec_kernel(const int* __restrict__ units,
 
 template <int F, int SR>
 __global__ void __launch_bounds__(kThreads)
-adpcm_round_kernel(const int* __restrict__ units,
-                   const int* __restrict__ limits, int batch, int T, int S,
-                   int round, int* __restrict__ hdr, int* __restrict__ words,
+adpcm_round_kernel(const Source src, int batch, int S, int round,
+                   int* __restrict__ hdr, int* __restrict__ words,
                    int* __restrict__ s1, int* __restrict__ s2,
                    int2* __restrict__ starts,
                    const int2* __restrict__ ends_src,
@@ -437,19 +474,20 @@ adpcm_round_kernel(const int* __restrict__ units,
     if (g.lane == 0) ends_dst[sg.gi] = end_here;
     return;
   }
+  const int T = src.T;
   const int t0 = seg_start(sg.k, T, S);
   const int t1 = seg_start(sg.k + 1, T, S);
   const long long base = static_cast<long long>(sg.b) * T;
   int p1 = from.x, p2 = from.y;
   bool merged = false;
   int t = t0;
-  UnitIn next = load_unit(units, limits, base + t0, g.lane);
+  UnitIn next = load_unit(src, sg.b, t0, g.lane);
   int2 stored_next = load_state(s1, s2, base + t0);
   while (t < t1) {
     const UnitIn cur = next;
     const int2 stored = stored_next;
     if (t + 1 < t1) {
-      next = load_unit(units, limits, base + t + 1, g.lane);
+      next = load_unit(src, sg.b, t + 1, g.lane);
       stored_next = load_state(s1, s2, base + t + 1);
     }
     const UnitOut o = encode_unit<F, SR>(g, cur, p1, p2);
@@ -472,8 +510,7 @@ adpcm_round_kernel(const int* __restrict__ units,
 
 template <int F, int SR>
 __global__ void __launch_bounds__(kThreads)
-adpcm_walk_kernel(const int* __restrict__ units,
-                  const int* __restrict__ limits, int batch, int T, int S,
+adpcm_walk_kernel(const Source src, int batch, int S,
                   int* __restrict__ hdr, int* __restrict__ words,
                   int* __restrict__ s1, int* __restrict__ s2,
                   const int2* __restrict__ starts,
@@ -487,6 +524,7 @@ adpcm_walk_kernel(const int* __restrict__ units,
   if (stream >= batch || (threadIdx.x & 31) >= kGroup) return;
   const Group g{static_cast<int>(threadIdx.x & (kGroup - 1)), 0xFFFFu,
                 s_raw[warp]};
+  const int T = src.T;
   const long long base = static_cast<long long>(stream) * T;
   const int2* st = starts + static_cast<long long>(stream) * S;
 
@@ -531,13 +569,13 @@ adpcm_walk_kernel(const int* __restrict__ units,
     int t = seg_start(k, T, S);
     int seg_end = seg_start(k + 1, T, S);
     bool merged = false;
-    UnitIn next = load_unit(units, limits, base + t, g.lane);
+    UnitIn next = load_unit(src, stream, t, g.lane);
     int2 stored_next = load_state(s1, s2, base + t);
     while (t < T) {
       const UnitIn cur = next;
       const int2 stored = stored_next;
       if (t + 1 < T) {
-        next = load_unit(units, limits, base + t + 1, g.lane);
+        next = load_unit(src, stream, t + 1, g.lane);
         stored_next = load_state(s1, s2, base + t + 1);
       }
       const UnitOut o = encode_unit<F, SR, true>(g, cur, p1, p2);
@@ -565,12 +603,12 @@ adpcm_walk_kernel(const int* __restrict__ units,
 }
 
 template <int F, int SR>
-int launch(const void* units, const void* limits, const void* prev1,
-           const void* prev2, int batch, int T, int S, int warmup,
-           int rounds, void* hdr, void* words, void* s1, void* s2,
-           void* starts, void* ends, void* stats, cudaStream_t stream) {
-  const int* u = static_cast<const int*>(units);
-  const int* lim = static_cast<const int*>(limits);
+int launch(const Source& src, const void* prev1, const void* prev2,
+           int batch, int S, int warmup, int rounds, void* hdr, void* words,
+           void* s1, void* s2, void* starts, void* ends, void* stats,
+           cudaStream_t stream) {
+  const int* p1 = static_cast<const int*>(prev1);
+  const int* p2 = static_cast<const int*>(prev2);
   int* h = static_cast<int*>(hdr);
   int* w = static_cast<int*>(words);
   int* a = static_cast<int*>(s1);
@@ -579,8 +617,7 @@ int launch(const void* units, const void* limits, const void* prev1,
   if (S <= 1) {
     const int grid = (batch + kGroupsPerBlock - 1) / kGroupsPerBlock;
     adpcm_serial_kernel<F, SR><<<grid, kThreads, 0, stream>>>(
-        u, lim, static_cast<const int*>(prev1),
-        static_cast<const int*>(prev2), batch, T, h, w, a, b, st);
+        src, p1, p2, batch, h, w, a, b, st);
     return static_cast<int>(cudaGetLastError());
   }
   const long long groups = static_cast<long long>(batch) * S;
@@ -589,49 +626,53 @@ int launch(const void* units, const void* limits, const void* prev1,
   int2* start = static_cast<int2*>(starts);
   int2* end[2] = {static_cast<int2*>(ends), static_cast<int2*>(ends) + groups};
   adpcm_spec_kernel<F, SR><<<grid, kThreads, 0, stream>>>(
-      u, lim, static_cast<const int*>(prev1), static_cast<const int*>(prev2),
-      batch, T, S, warmup, h, w, a, b, start, end[0], st);
+      src, p1, p2, batch, S, warmup, h, w, a, b, start, end[0], st);
   int rc = static_cast<int>(cudaGetLastError());
   for (int r = 0; r < rounds && rc == 0; ++r) {
     adpcm_round_kernel<F, SR><<<grid, kThreads, 0, stream>>>(
-        u, lim, batch, T, S, r, h, w, a, b, start, end[r & 1],
-        end[(r + 1) & 1], st);
+        src, batch, S, r, h, w, a, b, start, end[r & 1], end[(r + 1) & 1],
+        st);
     rc = static_cast<int>(cudaGetLastError());
   }
   if (rc != 0) return rc;
   const int walk_grid = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
   adpcm_walk_kernel<F, SR><<<walk_grid, kThreads, 0, stream>>>(
-      u, lim, batch, T, S, h, w, a, b, start, st);
+      src, batch, S, h, w, a, b, start, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns a cudaError_t value; cudaErrorInvalidValue (1) for a
-// (filter_count, shift_range) pair the kernel is not built for: it is
-// built for SPU (5, 12) and XA (4, 12) and (4, 8). `segments` <= 1 runs
-// the serial route (one launch), else 2 + `rounds` launches; `starts`
-// holds batch * segments int2 and `ends` twice that; `stats` (5 u64,
-// zeroed by the caller) may be null.
-extern "C" int psx_adpcm_encode_units(
-    const void* units, const void* limits, const void* prev1,
-    const void* prev2, int batch, int T, int filter_count, int shift_range,
-    int segments, int warmup, int rounds, void* hdr, void* words, void* s1,
-    void* s2, void* starts, void* ends, void* stats, void* stream) {
+// (filter_count, shift_range) pair the kernel is not built for (it is
+// built for SPU (5, 12) and XA (4, 12) and (4, 8)), for n < 1 and for a
+// dense call with n != 28 T. `pcm` is (batch, n) int16; `offsets` (batch,
+// T) int32, or null for the dense layout (unit t at sample 28 t); `limits` (batch, T) int32, clipped to
+// [-(1 << 30), 28]. `segments` <= 1 runs the serial route (one launch),
+// else 2 + `rounds` launches; `starts` holds batch * segments int2 and
+// `ends` twice that; `stats` (5 u64, zeroed by the caller) may be null.
+extern "C" int psx_adpcm_encode_pcm_units(
+    const void* pcm, const void* offsets, const void* limits,
+    const void* prev1, const void* prev2, int n, int batch, int T,
+    int filter_count, int shift_range, int segments, int warmup, int rounds,
+    void* hdr, void* words, void* s1, void* s2, void* starts, void* ends,
+    void* stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || T <= 0) return 0;
-  if (rounds > 63) return static_cast<int>(cudaErrorInvalidValue);
+  if (rounds > 63 || n < 1 ||
+      (!offsets && n != static_cast<long long>(kSamples) * T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Source src{static_cast<const int16_t*>(pcm),
+                   static_cast<const int*>(offsets),
+                   static_cast<const int*>(limits), n, T};
   if (filter_count == 5 && shift_range == 12)
-    return launch<5, 12>(units, limits, prev1, prev2, batch, T, segments,
-                         warmup, rounds, hdr, words, s1, s2, starts, ends,
-                         stats, st);
+    return launch<5, 12>(src, prev1, prev2, batch, segments, warmup, rounds,
+                         hdr, words, s1, s2, starts, ends, stats, st);
   if (filter_count == 4 && shift_range == 12)
-    return launch<4, 12>(units, limits, prev1, prev2, batch, T, segments,
-                         warmup, rounds, hdr, words, s1, s2, starts, ends,
-                         stats, st);
+    return launch<4, 12>(src, prev1, prev2, batch, segments, warmup, rounds,
+                         hdr, words, s1, s2, starts, ends, stats, st);
   if (filter_count == 4 && shift_range == 8)
-    return launch<4, 8>(units, limits, prev1, prev2, batch, T, segments,
-                        warmup, rounds, hdr, words, s1, s2, starts, ends,
-                        stats, st);
+    return launch<4, 8>(src, prev1, prev2, batch, segments, warmup, rounds,
+                        hdr, words, s1, s2, starts, ends, stats, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

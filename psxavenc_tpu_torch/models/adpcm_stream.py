@@ -3,19 +3,22 @@ stream batch.
 
 Counterpart of ``psxavenc_tpu/models/adpcm_stream.py``. The unit
 boundaries (offset, limit) of a whole stream are computed up front, the
-int16 PCM goes to the device, the (B, T, 28) units are gathered there,
-and one K5 launch threads the decoder state over time for all B channel
-streams. The device is explicit (default: the card). On a CPU device the
-units go to the native C++ unit encoder (``native/tiers.py``, bit-exact
-with K5), as the JAX module's no-TPU tier does, unless
-PSXAVENC_NO_NATIVE_ADPCM is set: then K5's plain version runs. On the
-card it is always K5. The TPU-only parts of the JAX module (the 128-lane
-pad, the time segments, the power-of-two time buckets, the fused
-read-back) have no counterpart here.
+int16 PCM, an int32 offset and a limit a unit go to the device, and one
+K5 launch reads each unit straight from the PCM and threads the decoder
+state over time for all B channel streams; no (B, T, 28) unit tensor is
+made on the card. The batch runner's zero-padded units go up as int16
+samples in K5's dense layout. The device is explicit (default: the
+card). On a CPU device the units are gathered on the host
+(``adpcm_cuda.gather_units_plain``) for the native C++ unit encoder
+(``native/tiers.py``, bit-exact with K5), as the JAX module's no-TPU tier
+does, unless PSXAVENC_NO_NATIVE_ADPCM is set: then K5's plain version
+runs. On the card it is always K5. The TPU-only parts of the JAX module
+(the 128-lane pad, the time segments, the power-of-two time buckets, the
+fused read-back) have no counterpart here.
 
 Spans (``utils/spans.py``), one each a K5 call: ``adpcm.upload`` (the
-host arrays to the device, and the units' gather there), ``adpcm.kernel``
-(the states, K5 and the unpack on the device, or the native call on the
+host arrays to the device), ``adpcm.kernel`` (the states, K5 and the
+unpack on the device, or the host gather and the native call on the
 CPU) and ``adpcm.read_back``; the copies through pageable host memory
 count their bytes.
 """
@@ -65,24 +68,6 @@ def uniform_unit_layout(total_units, samples_available):
     return t * SAMPLES_PER_UNIT, samples_available - t * SAMPLES_PER_UNIT
 
 
-def gather_units(channel_samples, offsets, limits):
-    """(B, N) samples + (B, T) offsets/limits, tensors on one device ->
-    ((B, T, 28) int32 units, (B, T) int32 limits clipped to
-    [-(1 << 30), 28]) on that device. Sample indices clip to [0, N-1], so
-    a unit past the end repeats the last sample (its limit masks it)."""
-    B, N = channel_samples.shape
-    T = offsets.shape[1]
-    lim = adpcm_cuda.clip_limits(limits)
-    if N == 0:
-        return (torch.zeros((B, T, SAMPLES_PER_UNIT), dtype=torch.int32,
-                            device=channel_samples.device), lim)
-    idx = offsets.to(torch.int64)[..., None] + torch.arange(
-        SAMPLES_PER_UNIT, device=offsets.device)
-    idx = idx.clamp(0, N - 1).reshape(B, -1)
-    units = channel_samples.to(torch.int32).gather(1, idx)
-    return units.reshape(B, T, SAMPLES_PER_UNIT), lim
-
-
 def _state(prev, B):
     return np.zeros(B, np.int32) if prev is None \
         else np.asarray(prev, np.int32)
@@ -108,16 +93,18 @@ def _encode(held, prev1, prev2, filter_count, shift_range, state_t):
     PSXAVENC_NO_NATIVE_ADPCM is set) -> host (headers uint8, values
     uint8, final prev1, final prev2).
 
-    ``held`` is the list [units (B, T, 28), limits (B, T)], which _encode
-    empties: the callers keep no other reference, so the units are freed
-    once K5 has run, before the unpack, and the call's device peak is K5's
-    own working set."""
-    units, lim = held
+    ``held`` is the list [pcm (B, N) int16, offsets (B, T) int32 or None
+    (K5's dense layout), limits (B, T) int32], which _encode empties: the
+    callers keep no other reference, so the samples are freed once K5 has
+    run, before the unpack, and the call's device peak is K5's own working
+    set."""
+    pcm, offsets, lim = held
     held.clear()
     B, T = lim.shape
-    dev = units.device
+    dev = pcm.device
     if dev.type == "cpu" and not os.environ.get("PSXAVENC_NO_NATIVE_ADPCM"):
         with spans.span("adpcm.kernel"):
+            units = adpcm_cuda.gather_units_plain(pcm, offsets, T)
             h, v, s1, s2 = tiers.adpcm_encode_units(
                 units.numpy(), lim.numpy(), _state(prev1, B),
                 _state(prev2, B), filter_count, shift_range)
@@ -126,11 +113,11 @@ def _encode(held, prev1, prev2, filter_count, shift_range, state_t):
         rows = np.arange(B)
         return h, v, s1[rows, t_idx], s2[rows, t_idx]
     with spans.span("adpcm.kernel"):
-        h, w, s1, s2 = adpcm_cuda.encode_units(
-            units, lim, upload(_state(prev1, B), dev),
+        h, w, s1, s2 = adpcm_cuda.encode_pcm_units(
+            pcm, offsets, lim, upload(_state(prev1, B), dev),
             upload(_state(prev2, B), dev),
             filter_count=filter_count, shift_range=shift_range)
-        del units, lim
+        del pcm, offsets, lim
         if state_t is None:
             t_idx = torch.full((B, 1), T - 1, dtype=torch.int64, device=dev)
         else:
@@ -150,7 +137,8 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
     Args:
       channel_samples: (B, N) int16/int32 per-channel contiguous samples
         (uploaded as int16).
-      offsets: (B, T) non-negative start sample of each unit.
+      offsets: (B, T) non-negative start sample of each unit; an offset
+        + 27 must fit int32 (``adpcm_cuda.unit_offsets``: ValueError).
       limits: (B, T) per-unit limits (values > 28 behave as 28, values
         <= 0 mask the whole unit, which still changes the state).
     Returns:
@@ -158,11 +146,9 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
       decoder state (prev1, prev2) after the last unit, host numpy.
     """
     channel_samples = np.asarray(channel_samples)
-    offsets = np.asarray(offsets)
+    offsets = adpcm_cuda.unit_offsets(offsets)
     B = channel_samples.shape[0]
     T = offsets.shape[1]
-    if offsets.size and int(offsets.min()) < 0:
-        raise ValueError("unit offsets must be non-negative")
     if T == 0:
         # As psxavenc_tpu: an empty stream reports a zero state.
         return (np.zeros((B, 0), np.uint8),
@@ -170,11 +156,10 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
                 np.zeros(B, np.int32), np.zeros(B, np.int32))
     dev = torch.device(device)
     with spans.span("adpcm.upload"):
-        held = list(gather_units(
-            upload(channel_samples.astype(np.int16), dev),
-            upload(offsets.astype(np.int64), dev),
-            upload(np.clip(np.asarray(limits), -(1 << 30),
-                           SAMPLES_PER_UNIT).astype(np.int32), dev)))
+        held = [upload(np.ascontiguousarray(channel_samples, np.int16), dev),
+                upload(offsets, dev),
+                upload(np.clip(np.asarray(limits), -(1 << 30),
+                               SAMPLES_PER_UNIT).astype(np.int32), dev)]
     return _encode(held, prev1, prev2, filter_count, shift_range, None)
 
 
@@ -189,9 +174,12 @@ def whole_file(unit_encoder):
 def encode_prepared_units(units, lim, filter_count, shift_range,
                           prev1=None, prev2=None, state_t=None,
                           device="cuda"):
-    """Encode pre-gathered (B, T, 28) units (see encode_unit_streams; the
-    batch runner concatenates many files' streams on B before calling):
-    numpy arrays or tensors on any device, moved to ``device``.
+    """Encode pre-gathered (B, T, 28) units of s16 samples (see
+    encode_unit_streams; the batch runner concatenates many files' streams
+    on B before calling): numpy arrays or tensors on any device, made
+    int16 where they are (``adpcm_cuda.s16_units``: ValueError outside
+    s16) and moved to ``device`` as (B, T * 28) samples in K5's dense
+    layout.
 
     ``state_t``: optional (B,) per-row unit index whose post-state to
     return as the final decoder state (rows padded with masked units
@@ -199,10 +187,12 @@ def encode_prepared_units(units, lim, filter_count, shift_range,
     the last column.
     """
     dev = torch.device(device)
+    units = torch.as_tensor(units)
+    B, T, n = units.shape
     with spans.span("adpcm.upload"):
-        held = [upload(units, dev, torch.int32).contiguous(),
+        held = [upload(adpcm_cuda.s16_units(units).reshape(B, T * n),
+                       dev).contiguous(), None,
                 adpcm_cuda.clip_limits(upload(lim, dev)).contiguous()]
-    B, T = held[1].shape
     if T == 0:
         return (np.zeros((B, 0), np.uint8),
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),

@@ -45,8 +45,9 @@ _SIGNATURES = {
                       _P],
     "psx_place_streams": [_P, _P, _I, _I, _I, _I, _P, _P],
     "psx_pack_block_streams": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
-    "psx_adpcm_encode_units": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _P, _P, _P, _P, _P, _P, _P, _P],
+    "psx_adpcm_encode_pcm_units": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                   _P],
 }
 
 _lib = None

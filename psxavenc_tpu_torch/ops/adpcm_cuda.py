@@ -5,9 +5,15 @@ Counterpart of ``encode_units_pallas`` in
 (B, T), packed sample words (B, T, W) with W = 4 for 4-bit (nibble m of
 word k at bit 4m, which are bytes [2+4k, 2+4k+4) of an SPU block) and
 W = 7 for 8-bit (byte m of word k at bit 8m), and the decoder state after
-each unit, s1 and s2 (B, T), all int32. The wrapper takes the plain
-version only for CPU tensors and launches ``csrc/adpcm_units.cu`` for CUDA
+each unit, s1 and s2 (B, T), all int32. The wrappers take the plain
+version only for CPU tensors and launch ``csrc/adpcm_units.cu`` for CUDA
 tensors; ``LAUNCHES`` counts the launches.
+
+K5 reads its units straight from int16 PCM (:func:`encode_pcm_units`): a
+(B, N) row of samples a stream and a (B, T) int32 offset a unit (the
+CLI's chunk layout), or no offsets (the dense layout, unit t at sample
+28 t: :func:`encode_units`' (B, T, 28) units and the batch runner's).
+``INPUTS`` counts the card's calls by layout.
 
 On the card the plan (:func:`plan_segments`) picks the route from (B, T)
 alone: the serial route where the batch fills the card, else each stream
@@ -28,6 +34,7 @@ from . import adpcm
 from .bs_cuda import _on_cuda, _opt_ptr, _require
 
 LAUNCHES = {"adpcm_encode_units": 0}
+INPUTS = {"offsets": 0, "dense": 0}
 
 # (filter_count, shift_range) pairs the kernel is built for: SPU and the
 # two XA bit depths.
@@ -84,6 +91,55 @@ def _segments(B, T, segments):
 
 def n_words(shift_range):
     return 4 if shift_range == adpcm.SHIFT_RANGE_4BPS else 7
+
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+def unit_offsets(offsets):
+    """(B, T) host unit offsets -> a contiguous int32 numpy array, as K5
+    takes them; raises ValueError where an offset + 27 does not fit int32
+    (or an offset is negative)."""
+    offsets = np.asarray(offsets)
+    if offsets.size and int(offsets.min()) < 0:
+        raise ValueError("unit offsets must be non-negative")
+    if offsets.size and int(offsets.max()) + adpcm.SAMPLES_PER_UNIT - 1 \
+            > _INT32_MAX:
+        raise ValueError("unit offsets must fit int32 with their unit's "
+                         f"28 samples, got {int(offsets.max())}")
+    return np.ascontiguousarray(offsets, np.int32)
+
+
+def gather_units_plain(pcm, offsets, T):
+    """The units K5 reads: (B, N) samples and (B, T) offsets -> (B, T, 28)
+    int32 on the samples' device. Sample indices clip to [0, N - 1], so a
+    unit past the end repeats the last sample (its limit masks it); N == 0
+    gives zeros. ``offsets`` None is the dense layout, N = 28 T: the
+    samples reshaped."""
+    B, N = pcm.shape
+    dev = pcm.device
+    if offsets is None:
+        return pcm.to(torch.int32).reshape(B, T, adpcm.SAMPLES_PER_UNIT)
+    if N == 0:
+        return torch.zeros((B, T, adpcm.SAMPLES_PER_UNIT), dtype=torch.int32,
+                           device=dev)
+    idx = offsets.to(torch.int64)[..., None] + torch.arange(
+        adpcm.SAMPLES_PER_UNIT, device=dev)
+    idx = idx.clamp(0, N - 1).reshape(B, -1)
+    return pcm.to(torch.int32).gather(1, idx).reshape(
+        B, T, adpcm.SAMPLES_PER_UNIT)
+
+
+def s16_units(units):
+    """``units`` (s16 samples of any integer dtype) as int16; ValueError
+    where one lies outside [-32768, 32767], which int16 would wrap (a
+    device sync where they are on the card and not int16)."""
+    if units.dtype != torch.int16 and units.numel():
+        lo, hi = torch.aminmax(units)
+        if int(lo) < -32768 or int(hi) > 32767:
+            raise ValueError("ADPCM units must be s16 samples, got values "
+                             f"in [{int(lo)}, {int(hi)}]")
+    return units.to(torch.int16)
 
 
 def clip_limits(limits):
@@ -318,40 +374,60 @@ def _stats_arg(stats_out, device):
     return stats_out
 
 
-def encode_units(units, limits, prev1, prev2, *, filter_count,
-                 shift_range, segments=None, stats_out=None):
-    """K5 (``csrc/adpcm_units.cu``): see :func:`encode_units_plain`.
+def encode_pcm_units(pcm, offsets, limits, prev1, prev2, *, filter_count,
+                     shift_range, segments=None, stats_out=None):
+    """K5 (``csrc/adpcm_units.cu``) on units read from int16 PCM -> the
+    outputs of :func:`encode_units_plain`.
 
-    ``segments``: None (the plan, :func:`plan_segments`) or the segments a
-    stream forced (1: the serial route), for tests and measurements; no
-    output depends on it. ``stats_out``: optional (5,) int64 tensor on the
-    units' device that the kernels fill with ``STAT_NAMES``; the CPU path
-    zeroes it."""
-    stats_out = _stats_arg(stats_out, units.device)
-    if not _on_cuda(units, "encode_units"):
-        _segments(*limits.shape[:2], segments)
+    ``pcm``: (B, N) int16, contiguous; ``offsets``: (B, T) int32,
+    contiguous (see :func:`unit_offsets`), or None for the dense layout
+    (unit t is samples [28 t, 28 t + 28), N = 28 T: ValueError otherwise);
+    ``limits`` (B, T); ``prev1``,
+    ``prev2`` (B,) int32. A sample index clips to [0, N - 1], as
+    :func:`gather_units_plain`'s. ``segments``: None (the plan,
+    :func:`plan_segments`) or the segments a stream forced (1: the serial
+    route), for tests and measurements; no output depends on it.
+    ``stats_out``: optional (5,) int64 tensor on the samples' device that
+    the kernels fill with ``STAT_NAMES``; the CPU path zeroes it. On the
+    CPU the plain version runs on :func:`gather_units_plain`'s units."""
+    stats_out = _stats_arg(stats_out, pcm.device)
+    B, T = limits.shape[:2]
+    if offsets is None and pcm.shape[1] != adpcm.SAMPLES_PER_UNIT * T:
+        raise ValueError(f"encode_pcm_units: the dense layout takes 28 T = "
+                         f"{adpcm.SAMPLES_PER_UNIT * T} samples a stream, "
+                         f"got {pcm.shape[1]}")
+    if not _on_cuda(pcm, "encode_pcm_units"):
+        _segments(B, T, segments)
         if stats_out is not None:
             stats_out.zero_()
-        return encode_units_plain(units, limits, prev1, prev2,
+        return encode_units_plain(gather_units_plain(pcm, offsets, T),
+                                  limits, prev1, prev2,
                                   filter_count=filter_count,
                                   shift_range=shift_range)
     if (filter_count, shift_range) not in KERNEL_VARIANTS:
-        raise ValueError(f"encode_units: no kernel for filter_count="
+        raise ValueError(f"encode_pcm_units: no kernel for filter_count="
                          f"{filter_count}, shift_range={shift_range}")
-    _require(units, torch.int32, 3, "encode_units units")
-    _require(limits, torch.int32, 2, "encode_units limits")
-    _require(prev1, torch.int32, 1, "encode_units prev1")
-    _require(prev2, torch.int32, 1, "encode_units prev2")
-    B, T, n = units.shape
-    if n != adpcm.SAMPLES_PER_UNIT or limits.shape != (B, T) \
-            or prev1.shape != (B,) or prev2.shape != (B,) \
-            or any(t.device != units.device
-                   for t in (limits, prev1, prev2)):
-        raise ValueError("encode_units: expected units (B, T, 28), limits "
-                         "(B, T) and prev1/prev2 (B,) on one device")
+    _require(pcm, torch.int16, 2, "encode_pcm_units pcm")
+    if offsets is not None:
+        _require(offsets, torch.int32, 2, "encode_pcm_units offsets")
+    _require(limits, torch.int32, 2, "encode_pcm_units limits")
+    _require(prev1, torch.int32, 1, "encode_pcm_units prev1")
+    _require(prev2, torch.int32, 1, "encode_pcm_units prev2")
+    dev = pcm.device
+    if pcm.shape[0] != B or prev1.shape != (B,) or prev2.shape != (B,) \
+            or (offsets is not None and offsets.shape != (B, T)) \
+            or any(t is not None and t.device != dev
+                   for t in (offsets, limits, prev1, prev2)):
+        raise ValueError("encode_pcm_units: expected pcm (B, N), offsets "
+                         "and limits (B, T) and prev1/prev2 (B,) on one "
+                         "device")
+    if pcm.shape[1] > _INT32_MAX:
+        raise ValueError("encode_pcm_units: K5's sample indices must fit "
+                         "int32")
+    if pcm.shape[1] == 0:   # as gather_units_plain: every sample reads 0
+        pcm = pcm.new_zeros((B, 1))
     S = _segments(B, T, segments)
     limits = clip_limits(limits)
-    dev = units.device
     hdr = torch.empty((B, T), dtype=torch.int32, device=dev)
     words = torch.empty((B, T, n_words(shift_range)), dtype=torch.int32,
                         device=dev)
@@ -364,11 +440,34 @@ def encode_units(units, limits, prev1, prev2, *, filter_count,
         if S > 1:
             starts = torch.empty((B * S, 2), dtype=torch.int32, device=dev)
             ends = torch.empty((2, B * S, 2), dtype=torch.int32, device=dev)
+        INPUTS["dense" if offsets is None else "offsets"] += 1
         LAUNCHES["adpcm_encode_units"] += 1 if S == 1 else 2 + ROUNDS
-        _build.launch("psx_adpcm_encode_units", units, _build.ptr(units),
-                      _build.ptr(limits), _build.ptr(prev1),
-                      _build.ptr(prev2), B, T, filter_count, shift_range, S,
-                      WARMUP_UNITS, ROUNDS, _build.ptr(hdr),
-                      _build.ptr(words), _build.ptr(s1), _build.ptr(s2),
-                      _opt_ptr(starts), _opt_ptr(ends), _opt_ptr(stats_out))
+        _build.launch("psx_adpcm_encode_pcm_units", pcm, _build.ptr(pcm),
+                      _opt_ptr(offsets), _build.ptr(limits),
+                      _build.ptr(prev1), _build.ptr(prev2), pcm.shape[1], B,
+                      T, filter_count, shift_range, S, WARMUP_UNITS, ROUNDS,
+                      _build.ptr(hdr), _build.ptr(words), _build.ptr(s1),
+                      _build.ptr(s2), _opt_ptr(starts), _opt_ptr(ends),
+                      _opt_ptr(stats_out))
     return hdr, words, s1, s2
+
+
+def encode_units(units, limits, prev1, prev2, *, filter_count,
+                 shift_range, segments=None, stats_out=None):
+    """K5 on (B, T, 28) units of s16 samples, of any integer dtype:
+    :func:`encode_pcm_units`' dense layout on their int16 copy (a view
+    where they are int16 and contiguous). On the CPU a sample outside s16
+    raises ValueError (:func:`s16_units`); on the card the call makes no
+    host sync, so the caller holds them to s16 (the tensor API checks).
+    ``segments`` and ``stats_out`` as :func:`encode_pcm_units`'."""
+    if units.ndim != 3 or units.shape[2] != adpcm.SAMPLES_PER_UNIT \
+            or units.shape[:2] != limits.shape[:2]:
+        raise ValueError("encode_units: expected units (B, T, 28) and "
+                         "limits (B, T)")
+    B, T, n = units.shape
+    pcm = units.to(torch.int16) if units.is_cuda else s16_units(units)
+    pcm = pcm.reshape(B, T * n).contiguous()
+    return encode_pcm_units(pcm, None, limits, prev1, prev2,
+                            filter_count=filter_count,
+                            shift_range=shift_range, segments=segments,
+                            stats_out=stats_out)

@@ -187,9 +187,10 @@ def test_gather_units_matches_jax():
     offs = np.stack([offs, offs])
     lims = np.stack([lims, lims - 5])
     want = jstreams.gather_units(pcm, offs, lims)
-    got = tstreams.gather_units(torch.from_numpy(pcm),
-                                torch.from_numpy(offs),
-                                torch.from_numpy(lims))
+    got = (adpcm_cuda.gather_units_plain(torch.from_numpy(pcm),
+                                         torch.from_numpy(offs),
+                                         offs.shape[1]),
+           adpcm_cuda.clip_limits(torch.from_numpy(lims)))
     for w, g in zip(want, got):
         assert_same(w, g)
 
@@ -235,3 +236,138 @@ def test_negative_offsets_rejected():
                                      np.array([[-1, 27]]),
                                      np.array([[28, 28]]), 5, 12,
                                      device="cpu")
+
+
+def _pcm_layout(layout, seed):
+    """(pcm (2, N) int16, offsets (2, T) int64 or None, limits (2, T)) for
+    K5's PCM input: ``chunk`` (chunks of ragged lengths, so offsets off
+    the 28-grid and partial units), ``past_end`` (units that start at or
+    past N, unmasked), ``empty`` (N == 0) and ``dense`` (no offsets, unit
+    t at 28 t; masked units in the tail)."""
+    if layout == "dense":
+        T = 11
+        pcm = rand_pcm(2 * T * 28, seed=seed).reshape(2, -1)
+        lims = np.full((2, T), 28, np.int64)
+        lims[0, -3:] = 0
+        lims[1, 4] = 9
+        return pcm, None, lims
+    offs, lims = jstreams.chunk_unit_layout([50, 3, 90, 0, 100, 57])
+    N = 300
+    if layout == "past_end":
+        offs = np.concatenate([offs, [N - 10, N, N + 40]])
+        lims = np.concatenate([lims, [28, 28, 5]])
+    elif layout == "empty":
+        N = 0
+    pcm = rand_pcm(2 * N, seed=seed).reshape(2, -1) if N else \
+        np.zeros((2, 0), np.int16)
+    offs = np.stack([offs, offs + 1])
+    lims = np.stack([lims, lims - 5])
+    return pcm, offs, lims
+
+
+@pytest.mark.parametrize("layout", ["chunk", "past_end", "empty", "dense"])
+@pytest.mark.parametrize("filter_count,shift_range", VARIANTS)
+def test_encode_pcm_units_plain_matches_jax_gather_and_scan(
+        filter_count, shift_range, layout):
+    """K5's PCM entry point on the CPU (its plain route) == the JAX
+    package's gather_units and scan: headers, values and the state after
+    every unit."""
+    pcm, offs, lims = _pcm_layout(layout, seed=filter_count + shift_range)
+    B, T = lims.shape
+    grid = np.broadcast_to(28 * np.arange(T), (B, T))
+    if pcm.shape[1]:
+        units, lim = jstreams.gather_units(
+            pcm, grid if offs is None else offs, lims)
+    else:   # every sample of a stream with none reads 0
+        units = np.zeros((B, T, 28), np.int32)
+        lim = np.clip(lims, -(1 << 30), 28).astype(np.int32)
+    p1 = np.array([700, -12000], np.int32)
+    p2 = np.array([-3, 4100], np.int32)
+    want = jops.encode_units_scan(
+        *(jnp.asarray(a) for a in (units, lim, p1, p2)),
+        filter_count=filter_count, shift_range=shift_range)
+    stats = torch.ones(len(adpcm_cuda.STAT_NAMES), dtype=torch.int64)
+    h, words, s1, s2 = adpcm_cuda.encode_pcm_units(
+        torch.from_numpy(pcm),
+        None if offs is None else torch.from_numpy(
+            adpcm_cuda.unit_offsets(offs)),
+        torch.from_numpy(lims), torch.from_numpy(p1), torch.from_numpy(p2),
+        filter_count=filter_count, shift_range=shift_range, segments=3,
+        stats_out=stats)
+    got = (h, adpcm_cuda.unpack_words(words, shift_range), s1, s2)
+    for name, w, g in zip(("headers", "values", "s1", "s2"), want, got):
+        assert_same(w, g, name)
+    assert not stats.any()
+    if offs is None:   # the tensor API's units take the same route
+        for w, g in zip((h, words, s1, s2), adpcm_cuda.encode_units(
+                torch.from_numpy(units), torch.from_numpy(lims),
+                torch.from_numpy(p1), torch.from_numpy(p2),
+                filter_count=filter_count, shift_range=shift_range)):
+            assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("top,ok", [((1 << 31) - 28, True),
+                                    ((1 << 31) - 27, False),
+                                    (1 << 40, False)])
+def test_unit_offsets_fit_int32(top, ok):
+    """K5 takes int32 offsets: the host conversion passes an offset whose
+    unit's last sample index fits int32 and raises past it, also through
+    encode_unit_streams."""
+    offs = np.array([[0, 28, top]], np.int64)
+    if ok:
+        got = adpcm_cuda.unit_offsets(offs)
+        assert got.dtype == np.int32 and got.flags.c_contiguous
+        assert got.tolist() == offs.tolist()
+        return
+    with pytest.raises(ValueError, match="unit offsets must"):
+        adpcm_cuda.unit_offsets(offs)
+    with plain_tiers(), pytest.raises(ValueError, match="unit offsets must"):
+        tstreams.encode_unit_streams(np.zeros((1, 56), np.int16), offs,
+                                     np.full((1, 3), 28), 5, 12,
+                                     device="cpu")
+
+
+def test_dense_gather_is_the_offset_grid():
+    """The dense layout's units (the samples reshaped) are the gather at
+    offsets 28 t; a dense call whose row is not 28 T samples raises."""
+    pcm = torch.from_numpy(rand_pcm(2 * 5 * 28, seed=3).reshape(2, -1))
+    grid = (28 * torch.arange(5)).expand(2, 5)
+    assert torch.equal(adpcm_cuda.gather_units_plain(pcm, None, 5),
+                       adpcm_cuda.gather_units_plain(pcm, grid, 5))
+    lims = torch.full((2, 6), 28, dtype=torch.int32)
+    zero = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dense layout takes 28 T"):
+        adpcm_cuda.encode_pcm_units(pcm, None, lims, zero, zero,
+                                    filter_count=5, shift_range=12)
+
+
+@pytest.mark.parametrize("sample,ok", [(-32768, True), (32767, True),
+                                       (-32769, False), (32768, False)])
+def test_units_past_s16_raise(sample, ok):
+    """The tensor API's units are s16 samples: int32 units at the range's
+    ends encode as the JAX scan does, one sample past it raises (int16
+    would wrap it), through ``encode_units``, the API and the grouped
+    call."""
+    units = torch.zeros((2, 3, 28), dtype=torch.int32)
+    units[1, 2, 5] = sample
+    lims = torch.full((2, 3), 28, dtype=torch.int32)
+    zero = torch.zeros(2, dtype=torch.int32)
+    calls = (lambda: adpcm_cuda.encode_units(units, lims, zero, zero,
+                                             filter_count=5,
+                                             shift_range=12),
+             lambda: tapi.spu_encode_batch(units, lims, zero, zero),
+             lambda: tstreams.encode_prepared_units(units.numpy(),
+                                                    lims.numpy(), 5, 12,
+                                                    device="cpu"))
+    if not ok:
+        for call in calls:
+            with plain_tiers(), pytest.raises(ValueError, match="s16"):
+                call()
+        return
+    want = jops.encode_units_scan(
+        *(jnp.asarray(t.numpy()) for t in (units, lims, zero, zero)),
+        filter_count=5, shift_range=12)
+    h, words, s1, s2 = calls[0]()
+    got = (h, adpcm_cuda.unpack_words(words, 12), s1, s2)
+    for name, w, g in zip(("headers", "values", "s1", "s2"), want, got):
+        assert_same(w, g, name)

@@ -1266,11 +1266,114 @@ def test_adpcm_segmented_replays_in_a_graph(dev):
         assert torch.equal(o, e)
 
 
+def _chunked_pcm(T, seed):
+    """_segment_streams' five streams as int16 PCM read through ragged
+    chunks: offsets off the 28-grid (a different one each stream),
+    partial units, masked ones, and the last units at or past the end of
+    the samples."""
+    from psxavenc_tpu_torch.models import adpcm_stream as streams
+
+    units, _, p1, p2 = _segment_streams(T, seed)
+    pcm = units.reshape(5, -1).astype(np.int16)
+    rng = np.random.default_rng(seed)
+    offs, lim = streams.chunk_unit_layout(rng.integers(1, 120, T))
+    offs, lim = offs[:T], lim[:T]
+    offs[-3:] = pcm.shape[1] - 40 + np.array([0, 30, 60])
+    offs = np.stack([offs + b for b in range(5)])
+    lim = np.stack([lim] * 5)
+    lim[4, ::37] = 0
+    lim[3, 18::37] = -3
+    return pcm, offs, lim, p1, p2
+
+
+@pytest.mark.parametrize("segments", [1, None, 7])
+@pytest.mark.parametrize("filter_count,shift_range",
+                         adpcm_cuda.KERNEL_VARIANTS)
+def test_adpcm_pcm_units_match_model(dev, filter_count, shift_range,
+                                     segments):
+    """K5 reading units from int16 PCM by ragged chunk offsets (the
+    serial route, the plan's segments, 7 forced) equals the native tier
+    on the units gathered on the host, and its stats the plain model's;
+    the call counts as the offsets layout."""
+    from psxavenc_tpu_torch.native import tiers
+
+    T = 1000
+    pcm, offs, lim, p1, p2 = _chunked_pcm(T, filter_count + shift_range)
+    units = adpcm_cuda.gather_units_plain(
+        torch.from_numpy(pcm), torch.from_numpy(offs), T)
+    host = (units.numpy(), lim.astype(np.int32), p1, p2)
+    want = tiers.adpcm_encode_units(*host, filter_count, shift_range)
+    *model, want_stats = adpcm_cuda.encode_units_segmented_plain(
+        *(torch.from_numpy(a) for a in host), filter_count=filter_count,
+        shift_range=shift_range, segments=segments, rows="native")
+    stats = torch.zeros(5, dtype=torch.int64, device=dev)
+    inputs = dict(adpcm_cuda.INPUTS)
+    got = adpcm_cuda.encode_pcm_units(
+        torch.from_numpy(pcm).to(dev),
+        torch.from_numpy(adpcm_cuda.unit_offsets(offs)).to(dev),
+        *(torch.from_numpy(a).to(dev) for a in host[1:]),
+        filter_count=filter_count, shift_range=shift_range,
+        segments=segments, stats_out=stats)
+    assert adpcm_cuda.INPUTS == {"offsets": inputs["offsets"] + 1,
+                                 "dense": inputs["dense"]}
+    got = (got[0], adpcm_cuda.unpack_words(got[1], shift_range), *got[2:])
+    for g, m, w in zip(got, (model[0], adpcm_cuda.unpack_words(
+            model[1], shift_range), *model[2:]), want):
+        assert np.array_equal(g.cpu().numpy().astype(np.int64),
+                              w.astype(np.int64))
+        assert torch.equal(g.cpu(), m)
+    assert stats.cpu().tolist() == want_stats.tolist()
+
+
+def test_xa_chunk_call_peak_is_k5_working_set(dev, monkeypatch):
+    """One ``encode_unit_streams`` call of the XA CLI's largest chunk
+    (1,024 stereo sectors: 2 x 73,728 units, offsets broadcast as
+    ``XaAudioSectors`` passes them) holds at most the int16 PCM, the int32
+    offsets, two limit copies and K5's outputs (14,155,776 B) plus 64 KiB
+    on the card, gathers nothing (K5 reads the PCM) and gives the native
+    tier's headers, values and final state."""
+    from psxavenc_tpu_torch.models import adpcm_stream as streams
+    from psxavenc_tpu_torch.native import tiers
+    from psxavenc_tpu_torch.utils.synth import rand_pcm
+
+    T = 73728
+    N = 28 * T
+    pcm = rand_pcm(N, channels=2, seed=21).T.copy()
+    offs, lim = streams.uniform_unit_layout(T, N - 100)
+    offs, lim = (np.broadcast_to(a, (2, T)) for a in (offs, lim))
+    units = adpcm_cuda.gather_units_plain(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (pcm, offs)), T)
+    lim32 = adpcm_cuda.clip_limits(torch.from_numpy(lim))
+    zero = np.zeros(2, np.int32)
+    want = tiers.adpcm_encode_units(units.numpy(), lim32.numpy(), zero, zero,
+                                    4, 12)
+
+    def no_gather(*_args, **_kwargs):
+        raise AssertionError("a unit gather on the card path")
+
+    monkeypatch.setattr(adpcm_cuda, "gather_units_plain", no_gather)
+    inputs = dict(adpcm_cuda.INPUTS)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    h, v, f1, f2 = streams.encode_unit_streams(pcm, offs, lim, 4, 12,
+                                               device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"peak {peak} B")
+    assert peak <= 14155776 + (64 << 10)
+    assert adpcm_cuda.INPUTS["offsets"] == inputs["offsets"] + 1
+    assert np.array_equal(h, want[0].astype(np.uint8))
+    assert np.array_equal(v, want[1].astype(np.uint8))
+    assert f1.tolist() == want[2][:, -1].tolist()
+    assert f2.tolist() == want[3][:, -1].tolist()
+
+
 def test_grouped_unit_call_peak_is_k5_working_set(dev):
     """One ``encode_prepared_units`` call on a bank's zero-padded (256,
-    7,816) SPU units holds at most 150 bytes a unit on the card (the units
-    112, two clipped limits 8, K5's outputs 28: the unpack runs after the
-    units are freed) and gives K5's headers, values and states."""
+    7,816) SPU units holds at most 94 bytes a unit on the card (the units
+    as int16 samples 56, two clipped limits 8, K5's outputs 28: the unpack
+    runs after the samples are freed), takes K5's dense layout and gives
+    K5's headers, values and states."""
     from psxavenc_tpu_torch.models import adpcm_stream as streams
 
     B, T = 256, 7816
@@ -1289,12 +1392,15 @@ def test_grouped_unit_call_peak_is_k5_working_set(dev):
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
+    inputs = dict(adpcm_cuda.INPUTS)
     got = streams.encode_prepared_units(units_t, lim_t, 5, 12, prev1=p1,
                                         prev2=p2, state_t=state_t,
                                         device=dev)
     peak = torch.cuda.max_memory_allocated(dev) - base
     print(f"peak {peak} B, {peak / (B * T):.2f} B a unit")
-    assert peak <= 150 * B * T + (1 << 20)
+    assert peak <= 94 * B * T + (1 << 20)
+    assert adpcm_cuda.INPUTS == {"offsets": inputs["offsets"],
+                                 "dense": inputs["dense"] + 1}
     h, w, s1, s2 = adpcm_cuda.encode_units(
         *(torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)),
         filter_count=5, shift_range=12)
