@@ -5,11 +5,11 @@ Counterpart of ``psxavenc_tpu/batch.py``. The device work is grouped
 across files:
 
 - **audio jobs** (xa/xacd/spu/vag/spui/vagi): a planning pass runs each
-  container with an encoder that captures its ADPCM units (gathered on
-  the host) and stops it; every file's channel streams then concatenate
-  on the batch axis, and ALL files of a (filter_count, shift_range) class
-  encode in ONE K5 launch. The muxers replay with their slices, so the
-  bytes equal serial runs.
+  container with an encoder that captures its ADPCM request (int16
+  samples, unit offsets, limits) and stops it; every file's units then
+  gather into one batch, and ALL files of a (filter_count, shift_range)
+  class encode in ONE K5 call. The muxers replay with their slices, so
+  the bytes equal serial runs.
 - **video jobs** (str/strcd/strv/sbs): every file's budgeted frames join
   one frame sequence per (codec, geometry) class; ``BsFrameEncoder``
   encodes it in its usual device batches, so the tail frames of one file
@@ -24,8 +24,7 @@ by default: every visible card, exit 1 without one; ``cpu`` runs the
 native C++ tiers, or the kernels' plain versions with
 PSXAVENC_VIDEO_TIER=device and PSXAVENC_NO_NATIVE_ADPCM=1). Given
 several devices, as the JAX runner's mesh branch does, the grouped audio
-call splits its streams over them
-(``parallel.mesh.unit_encode_step``, B padded to a multiple) and the
+call splits its streams over them (``encode_prepared_units``) and the
 video groups' frame batches split over them (``BsFrameEncoder``); the
 rest runs on the first. Grouping is on by default;
 PSXAVENC_BATCH_GROUP=0 runs the jobs one after another (the same bytes
@@ -75,15 +74,14 @@ class _CaptureDone(Exception):
 
 def _request(channel_samples, offsets, limits, filter_count, shift_range,
              prev1, prev2):
-    """One unit-encode request, its (B, T, 28) int32 units and (B, T)
-    clipped limits gathered on the host (CPU tensors)."""
-    units = adpcm_cuda.gather_units_plain(
-        torch.from_numpy(np.array(channel_samples, np.int32)),
-        torch.from_numpy(np.array(offsets, np.int64)), np.shape(limits)[1])
-    lim = adpcm_cuda.clip_limits(
-        torch.from_numpy(np.array(limits, np.int64)))
-    return {"units": units, "lim": lim, "fc": filter_count,
-            "sr": shift_range, "prev1": prev1, "prev2": prev2}
+    """One unit-encode request as the container handed it over, CPU
+    tensors: (B, N) int16 samples and (B, T) limits (``streams.k5_input``)
+    and int32 unit offsets (``adpcm_cuda.unit_offsets``)."""
+    pcm, lim = streams.k5_input(channel_samples, limits)
+    return {"pcm": pcm, "lim": lim,
+            "offsets": torch.from_numpy(adpcm_cuda.unit_offsets(offsets)),
+            "fc": filter_count, "sr": shift_range, "prev1": prev1,
+            "prev2": prev2}
 
 
 def _capture_encoder(store):
@@ -109,9 +107,10 @@ def _replay_encoder(results):
 
 
 def _encode_audio_groups(reqs, device, quiet=False):
-    """One K5 launch per (filter_count, shift_range) class over the
-    requests' streams concatenated on the batch axis; returns each
-    request's (headers, values, prev1, prev2), host numpy."""
+    """One K5 call per (filter_count, shift_range) class over the
+    requests' units gathered into the rows of one zero-padded int16 batch
+    (``streams.encode_prepared_units``); returns each request's (headers,
+    values, prev1, prev2), host numpy."""
     out = [None] * len(reqs)
     groups = {}
     for i, r in enumerate(reqs):
@@ -123,14 +122,14 @@ def _encode_audio_groups(reqs, device, quiet=False):
             units = torch.zeros((b_tot, t_max, streams.SAMPLES_PER_UNIT),
                                 dtype=torch.int16)
             lim = torch.zeros((b_tot, t_max), dtype=torch.int32)
-            p1 = np.zeros(b_tot, np.int32)
-            p2 = np.zeros(b_tot, np.int32)
+            p1, p2 = np.zeros((2, b_tot), np.int32)
             state_t = np.zeros(b_tot, np.int64)
             b0 = 0
             for i in idxs:
                 r = reqs[i]
                 b, t = r["lim"].shape
-                units[b0:b0 + b, :t] = r["units"]
+                adpcm_cuda.gather_units_plain(r["pcm"], r["offsets"], t,
+                                              out=units[b0:b0 + b, :t])
                 lim[b0:b0 + b, :t] = r["lim"]
                 state_t[b0:b0 + b] = t - 1
                 if r["prev1"] is not None:
@@ -141,8 +140,9 @@ def _encode_audio_groups(reqs, device, quiet=False):
                 print(f"[batch] audio group fc={fc} sr={sr}: "
                       f"{len(idxs)} jobs, {b_tot} streams x {t_max} units "
                       f"in one device call", file=sys.stderr)
-            h, n, s1, s2 = _grouped_unit_encode(units, lim, fc, sr, p1, p2,
-                                                state_t, device)
+            h, n, s1, s2 = streams.encode_prepared_units(
+                units, lim, fc, sr, prev1=p1, prev2=p2, state_t=state_t,
+                device=device)
             b0 = 0
             for i in idxs:
                 b, t = reqs[i]["lim"].shape
@@ -150,34 +150,6 @@ def _encode_audio_groups(reqs, device, quiet=False):
                           s1[b0:b0 + b], s2[b0:b0 + b])
                 b0 += b
     return out
-
-
-def _grouped_unit_encode(units, lim, fc, sr, p1, p2, state_t, devices):
-    """One K5 launch on the device, or, with several devices and at least
-    as many streams, one on each, the streams split over them
-    (``parallel.mesh.unit_encode_step``; B padded with masked streams to a
-    multiple, as the JAX runner's mesh branch does)."""
-    devices = mesh.device_list(devices)
-    n_dev = len(devices)
-    B = lim.shape[0]
-    if n_dev == 1 or B < n_dev:
-        return streams.encode_prepared_units(units, lim, fc, sr, prev1=p1,
-                                             prev2=p2, state_t=state_t,
-                                             device=devices[0])
-    pad = -(-B // n_dev) * n_dev - B
-    units = torch.cat([units, units.new_zeros((pad,) + units.shape[1:])])
-    lim = torch.cat([lim, lim.new_zeros((pad,) + lim.shape[1:])])
-    p1, p2 = (torch.from_numpy(np.concatenate([p, np.zeros(pad, np.int32)]))
-              for p in (p1, p2))
-    step = mesh.unit_encode_step(devices, filter_count=fc, shift_range=sr)
-    h, values, s1, s2 = step(units, lim, p1, p2)
-    rows = torch.arange(B, device=s1.device)
-    t_idx = streams.upload(np.asarray(state_t, np.int64), s1.device)
-    h, values = h[:B].to(torch.uint8), values[:B].to(torch.uint8)
-    s1, s2 = s1[rows, t_idx], s2[rows, t_idx]
-    with spans.span("adpcm.read_back"):
-        return (streams.read_back(h), streams.read_back(values),
-                streams.read_back(s1), streams.read_back(s2))
 
 
 class _ThreadStderr:
@@ -220,9 +192,10 @@ class _ChunkBatcher:
     Each streaming audio job runs in its own thread with a ``chunked``
     unit encoder (the containers keep their bounded chunk feeds:
     ``vag.SPU_CHUNK_BLOCKS``, ``xa.AUDIO_CHUNK_SECTORS_SOLO``). A chunk
-    encode enqueues its units (gathered on the host) and blocks; when
-    every still-active job has a chunk pending, the thread that completed
-    the round encodes it through the grouped call of the whole-file path.
+    encode enqueues its request (as the planning pass captures one) and
+    blocks; when every still-active job has a chunk pending, the thread
+    that completed the round encodes it through the grouped call of the
+    whole-file path.
     The K5 launch, its count and the copy back to the host happen under
     the condition lock, on that thread's current (default) stream. State
     threading stays per job (the containers pass prev1/prev2), so the

@@ -2,19 +2,18 @@
 stream batch.
 
 Counterpart of ``psxavenc_tpu/models/adpcm_stream.py``. The unit
-boundaries (offset, limit) of a whole stream are computed up front, the
-int16 PCM, an int32 offset and a limit a unit go to the device, and one
-K5 launch reads each unit straight from the PCM and threads the decoder
-state over time for all B channel streams; no (B, T, 28) unit tensor is
-made on the card. The batch runner's zero-padded units go up as int16
-samples in K5's dense layout. The device is explicit (default: the
-card). On a CPU device the units are gathered on the host
-(``adpcm_cuda.gather_units_plain``) for the native C++ unit encoder
-(``native/tiers.py``, bit-exact with K5), as the JAX module's no-TPU tier
-does, unless PSXAVENC_NO_NATIVE_ADPCM is set: then K5's plain version
-runs. On the card it is always K5. The TPU-only parts of the JAX module
-(the 128-lane pad, the time segments, the power-of-two time buckets, the
-fused read-back) have no counterpart here.
+boundaries (offset, limit) of a whole stream are computed up front; the
+int16 PCM, an int32 offset and a limit a unit go to the device
+(:func:`k5_input` converts every route's input, once), and one K5 launch
+reads each unit straight from the PCM and threads the decoder state over
+time for all B streams. The batch runner's zero-padded units go up in
+K5's dense layout, a shard a device where it gives several. On a CPU
+device the units are gathered on the host for the native C++ unit
+encoder (``native/tiers.py``, bit-exact with K5), as the JAX module's
+no-TPU tier does, unless PSXAVENC_NO_NATIVE_ADPCM is set: then K5's
+plain version runs. The TPU-only parts of the JAX module (the 128-lane
+pad, the time segments, the power-of-two time buckets, the fused
+read-back) have no counterpart here.
 
 Spans (``utils/spans.py``), one each a K5 call: ``adpcm.upload`` (the
 host arrays to the device), ``adpcm.kernel`` (the states, K5 and the
@@ -31,6 +30,7 @@ import torch
 from ..native import tiers
 from ..ops import adpcm as ops
 from ..ops import adpcm_cuda
+from ..parallel import mesh
 from ..utils import spans
 
 SAMPLES_PER_UNIT = ops.SAMPLES_PER_UNIT
@@ -73,61 +73,76 @@ def _state(prev, B):
         else np.asarray(prev, np.int32)
 
 
-def upload(x, device, dtype=None):
-    """A host array or a tensor -> a tensor on ``device`` (of ``dtype``);
-    a copy from pageable host memory to a card counts its bytes."""
+def k5_input(samples, limits):
+    """Every route's ``samples`` and ``limits`` (host arrays or tensors)
+    as K5 takes them, contiguous and where they are: the samples int16
+    (``adpcm_cuda.s16_units``: ValueError outside s16), the limits int32
+    in [-(1 << 30), 28]."""
+    samples, limits = (x if torch.is_tensor(x) else torch.from_numpy(
+        np.require(x, requirements="W")) for x in (samples, limits))
+    return (adpcm_cuda.s16_units(samples).contiguous(),
+            adpcm_cuda.clip_limits(limits).contiguous())
+
+
+def upload(x, device):
+    """A host array or a tensor -> a tensor on ``device``; a copy from
+    pageable host memory to a card counts its bytes."""
     t = torch.as_tensor(x)
     spans.count_h2d(t, device)
-    return t.to(device=device, dtype=dtype)
+    return t.to(device)
 
 
-def read_back(t):
-    """A tensor -> a host numpy array; a copy from a card counts its
-    bytes."""
-    spans.count_d2h(t)
-    return t.cpu().numpy()
+def _encode(dev, pcm, offsets, lim, prev1, prev2, state_t, filter_count,
+            shift_range):
+    """K5 on ``dev`` -> (headers uint8, values uint8, final prev1, final
+    prev2) there, not read back (:func:`_run` does); on the CPU the native
+    tier's host arrays, unless PSXAVENC_NO_NATIVE_ADPCM is set.
 
-
-def _encode(held, prev1, prev2, filter_count, shift_range, state_t):
-    """K5 on device tensors (the native tier on the CPU, unless
-    PSXAVENC_NO_NATIVE_ADPCM is set) -> host (headers uint8, values
-    uint8, final prev1, final prev2).
-
-    ``held`` is the list [pcm (B, N) int16, offsets (B, T) int32 or None
-    (K5's dense layout), limits (B, T) int32], which _encode empties: the
-    callers keep no other reference, so the samples are freed once K5 has
-    run, before the unpack, and the call's device peak is K5's own working
-    set."""
-    pcm, offsets, lim = held
-    held.clear()
+    ``pcm`` (B, N) int16, ``offsets`` (B, T) int32 or None (K5's dense
+    layout) and ``lim`` (B, T) int32 go up here, and their device copies
+    are the call's only references: the samples are freed once K5 has
+    run, before the unpack, so the call's device peak is K5's own working
+    set. ``state_t`` (B,) int64: each row's unit whose post-state is
+    final."""
+    with spans.span("adpcm.upload"):
+        pcm, offsets, lim = (x if x is None else upload(x, dev)
+                             for x in (pcm, offsets, lim))
     B, T = lim.shape
-    dev = pcm.device
     if dev.type == "cpu" and not os.environ.get("PSXAVENC_NO_NATIVE_ADPCM"):
         with spans.span("adpcm.kernel"):
             units = adpcm_cuda.gather_units_plain(pcm, offsets, T)
             h, v, s1, s2 = tiers.adpcm_encode_units(
                 units.numpy(), lim.numpy(), _state(prev1, B),
                 _state(prev2, B), filter_count, shift_range)
-        t_idx = np.full(B, T - 1) if state_t is None \
-            else np.asarray(state_t, np.int64)
         rows = np.arange(B)
-        return h, v, s1[rows, t_idx], s2[rows, t_idx]
+        return h, v, s1[rows, state_t], s2[rows, state_t]
     with spans.span("adpcm.kernel"):
         h, w, s1, s2 = adpcm_cuda.encode_pcm_units(
             pcm, offsets, lim, upload(_state(prev1, B), dev),
             upload(_state(prev2, B), dev),
             filter_count=filter_count, shift_range=shift_range)
         del pcm, offsets, lim
-        if state_t is None:
-            t_idx = torch.full((B, 1), T - 1, dtype=torch.int64, device=dev)
-        else:
-            t_idx = upload(np.asarray(state_t, np.int64), dev)[:, None]
+        t_idx = upload(state_t, dev)[:, None]
         f1 = s1.gather(1, t_idx)[:, 0]
         f2 = s2.gather(1, t_idx)[:, 0]
         h = h.to(torch.uint8)
         values = adpcm_cuda.unpack_words_u8(w, shift_range)
-    with spans.span("adpcm.read_back"):
-        return read_back(h), read_back(values), read_back(f1), read_back(f2)
+    return h, values, f1, f2
+
+
+def _run(shards, filter_count, shift_range, B):
+    """:func:`_encode` on each shard (its arguments up to ``state_t``),
+    all enqueued before any read-back (which counts its bytes) -> the
+    outputs on the host, the shards' rows concatenated, rows 0..B-1."""
+    outs = [_encode(*shard, filter_count, shift_range) for shard in shards]
+    for k, out in enumerate(outs):
+        if torch.is_tensor(out[0]):     # not the native tier's arrays
+            with spans.span("adpcm.read_back"):
+                for t in out:
+                    spans.count_d2h(t)
+                outs[k] = [t.cpu().numpy() for t in out]
+    return tuple(outs[0]) if len(outs) == 1 else \
+        tuple(np.concatenate(col)[:B] for col in zip(*outs))
 
 
 def encode_unit_streams(channel_samples, offsets, limits, filter_count,
@@ -135,8 +150,8 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
     """Encode B channel streams' units on ``device``.
 
     Args:
-      channel_samples: (B, N) int16/int32 per-channel contiguous samples
-        (uploaded as int16).
+      channel_samples: (B, N) per-channel contiguous s16 samples, of any
+        integer dtype (uploaded as int16; ValueError outside s16).
       offsets: (B, T) non-negative start sample of each unit; an offset
         + 27 must fit int32 (``adpcm_cuda.unit_offsets``: ValueError).
       limits: (B, T) per-unit limits (values > 28 behave as 28, values
@@ -145,22 +160,17 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
       headers (B, T) uint8, sample values (B, T, 28) uint8, and the
       decoder state (prev1, prev2) after the last unit, host numpy.
     """
-    channel_samples = np.asarray(channel_samples)
+    pcm, lim = k5_input(channel_samples, limits)
     offsets = adpcm_cuda.unit_offsets(offsets)
-    B = channel_samples.shape[0]
+    B = pcm.shape[0]
     T = offsets.shape[1]
     if T == 0:
         # As psxavenc_tpu: an empty stream reports a zero state.
         return (np.zeros((B, 0), np.uint8),
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),
                 np.zeros(B, np.int32), np.zeros(B, np.int32))
-    dev = torch.device(device)
-    with spans.span("adpcm.upload"):
-        held = [upload(np.ascontiguousarray(channel_samples, np.int16), dev),
-                upload(offsets, dev),
-                upload(np.clip(np.asarray(limits), -(1 << 30),
-                               SAMPLES_PER_UNIT).astype(np.int32), dev)]
-    return _encode(held, prev1, prev2, filter_count, shift_range, None)
+    return _run([(torch.device(device), pcm, offsets, lim, prev1, prev2,
+                  np.full(B, T - 1))], filter_count, shift_range, B)
 
 
 def whole_file(unit_encoder):
@@ -177,27 +187,39 @@ def encode_prepared_units(units, lim, filter_count, shift_range,
     """Encode pre-gathered (B, T, 28) units of s16 samples (see
     encode_unit_streams; the batch runner concatenates many files' streams
     on B before calling): numpy arrays or tensors on any device, made
-    int16 where they are (``adpcm_cuda.s16_units``: ValueError outside
-    s16) and moved to ``device`` as (B, T * 28) samples in K5's dense
-    layout.
+    K5's input where they are (:func:`k5_input`) and moved to the device
+    as (B, T * 28) samples in K5's dense layout.
+
+    ``device``: one, or a list of at most B devices: then B is padded
+    with masked rows to a multiple of their count and cut into one equal
+    shard a device, each shard's device memory the one-device call's.
 
     ``state_t``: optional (B,) per-row unit index whose post-state to
     return as the final decoder state (rows padded with masked units
     still change the state; adpcm.c:142-191 runs regardless). Default:
     the last column.
     """
-    dev = torch.device(device)
-    units = torch.as_tensor(units)
+    units, lim = k5_input(units, lim)
     B, T, n = units.shape
-    with spans.span("adpcm.upload"):
-        held = [upload(adpcm_cuda.s16_units(units).reshape(B, T * n),
-                       dev).contiguous(), None,
-                adpcm_cuda.clip_limits(upload(lim, dev)).contiguous()]
+    p1, p2 = _state(prev1, B), _state(prev2, B)
     if T == 0:
         return (np.zeros((B, 0), np.uint8),
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),
-                _state(prev1, B).copy(), _state(prev2, B).copy())
-    return _encode(held, prev1, prev2, filter_count, shift_range, state_t)
+                p1.copy(), p2.copy())
+    t_idx = np.full(B, T - 1) if state_t is None else state_t
+    devices = mesh.device_list(device)
+    devices = devices[:1] if B < len(devices) else devices
+    b = -(-B // len(devices))
+    pad = b * len(devices) - B
+    if pad:
+        units = torch.cat([units, units.new_zeros((pad, T, n))])
+        lim = torch.cat([lim, lim.new_zeros((pad, T))])
+    p1, p2, t_idx = (np.concatenate([a, np.zeros(pad, a.dtype)])
+                     for a in (p1, p2, np.asarray(t_idx, np.int64)))
+    cut = [slice(i * b, (i + 1) * b) for i in range(len(devices))]
+    return _run([(dev, units[r].reshape(b, T * n), None, lim[r], p1[r],
+                  p2[r], t_idx[r]) for dev, r in zip(devices, cut)],
+                filter_count, shift_range, B)
 
 
 def pack_spu_blocks(headers, nibbles, flags=None):

@@ -110,24 +110,29 @@ def unit_offsets(offsets):
     return np.ascontiguousarray(offsets, np.int32)
 
 
-def gather_units_plain(pcm, offsets, T):
+def gather_units_plain(pcm, offsets, T, out=None):
     """The units K5 reads: (B, N) samples and (B, T) offsets -> (B, T, 28)
-    int32 on the samples' device. Sample indices clip to [0, N - 1], so a
-    unit past the end repeats the last sample (its limit masks it); N == 0
-    gives zeros. ``offsets`` None is the dense layout, N = 28 T: the
-    samples reshaped."""
+    int32 on the samples' device, or written into ``out`` ((B, T, 28), in
+    its dtype) with nothing of that size made beside it. Sample indices
+    clip to [0, N - 1], so a unit past the end repeats the last sample
+    (its limit masks it); N == 0 gives zeros. ``offsets`` None is the
+    dense layout, N = 28 T: the samples reshaped."""
     B, N = pcm.shape
-    dev = pcm.device
+    n = adpcm.SAMPLES_PER_UNIT
+    if out is None:
+        out = torch.empty((B, T, n), dtype=torch.int32, device=pcm.device)
     if offsets is None:
-        return pcm.to(torch.int32).reshape(B, T, adpcm.SAMPLES_PER_UNIT)
+        return out.copy_(pcm.reshape(B, T, n))
     if N == 0:
-        return torch.zeros((B, T, adpcm.SAMPLES_PER_UNIT), dtype=torch.int32,
-                           device=dev)
-    idx = offsets.to(torch.int64)[..., None] + torch.arange(
-        adpcm.SAMPLES_PER_UNIT, device=dev)
-    idx = idx.clamp(0, N - 1).reshape(B, -1)
-    return pcm.to(torch.int32).gather(1, idx).reshape(
-        B, T, adpcm.SAMPLES_PER_UNIT)
+        return out.zero_()
+    # Rows edged with 27 copies of their first and last samples: unit o is
+    # the window at o + 27, clipped to the row, which clips every index.
+    row = torch.cat([pcm[:, :1].expand(B, n - 1), pcm,
+                     pcm[:, -1:].expand(B, n - 1)], 1).to(out.dtype)
+    starts = (offsets.to(torch.int64) + n - 1).clamp(0, N + n - 2)
+    for r in range(B):
+        torch.index_select(row[r].unfold(0, n, 1), 0, starts[r], out=out[r])
+    return out
 
 
 def s16_units(units):

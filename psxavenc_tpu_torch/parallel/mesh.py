@@ -20,7 +20,7 @@ hold one device more than once (the CPU tests; a host with one card):
 the shards then share it, each on its own stream.
 
 A batch that does not divide over the devices raises; callers pad, as in
-the JAX package (``models/bs_video.py``, ``batch.py``).
+the JAX package (``models/bs_video.py``).
 """
 
 import torch

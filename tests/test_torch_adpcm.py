@@ -346,8 +346,8 @@ def test_dense_gather_is_the_offset_grid():
 def test_units_past_s16_raise(sample, ok):
     """The tensor API's units are s16 samples: int32 units at the range's
     ends encode as the JAX scan does, one sample past it raises (int16
-    would wrap it), through ``encode_units``, the API and the grouped
-    call."""
+    would wrap it), through ``encode_units``, the API, the grouped call
+    and ``encode_unit_streams``."""
     units = torch.zeros((2, 3, 28), dtype=torch.int32)
     units[1, 2, 5] = sample
     lims = torch.full((2, 3), 28, dtype=torch.int32)
@@ -358,7 +358,11 @@ def test_units_past_s16_raise(sample, ok):
              lambda: tapi.spu_encode_batch(units, lims, zero, zero),
              lambda: tstreams.encode_prepared_units(units.numpy(),
                                                     lims.numpy(), 5, 12,
-                                                    device="cpu"))
+                                                    device="cpu"),
+             lambda: tstreams.encode_unit_streams(
+                 units.reshape(2, -1).numpy(),
+                 np.broadcast_to(28 * np.arange(3), (2, 3)), lims.numpy(),
+                 5, 12, device="cpu"))
     if not ok:
         for call in calls:
             with plain_tiers(), pytest.raises(ValueError, match="s16"):

@@ -109,6 +109,46 @@ def test_batch_groups_device_work(tmp_path, capsys):
     assert "9/9 jobs succeeded" in err, err
 
 
+def test_batch_requests_hold_int16_samples(tmp_path, monkeypatch):
+    """Every request the planning pass captures holds the container's
+    samples as (B, N) int16, (B, T) int32 offsets and clipped int32
+    limits, and no (B, T, 28) tensor; the group's int16 rows gathered from
+    it are the int32 units K5 reads. A sample outside s16 raises."""
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    jobs = _jobs(tmp_path, _mixed_specs(tmp_path))
+    reqs = []
+    real = tbatch._request
+
+    def spy(*a):
+        reqs.append(real(*a))
+        return reqs[-1]
+
+    monkeypatch.setattr(tbatch, "_request", spy)
+    with plain_tiers():
+        assert tbatch.run_jobs(jobs["g"], group=True, quiet=True,
+                               device="cpu") == [0] * len(jobs["g"])
+    assert len(reqs) == 5
+    for r in reqs:
+        B, T = r["lim"].shape
+        assert r["pcm"].dtype == torch.int16 and r["pcm"].shape[0] == B
+        assert r["offsets"].dtype == r["lim"].dtype == torch.int32
+        assert r["offsets"].shape == (B, T)
+        assert int(r["lim"].min()) >= -(1 << 30) and int(r["lim"].max()) <= 28
+        assert not [v for v in r.values()
+                    if torch.is_tensor(v) and v.ndim == 3]
+        rows = torch.zeros((B + 1, T + 2, 28), dtype=torch.int16)
+        adpcm_cuda.gather_units_plain(r["pcm"], r["offsets"], T,
+                                      out=rows[1:, :T])
+        assert torch.equal(rows[1:, :T].to(torch.int32),
+                           adpcm_cuda.gather_units_plain(
+                               r["pcm"].to(torch.int32), r["offsets"], T))
+        assert not rows[0].any() and not rows[:, T:].any()
+    with pytest.raises(ValueError, match="s16"):
+        real(np.array([[0, 40000]], np.int32), np.array([[0]]),
+             np.array([[2]]), 5, 12, None, None)
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_batch_fuzz_matches_serial_and_jax(tmp_path, seed):
     """Seeded random job mixes (formats x rates x channels x lengths,

@@ -1368,15 +1368,10 @@ def test_xa_chunk_call_peak_is_k5_working_set(dev, monkeypatch):
     assert f2.tolist() == want[3][:, -1].tolist()
 
 
-def test_grouped_unit_call_peak_is_k5_working_set(dev):
-    """One ``encode_prepared_units`` call on a bank's zero-padded (256,
-    7,816) SPU units holds at most 94 bytes a unit on the card (the units
-    as int16 samples 56, two clipped limits 8, K5's outputs 28: the unpack
-    runs after the samples are freed), takes K5's dense layout and gives
-    K5's headers, values and states."""
-    from psxavenc_tpu_torch.models import adpcm_stream as streams
-
-    B, T = 256, 7816
+def _bank_units(B=256, T=7816):
+    """A bank's zero-padded (B, T) SPU units as the batch runner groups
+    them: int32 units, limits with masked tails, the final-state index
+    and carried-in states."""
     rng = np.random.default_rng(18)
     amp = rng.uniform(30, 20000, (B, 1, 1))
     units = np.clip(rng.standard_normal((B, T, 28)) * amp, -32768,
@@ -1385,18 +1380,36 @@ def test_grouped_unit_call_peak_is_k5_working_set(dev):
     lens[0] = T
     lim = np.where(np.arange(T) < lens[:, None], 28, 0).astype(np.int32)
     lim[np.arange(B), lens - 1] = rng.integers(1, 29, B)
-    state_t = lens - 1
     p1 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
     p2 = rng.integers(-0x8000, 0x8000, B).astype(np.int32)
+    return units, lim, lens - 1, p1, p2
+
+
+def _grouped_peak(dev, device, units, lim, state_t, p1, p2):
+    """``encode_prepared_units`` on ``device`` -> (its outputs, the most
+    memory it held on ``dev`` at once, in bytes)."""
+    from psxavenc_tpu_torch.models import adpcm_stream as streams
+
     units_t, lim_t = torch.from_numpy(units), torch.from_numpy(lim)
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    inputs = dict(adpcm_cuda.INPUTS)
     got = streams.encode_prepared_units(units_t, lim_t, 5, 12, prev1=p1,
                                         prev2=p2, state_t=state_t,
-                                        device=dev)
-    peak = torch.cuda.max_memory_allocated(dev) - base
+                                        device=device)
+    return got, torch.cuda.max_memory_allocated(dev) - base
+
+
+def test_grouped_unit_call_peak_is_k5_working_set(dev):
+    """One ``encode_prepared_units`` call on a bank's zero-padded (256,
+    7,816) SPU units holds at most 94 bytes a unit on the card (the units
+    as int16 samples 56, two clipped limits 8, K5's outputs 28: the unpack
+    runs after the samples are freed), takes K5's dense layout and gives
+    K5's headers, values and states."""
+    units, lim, state_t, p1, p2 = _bank_units()
+    B, T = lim.shape
+    inputs = dict(adpcm_cuda.INPUTS)
+    got, peak = _grouped_peak(dev, dev, units, lim, state_t, p1, p2)
     print(f"peak {peak} B, {peak / (B * T):.2f} B a unit")
     assert peak <= 94 * B * T + (1 << 20)
     assert adpcm_cuda.INPUTS == {"offsets": inputs["offsets"],
@@ -1412,6 +1425,22 @@ def test_grouped_unit_call_peak_is_k5_working_set(dev):
                             want):
         wnt = wnt.cpu().numpy()
         assert g.dtype == wnt.dtype and np.array_equal(g, wnt), name
+
+
+def test_grouped_unit_call_split_on_one_card(dev):
+    """The grouped call over ``[cuda:0, cuda:0]`` (a shard a listed device,
+    both enqueued before either is read back) gives the one-device call's
+    bytes, a K5 call a shard, and holds no more memory at once."""
+    args = _bank_units()
+    one, one_peak = _grouped_peak(dev, dev, *args)
+    inputs = dict(adpcm_cuda.INPUTS)
+    two, two_peak = _grouped_peak(dev, [dev, dev], *args)
+    print(f"peak one device {one_peak} B, two shards {two_peak} B")
+    assert adpcm_cuda.INPUTS["dense"] == inputs["dense"] + 2
+    for name, g, w in zip(("headers", "values", "prev1", "prev2"), two, one,
+                          strict=True):
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+    assert two_peak <= one_peak
 
 
 def test_cuda_encoder_under_auto_makes_no_native_call(dev, monkeypatch):

@@ -11,15 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from psxavenc_tpu.models import adpcm_stream as jstreams
 from psxavenc_tpu.parallel import mesh as jmesh
 from psxavenc_tpu_torch import api as tapi
 from psxavenc_tpu_torch import batch as tbatch
+from psxavenc_tpu_torch.models import adpcm_stream as tstreams
 from psxavenc_tpu_torch.models import bs_video
 from psxavenc_tpu_torch.ops import bs as tbs
 from psxavenc_tpu_torch.parallel import mesh
 
 from test_torch_batch import _jobs, _mixed_specs
-from test_torch_parity import plain_tiers, video_frames
+from psxavenc_tpu_torch.native import tiers
+
+from test_torch_parity import assert_same, plain_tiers, video_frames
 
 CPU = torch.device("cpu")
 SPLITS = {"cpu x2": [CPU, CPU], "cpu x4": [CPU] * 4}
@@ -183,32 +187,72 @@ def test_encoder_with_several_devices(monkeypatch):
 
 
 def test_batch_runner_with_several_devices(tmp_path, monkeypatch):
-    """The batch runner over four CPU devices: the grouped SPU call splits
-    its 6 streams (padded to 8; the 2 XA streams are fewer than the
-    devices and run unsplit) and the video groups split their batches;
-    every file equals the one-device run."""
+    """The batch runner over four CPU devices: the grouped audio calls get
+    the four devices (``encode_prepared_units`` splits the 6 SPU streams,
+    padded to 8; the 2 XA streams are fewer than the devices and run
+    unsplit) and the video groups split their batches; every file equals
+    the one-device run."""
     jobs = _jobs(tmp_path, _mixed_specs(tmp_path))
     calls = []
-    for name in ("unit_encode_step", "packed_video_step"):
-        real = getattr(mesh, name)
+    real_video = mesh.packed_video_step
 
-        def spy(devices, _real=real, _name=name, **kw):
-            calls.append((_name, len(devices)))
-            return _real(devices, **kw)
+    def video_spy(devices, **kw):
+        calls.append(("packed_video_step", len(devices)))
+        return real_video(devices, **kw)
 
-        monkeypatch.setattr(mesh, name, spy)
+    real_units = tstreams.encode_prepared_units
+
+    def units_spy(*a, device, **kw):
+        calls.append(("encode_prepared_units", list(device)))
+        return real_units(*a, device=device, **kw)
+
+    monkeypatch.setattr(mesh, "packed_video_step", video_spy)
+    monkeypatch.setattr(tstreams, "encode_prepared_units", units_spy)
     with plain_tiers():
         rcs_split = tbatch.run_jobs(jobs["s"], group=True, quiet=True,
                                     device=[CPU] * 4)
         rcs_one = tbatch.run_jobs(jobs["g"], group=True, quiet=True,
                                   device="cpu")
     assert rcs_split == rcs_one == [0] * len(jobs["g"])
-    assert ("unit_encode_step", 4) in calls
+    assert ("encode_prepared_units", [CPU] * 4) in calls
     assert ("packed_video_step", 4) in calls
     for k in range(len(jobs["g"])):
         one = pathlib.Path(jobs["g"][k][-1]).read_bytes()
         assert pathlib.Path(jobs["s"][k][-1]).read_bytes() == one
         assert len(one) > 0
+
+
+@pytest.mark.parametrize("tier", ["native", "plain"])
+@pytest.mark.parametrize("n_dev", [4, 3])
+def test_grouped_unit_call_over_devices(monkeypatch, n_dev, tier):
+    """``encode_prepared_units`` over ``[cpu] * n_dev`` with 10 rows (a
+    batch that does not divide, padded with masked rows): the same
+    headers, values and final states as one device and as the JAX
+    package's, a K5 call a shard; 2 rows, fewer than the devices, run in
+    one call on the first."""
+    if tier == "plain":
+        monkeypatch.setenv("PSXAVENC_NO_NATIVE_ADPCM", "1")
+    else:
+        monkeypatch.delenv("PSXAVENC_NO_NATIVE_ADPCM", raising=False)
+    units, lim, p1, p2 = (t.numpy() for t in _units(B=10, T=6, seed=5))
+    lim[3, 4:] = 0
+    lim[7, 1] = -4
+    state_t = np.array([5, 0, 3, 3, 5, 1, 2, 5, 4, 0])
+    want = jstreams.encode_prepared_units(units, lim, 5, 12, prev1=p1,
+                                          prev2=p2, state_t=state_t)
+    for rows in (slice(None), slice(0, 2)):
+        kw = dict(prev1=p1[rows], prev2=p2[rows], state_t=state_t[rows])
+        one = tstreams.encode_prepared_units(units[rows], lim[rows], 5, 12,
+                                             device="cpu", **kw)
+        before = tiers.COUNTERS["adpcm_encode_units"]
+        got = tstreams.encode_prepared_units(units[rows], lim[rows], 5, 12,
+                                             device=[CPU] * n_dev, **kw)
+        calls = tiers.COUNTERS["adpcm_encode_units"] - before
+        assert calls == (0 if tier == "plain" else
+                         n_dev if rows.stop is None else 1)
+        for w, o, g in zip(want, one, got, strict=True):
+            assert g.dtype == o.dtype and np.array_equal(g, o)
+            assert_same(np.asarray(w)[rows], g)
 
 
 @pytest.mark.parametrize("split", SPLITS)
