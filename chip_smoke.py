@@ -7,17 +7,20 @@ Phases, one or more lines each:
 1. the card and toolchain;
 2. the kernel build (nvcc, one process per source in
    psxavenc_tpu_torch/csrc, started together), and what ptxas reports for
-   the functions of bs_select.cu, bs_emit.cu, bs_dc.cu, bitpack_streams.cu
-   and bitpack_place.cu: registers, stack and spill bytes (K2 and K10 must
-   not spill);
-3. each BS kernel (K1-K4, and the tail emission of the blocks over 256
-   bits, also held to the exact flat packer) against its plain PyTorch
+   the functions of bs_nv21.cu, bs_select.cu, bs_emit.cu, bs_dc.cu,
+   bitpack_streams.cu and bitpack_place.cu: registers, stack and spill
+   bytes (K2 and K10 must not spill);
+3. each BS kernel (the NV21 kernel, whose pixel rows and DCs are the
+   other kernels' inputs, K1-K4, and the tail emission of the blocks over
+   256 bits, also held to the exact flat packer) against its plain PyTorch
    version at the video path's shapes (BS 320x240, 128 frames, 18,144-byte
    budgets, every eighth frame noise), v2 and v3dc: exact equality; K3's
    cycle sections per frame; the kernel's device time (one wrapper call
    captured as a CUDA graph and replayed back to back, so without the
    host's work), one wrapper call's and the plain version's times (CUDA
-   events, median). K1's scale search is also checked for every kind of
+   events, median). The NV21 kernel is also checked and timed on the
+   batch's first 3 frames (900 macroblocks, no multiple of a CTA's run)
+   and on 640x480 frames. K1's scale search is also checked for every kind of
    seed (none, the answers, the answers shifted by +-1 and +-7, all 1, all
    63, out of range) with one frame unfittable, its evaluation statistics
    printed per case and held to the plain model of the search, timed with
@@ -43,8 +46,8 @@ Phases, one or more lines each:
 4. the video path: BsFrameEncoder (pipelined: the next batch uploaded
    and launched while this one is read back and assembled) on the card
    over 256 frames for v2, v3 and v3dc, each codec's bytes equal to its
-   committed digest, K1-K4 and the tail emission launched, the frames with
-   a block over 256 bits counted on the device;
+   committed digest, the NV21 kernel, K1-K4 and the tail emission
+   launched, the frames with a block over 256 bits counted on the device;
 5. the video CLI (-t sbs, -t strv) as subprocesses on a synthetic AVI,
    equal to the digests (-t strv also with PSXAVENC_PLATFORM=cpu, once
    on the kernels' plain versions and once on the native tiers), each run
@@ -195,6 +198,10 @@ PACKERS = ("fused_mxu", "fused", "fused_pallas", "fused_gather", "blocks",
 
 # (wrapper name, source, TPU kernel it replaces)
 KERNELS = [
+    # No TPU kernel: the XLA glue in front of the fused select (the pixel
+    # rows, and the DC sums of psxavenc_tpu/ops/bs.py:742).
+    ("nv21_pix_dc", "psxavenc_tpu_torch/csrc/bs_nv21.cu",
+     "psxavenc_tpu/api.py:96"),
     ("select_scale_pix", "psxavenc_tpu_torch/csrc/bs_select.cu",
      "psxavenc_tpu/ops/bs_pallas.py:412"),
     ("dc_stage", "psxavenc_tpu_torch/csrc/bs_dc.cu",
@@ -1036,13 +1043,17 @@ def check_kernels(torch, np, synth, card):
     dev = torch.device("cuda", 0)
     frames = torch.from_numpy(smoke_frames(np, synth, B, seed=5)).to(dev)
     budgets = torch.full((B,), BUDGET, dtype=torch.int32, device=dev)
-    pix = bs_ops.rearrange_nv21_rows(frames, W, H)
-    nb = pix.shape[2]
-    dc_q = bs_ops.dc_quant_from_pixrows(pix)
     results = {}
 
     def check(*args, **kw):
         return compare(torch, results, 3, *args, card, **kw)
+
+    pix, dc_q = check(
+        "nv21_pix_dc", "v2", lambda: bs_cuda.nv21_pix_dc(frames, W, H),
+        lambda: bs_cuda.nv21_pix_dc_plain(frames, W, H),
+        lambda out: rl.nv21_pix_dc_work(B, W, H))
+    nv21_checks(torch, np, synth, card, frames)
+    nb = pix.shape[2]
 
     for codec, label in ((bs_ops.BS_V2, "v2"), (bs_ops.BS_V3DC, "v3dc")):
         if codec == bs_ops.BS_V2:
@@ -1232,6 +1243,29 @@ def tail_cases(torch, np, synth, card, results):
                                  f"block over 256 bits, expected {frames}")
 
 
+def nv21_checks(torch, np, synth, card, frames):
+    """Phase 3, the NV21 kernel beyond its row: on the first 3 of the
+    batch's ``frames`` (900 macroblocks, so the last CTA's run is short)
+    and on BIG_FRAMES frames of BIG_W x BIG_H, equal to its plain version
+    and timed."""
+    from psxavenc_tpu_torch.ops import bs_cuda
+
+    big = torch.from_numpy(np.stack([nv21(np, p, BIG_W, BIG_H) for p in
+                                     synth.rand_frames(BIG_W, BIG_H,
+                                                       BIG_FRAMES, seed=17)]))
+    for f, w, h in ((frames[:3], W, H), (big.to(frames.device), BIG_W, BIG_H)):
+        err = max_abs_err(torch, bs_cuda.nv21_pix_dc(f, w, h),
+                          bs_cuda.nv21_pix_dc_plain(f, w, h), "nv21_pix_dc")
+        ms = graph_ms(torch, lambda: bs_cuda.nv21_pix_dc(f, w, h))
+        bound_ms, by = rl.bound(*rl.nv21_pix_dc_work(f.shape[0], w, h))
+        say(f"[3] nv21_pix_dc on {f.shape[0]} frames {w}x{h}: max |kernel - "
+            f"plain| = {err}; kernel {ms:.4f} ms on the device (graph "
+            f"replay), bound {bound_ms:.4f} ms ({by}) on {card}")
+        if err:
+            raise AssertionError(f"nv21_pix_dc on {w}x{h}: kernel disagrees "
+                                 "with its plain version")
+
+
 def check_dc(torch, results, card, dc_q):
     """Phase 3: K2 on v3dc == its plain version on the DCs ``dc_q``; its
     row goes into ``results``."""
@@ -1384,8 +1418,8 @@ def main_path(torch, np, synth, digests):
     say(f"[4] launches in the video path: {launches}; frames with a block "
         f"over 256 bits (counted on the device by the tail emission): "
         f"{api.COUNTERS['overflow_frames']} of {3 * MAIN_FRAMES}")
-    for name in ("select_scale_pix", "dc_stage", "emit_prep", "place_vals",
-                 "emit_tail"):
+    for name in ("nv21_pix_dc", "select_scale_pix", "dc_stage",
+                 "emit_prep", "place_vals", "emit_tail"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "video path")
@@ -2815,6 +2849,7 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
         f.write(_build.build_log)
+    ptxas_report(_build.build_log, "bs_nv21.cu", ("nv21_pix_dc_kernel",))
     ptxas_report(_build.build_log, "bs_select.cu",
                  ("select_pix_kernel", "select_kernel"))
     ptxas_report(_build.build_log, "bs_emit.cu",

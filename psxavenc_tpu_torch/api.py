@@ -12,10 +12,10 @@ Counterpart of ``psxavenc_tpu.api``:
   kernels each runs). The default, ``fused_mxu`` with the kernel sweep,
   is the path psxavenc_tpu runs on its accelerator:
 
-    NV21 -> pixel rows (glue) -> DC sums and DC stage (K2 for v3/v3dc)
-    -> AC fit threshold -> FDCT + scale search (K1) -> emission +
-    placement prep (K3) -> placement (K4) -> the tail emission of blocks
-    over 256 bits (which every ``fused*`` packer ends with).
+    NV21 -> pixel rows and quantized DCs (one kernel) -> DC stage (K2
+    for v3/v3dc) -> AC fit threshold -> FDCT + scale search (K1) ->
+    emission + placement prep (K3) -> placement (K4) -> the tail emission
+    of blocks over 256 bits (which every ``fused*`` packer ends with).
 
 The device is the input tensors' device; on the CPU every kernel runs
 its plain version. No step of that path on the card waits for the
@@ -161,6 +161,7 @@ class _Stages:
 
     def __init__(self, use_kernels):
         if use_kernels:
+            self.nv21_pix_dc = bs_cuda.nv21_pix_dc
             self.dc_stage = bs_cuda.dc_stage
             self.select = bs_cuda.select_scale_pix
             self.emit_prep = bs_cuda.emit_prep
@@ -170,6 +171,7 @@ class _Stages:
             self.place_gather = bitpack_cuda.place_vals_gather
             self.place_streams = bitpack_cuda.place_streams_u32
         else:
+            self.nv21_pix_dc = bs_cuda.nv21_pix_dc_plain
             self.dc_stage = bs_cuda.dc_stage_plain
             self.select = bs_cuda.select_scale_pix_plain
             self.emit_prep = bs_cuda.emit_prep_plain
@@ -244,14 +246,14 @@ def bs_encode_frames(frames, budgets, *, codec, width, height,
 
 def _select_stages(codec, width, height, st):
     """The fused select stage (psxavenc_tpu's ``select_frames_pixels``) as
-    ordered (name, fn) stages: pixel rows, then ``ops.bs.select_stages``
-    (DC stage, AC threshold, FDCT + scale search (K1), totals) on ``st``'s
-    kernels or plain versions. Each fn(s) reads what the stages before it
-    put into the dict ``s`` (first ``frames`` and ``budgets``) and adds
-    its own results."""
+    ordered (name, fn) stages: the pixel rows and quantized DCs, then
+    ``ops.bs.select_stages`` (DC stage, AC threshold, FDCT + scale search
+    (K1), totals) on ``st``'s kernels or plain versions. Each fn(s) reads
+    what the stages before it put into the dict ``s`` (first ``frames``
+    and ``budgets``) and adds its own results."""
 
     def nv21(s):
-        s["pix"] = bs_ops.rearrange_nv21_rows(s["frames"], width, height)
+        s["pix"], s["dc_q"] = st.nv21_pix_dc(s["frames"], width, height)
 
     return [("nv21", nv21)] + bs_ops.select_stages(codec, st.dc_stage,
                                                    st.select)
@@ -315,8 +317,9 @@ def _emit_stages(packer, prep, eof, capacity_words, st):
 
 def step_stages(*, codec, width, height, capacity_words, use_kernels=True):
     """The default step of ``bs_encode_frames_packed`` (``fused_mxu`` with
-    the kernel sweep) as its ordered (name, fn) stages: ``nv21``, ``dc``
-    (the DC sums and K2), ``threshold``, ``k1``, ``totals``, ``k3``,
+    the kernel sweep) as its ordered (name, fn) stages: ``nv21`` (the
+    pixel rows and quantized DCs), ``dc`` (K2, or v2's DC codes),
+    ``threshold``, ``k1``, ``totals``, ``k3``,
     ``k4``, ``tail``, ``words``. Each fn(state) reads what the stages
     before it put into the dict ``state`` (first ``frames`` and
     ``budgets``) and adds its own; after the last, ``state`` holds the
@@ -385,9 +388,10 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     - ``blocks_pallas``: as ``blocks`` with K10 packing and K9 placement;
     - ``flat``: K6 (or the sweep), plain symbol emission, ``pack_bits``.
 
-    The ``fused*`` packers with the kernel sweep run K1 (and K2 for
-    v3/v3dc) first. A block over 256 bits: every ``fused*`` packer places
-    each block's first 256 bits (K3's placement prep, or K7's streams) and
+    The ``fused*`` packers with the kernel sweep run the NV21 kernel
+    (``ops.bs_cuda.nv21_pix_dc``) and K1 (and K2 for v3/v3dc) first. A
+    block over 256 bits: every ``fused*`` packer places each block's first
+    256 bits (K3's placement prep, or K7's streams) and
     ORs the rest into the placed words with the tail emission
     (``ops.bs_cuda.emit_tail``, the same file as K3 and K7; its plain
     version on the CPU and with ``use_kernels=False``), on the card with

@@ -21,8 +21,9 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("bs_select.cu", "bs_dc.cu", "bs_emit.cu", "bitpack_place.cu",
-           "bitpack_gather.cu", "bitpack_streams.cu", "adpcm_units.cu")
+SOURCES = ("bs_nv21.cu", "bs_select.cu", "bs_dc.cu", "bs_emit.cu",
+           "bitpack_place.cu", "bitpack_gather.cu", "bitpack_streams.cu",
+           "adpcm_units.cu")
 HEADERS = ("bs_common.cuh", "ac_codes.cuh", "place_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures: every pointer and the stream as c_void_p.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
+    "psx_nv21_pix_dc": [_P, _I, _I, _I, _P, _P, _P],
     "psx_select_scale_pix": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P],
     "psx_dc_stage": [_P, _I, _I, _I, _P, _P, _P],

@@ -565,15 +565,17 @@ def ac_threshold(budgets, dc_total, nb):
 
 
 def select_stages(codec, dc_stage, select):
-    """The fused select stage after the rearrange as ordered (name, fn)
-    stages: ``dc`` (the DC sums; ``dc_stage``, K2 or its plain version, for
-    v3/v3dc), ``threshold`` (the AC fit threshold), ``k1`` (``select``:
-    K1's FDCT and scale search, or its plain version) and ``totals``. Each
-    fn(s) reads what the stages before it put into the dict ``s`` (first
-    ``pix`` and ``budgets``) and adds its own results."""
+    """The fused select stage after the pixel rows and DCs as ordered
+    (name, fn) stages: ``dc`` (the DC codes: ``dc_stage``, K2 or its plain
+    version, for v3/v3dc), ``threshold`` (the AC fit threshold), ``k1``
+    (``select``: K1's FDCT and scale search, or its plain version) and
+    ``totals``. Each fn(s) reads what the stages before it put into the
+    dict ``s`` (first ``pix``, the (B, NB) clamped quantized DCs ``dc_q``,
+    which ``dc`` takes out of it, and ``budgets``) and adds its own
+    results."""
 
     def dc(s):
-        dc_q = dc_quant_from_pixrows(s["pix"])
+        dc_q = s.pop("dc_q")
         if codec == BS_V2:
             s["dc_bits"], s["dc_code"] = _dc_stage(dc_q, codec)
         else:
@@ -600,9 +602,9 @@ def select_stages(codec, dc_stage, select):
 
 def select_frames_pixels(pix, frame_max_sizes, *, codec):
     """Scale selection straight from the (B, 64, NB) pixel-row layout (see
-    :func:`rearrange_nv21_rows`) and (B,) byte budgets: :func:`select_stages`
-    through the kernels' wrappers (K2 for v3/v3dc, K1) on the pixels'
-    device.
+    :func:`rearrange_nv21_rows`) and (B,) byte budgets: the DCs of
+    :func:`dc_quant_from_pixrows`, then :func:`select_stages` through the
+    kernels' wrappers (K2 for v3/v3dc, K1) on the pixels' device.
 
     Counterpart of psxavenc_tpu's ``select_frames_pixels``, with its dict:
     ``scale`` (64 = unfittable), ``scale_idx``, ``nz_count``,
@@ -614,7 +616,8 @@ def select_frames_pixels(pix, frame_max_sizes, *, codec):
 
     if pix.dim() != 3 or pix.shape[1] != 64:
         raise ValueError("select_frames_pixels: pix must be (B, 64, NB)")
-    s = {"pix": pix, "budgets": frame_max_sizes}
+    s = {"pix": pix, "dc_q": dc_quant_from_pixrows(pix),
+         "budgets": frame_max_sizes}
     for _, fn in select_stages(codec, bs_cuda.dc_stage,
                                bs_cuda.select_scale_pix):
         fn(s)

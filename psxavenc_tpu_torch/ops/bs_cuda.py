@@ -1,5 +1,6 @@
-"""Wrappers and plain versions of the BS kernels K1-K3, K6 and K7, and
-of the tail emission of blocks longer than the 256-bit window.
+"""Wrappers and plain versions of the BS kernels K1-K3, K6 and K7, of
+the tail emission of blocks longer than the 256-bit window, and of the
+kernel that makes K1's pixel rows and the DCs from NV21 frames.
 
 Counterpart of ``psxavenc_tpu/ops/bs_pallas.py``. Each kernel has:
 
@@ -23,8 +24,9 @@ from . import bitpack as bitpack_ops
 
 TILE = 512  # coefficient lane padding, as psxavenc_tpu's select kernel
 
-LAUNCHES = {"select_scale_pix": 0, "dc_stage": 0, "emit_prep": 0,
-            "select_scale": 0, "emit_pack": 0, "emit_tail": 0}
+LAUNCHES = {"nv21_pix_dc": 0, "select_scale_pix": 0, "dc_stage": 0,
+            "emit_prep": 0, "select_scale": 0, "emit_pack": 0,
+            "emit_tail": 0}
 
 
 def _on_cuda(t, name):
@@ -57,6 +59,48 @@ def sm_count(device):
         _SMS[index] = torch.cuda.get_device_properties(
             index).multi_processor_count
     return _SMS[index]
+
+
+# ------------------------------------------------ NV21 rows and the DCs
+
+def nv21_pix_dc_plain(frames, width, height):
+    """K1's pixel rows and each block's DC from NV21 frames (plain torch):
+    (B, w*h*3/2) uint8 frames -> (pix, dc_q): the (B, 64, NB) int8
+    centered rows of :func:`ops.bs.rearrange_nv21_rows` and the (B, NB)
+    int32 clamped quantized DCs of :func:`ops.bs.dc_quant_from_pixrows`."""
+    pix = bs_ops.rearrange_nv21_rows(frames, width, height)
+    return pix, bs_ops.dc_quant_from_pixrows(pix)
+
+
+def nv21_pix_dc(frames, width, height):
+    """``csrc/bs_nv21.cu``: see :func:`nv21_pix_dc_plain`; w and h
+    multiples of 16. On the card the frames are contiguous, 16-byte
+    aligned and under 2^31 bytes, and the rows are never held as int32."""
+    if width <= 0 or height <= 0 or width % 16 or height % 16:
+        raise ValueError(f"nv21_pix_dc: {width}x{height} is not a multiple "
+                         "of 16 each way")
+    if (frames.dtype != torch.uint8 or frames.dim() != 2
+            or frames.shape[1] != width * height * 3 // 2):
+        raise ValueError(f"nv21_pix_dc: frames must be (B, "
+                         f"{width * height * 3 // 2}) uint8, got "
+                         f"{frames.dtype} {tuple(frames.shape)}")
+    if not _on_cuda(frames, "nv21_pix_dc"):
+        return nv21_pix_dc_plain(frames, width, height)
+    _require(frames, torch.uint8, 2, "nv21_pix_dc frames")
+    if frames.data_ptr() % 16:
+        raise ValueError("nv21_pix_dc: the frames must start 16-byte "
+                         "aligned")
+    if frames.numel() >= 2 ** 31:
+        raise ValueError("nv21_pix_dc: the batch is too large for the "
+                         "kernel's 32-bit indices")
+    B = frames.shape[0]
+    nb = 6 * (width // 16) * (height // 16)
+    pix = torch.empty((B, 64, nb), dtype=torch.int8, device=frames.device)
+    dc_q = torch.empty((B, nb), dtype=torch.int32, device=frames.device)
+    LAUNCHES["nv21_pix_dc"] += 1
+    _build.launch("psx_nv21_pix_dc", frames, _build.ptr(frames), B, width,
+                  height, _build.ptr(pix), _build.ptr(dc_q))
+    return pix, dc_q
 
 
 # ------------------------------------------------------------------- K1

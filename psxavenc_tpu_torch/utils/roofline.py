@@ -38,6 +38,8 @@ def chip_for(name):
 
 
 # ---- operations per element, counted from the kernels' code ----------------
+OPS_NV21_SAMPLE = 4       # NV21 rows: a byte's extract and XOR, its store
+                          #     and load in shared memory, the DC's add
 OPS_FDCT_BLOCK = 900      # K1: two 8x8 islow passes + descale + zigzag
 OPS_SCALE_EVAL = 20       # K1: quantize, run, closed-form bits, per coef
 OPS_DC_BLOCK = 12         # K2: difference, wrap, size, code
@@ -114,6 +116,14 @@ def adpcm_ops(n_units, filter_count):
 # NB) coefficients, int32 everything else. ``batch`` frames of ``nb``
 # blocks; ``nbe`` = nb + 1 with the end-of-frame block.
 I32 = 4
+
+
+def nv21_pix_dc_work(batch, width, height):
+    """The NV21 kernel: the frames in; the int8 pixel rows and the int32
+    quantized DCs out."""
+    nb = (width // 16) * (height // 16) * 6
+    return (batch * width * height * 3 // 2 + batch * 64 * nb
+            + batch * nb * I32, batch * 64 * nb * OPS_NV21_SAMPLE)
 
 
 def fdct_select_work(batch, nb, nb_pad, evals):
@@ -234,16 +244,18 @@ def video_census(width=320, height=240, batch=128, capacity_words=9068,
                  codec=0, nonzero_density=NONZERO_DENSITY):
     """Per-stage {ops, bytes} of the main path's kernels on a
     ``batch``-frame step (``api.bs_encode_frames_packed``, ``fused_mxu``):
-    K1 (FDCT + scale search), K2 (the DC chain, v3/v3dc only), K3
-    (emission + placement prep, at ``nonzero_density`` nonzero AC levels),
-    K4 (placement) and the tail emission (its test of every block; the
+    the NV21 kernel (pixel rows and DCs), K1 (FDCT + scale search), K2
+    (the DC chain, v3/v3dc only), K3 (emission + placement prep, at
+    ``nonzero_density`` nonzero AC levels), K4 (placement) and the tail
+    emission (its test of every block; the
     blocks over 256 bits are not counted). Shapes are the kernels' own:
     int8 pixel rows in, int16 coefficients padded to ``nb_pad`` blocks,
     nine u32 words and an offset a block (and the EOF block)."""
     nb = (width // 16) * (height // 16) * 6
     nb_pad = -(-nb // 512) * 512              # ops.bs_cuda.nb_padded
     cap32 = (capacity_words + 1) // 2
-    work = {"K1": fdct_select_work(batch, nb, nb_pad,
+    work = {"nv21": nv21_pix_dc_work(batch, width, height),
+            "K1": fdct_select_work(batch, nb, nb_pad,
                                    EVALS_PER_FRAME * batch)}
     if codec != 0:
         work["K2"] = dc_work(batch, nb)

@@ -114,6 +114,132 @@ def test_kernel_matches_plain(dev, name):
         assert torch.equal(g.to(torch.int64), w.to(torch.int64))
 
 
+def _nv21_frames(w, h, batch, seed):
+    """(batch, w*h*3/2) uint8 NV21 frames: synthetic video (at most eight
+    frames, repeated), every fourth frame noise, and where batch > 2 the
+    first frame all 0 and the second all 255."""
+    from psxavenc_tpu_torch.utils.synth import rand_frames
+
+    rng = np.random.default_rng(seed)
+    video = []
+    for y, cb, cr in rand_frames(w, h, min(batch, 8), seed=seed):
+        c = np.stack([cr.reshape(h // 2, w // 2),
+                      cb.reshape(h // 2, w // 2)], axis=-1).reshape(-1)
+        video.append(np.concatenate([y, c]).astype(np.uint8))
+    frames = np.stack([video[i % len(video)] for i in range(batch)])
+    frames[3::4] = rng.integers(0, 256, frames[3::4].shape)
+    if batch > 2:
+        frames[0], frames[1] = 0, 255
+    return frames
+
+
+# (w, h, B): the CPU tests' shapes, the step's batches and 640x480. At
+# 320x240, B = 3 is 900 macroblocks, no multiple of a CTA's run of 32 (nor
+# are 16x16 and 48x32 frames' 1 and 6 a frame).
+NV21_SHAPES = [(16, 16, 1), (16, 16, 8), (32, 32, 1), (32, 32, 8),
+               (48, 32, 1), (48, 32, 8), (320, 240, 3), (320, 240, 8),
+               (320, 240, 32), (320, 240, 128), (640, 480, 4)]
+
+
+@pytest.mark.parametrize("w,h,batch", NV21_SHAPES)
+def test_nv21_pix_dc_matches_plain(dev, w, h, batch):
+    """The NV21 kernel's pixel rows and quantized DCs equal its plain
+    version's byte for byte, in one launch; all-0 frames give DCs of
+    -0x200, all-255 frames 0x1FC."""
+    frames = torch.from_numpy(_nv21_frames(w, h, batch, seed=w + batch)).to(
+        dev)
+    before = bs_cuda.LAUNCHES["nv21_pix_dc"]
+    got = bs_cuda.nv21_pix_dc(frames, w, h)
+    assert bs_cuda.LAUNCHES["nv21_pix_dc"] == before + 1
+    assert [t.dtype for t in got] == [torch.int8, torch.int32]
+    _equal(got, bs_cuda.nv21_pix_dc_plain(frames, w, h))
+    if batch > 2:
+        assert got[1][0].eq(-0x200).all() and got[1][1].eq(0x1FC).all()
+
+
+def test_nv21_pix_dc_refuses_what_it_cannot_read(dev):
+    """Frames that do not start 16-byte aligned, or are not contiguous,
+    raise before any launch."""
+    n = 16 * 16 * 3 // 2
+    flat = torch.zeros(2 * n + 1, dtype=torch.uint8, device=dev)
+    before = bs_cuda.LAUNCHES["nv21_pix_dc"]
+    with pytest.raises(ValueError, match="aligned"):
+        bs_cuda.nv21_pix_dc(flat[1:].view(2, n), 16, 16)
+    with pytest.raises(ValueError):
+        bs_cuda.nv21_pix_dc(flat[:2 * n].view(n, 2).t(), 16, 16)
+    assert bs_cuda.LAUNCHES["nv21_pix_dc"] == before
+
+
+@pytest.mark.parametrize("codec", [tbs.BS_V2, tbs.BS_V3, tbs.BS_V3DC])
+def test_step_equals_the_old_glues(dev, codec):
+    """On the card the step's ``nv21`` stage (the NV21 kernel) gives the
+    pixel rows and DCs of the glue it replaced byte for byte, and the step
+    the words, scales, totals and nonzero counts of its later stages run
+    on the glue's rows and DCs (K2 on v3 and v3dc). 16 frames, one
+    unfittable."""
+    from psxavenc_tpu_torch import api as tapi
+
+    frames = torch.from_numpy(_nv21_frames(W, H, 16, seed=7)).to(dev)
+    budgets = torch.tensor([18144, 8064] * 8, dtype=torch.int32, device=dev)
+    budgets[5] = 200
+    kw = dict(codec=codec, width=W, height=H, capacity_words=9068)
+    stages = tapi.step_stages(**kw)
+    state = tapi.run_stages(stages[:1], {"frames": frames,
+                                         "budgets": budgets})
+    pix = tbs.rearrange_nv21_rows(frames, W, H)
+    dc_q = tbs.dc_quant_from_pixrows(pix)
+    _equal((state["pix"], state["dc_q"]), (pix, dc_q))
+    got = tapi.bs_encode_frames_packed(frames, budgets, **kw)
+    want = tapi.run_stages(stages[1:], {"frames": frames, "budgets": budgets,
+                                        "pix": pix, "dc_q": dc_q})
+    assert int(got["scale"][5]) == 64
+    _equal([got[k] for k in ("words", "scale", "total_bits", "nz_count")],
+           [want[k] for k in ("words", "scale", "total_bits", "nz_count")])
+
+
+# What one step of 128 320x240 frames (fused_mxu, the kernel sweep, 9,068
+# words) holds on the card at its end, in bytes: the frames, the int8 rows,
+# K1's (B, 64, 2,048) int16 coefficients, K3's placement prep (vals32, e0)
+# and block totals, the DC bits and codes, K4's words and nine (B,) int32
+# tensors and the overflow counter (512 B each, the allocator's least).
+STEP_PEAK_BYTES = (2 * 128 * 115200 + 128 * 64 * 2048 * 2 + 128 * 1801 * 40
+                   + 3 * 128 * 1800 * 4 + 128 * 4534 * 4 + 10 * 512)
+
+
+def test_video_step_peak_holds_no_int32_rows(dev, monkeypatch):
+    """One step at B = 128, 320x240 launches the NV21 kernel once and runs
+    none of the glue it replaced, and holds at most STEP_PEAK_BYTES
+    (77,358,080) at once, its frames and budgets included: no int32 copy
+    of the (B, 64, NB) rows (56.25 MiB), which put the glue's peak at
+    89,396,224."""
+    from psxavenc_tpu_torch import api as tapi
+
+    B = 128
+    frames = torch.from_numpy(_nv21_frames(W, H, B, seed=5)).to(dev)
+    budgets = torch.full((B,), 18144, dtype=torch.int32, device=dev)
+    kw = dict(codec=tbs.BS_V2, width=W, height=H, capacity_words=9068)
+    tapi.bs_encode_frames_packed(frames, budgets, **kw)     # the counter
+
+    def glue(*_args, **_kwargs):
+        raise AssertionError("the glue ran on the card")
+
+    monkeypatch.setattr(tbs, "rearrange_nv21_rows", glue)
+    monkeypatch.setattr(tbs, "dc_quant_from_pixrows", glue)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(bs_cuda.LAUNCHES)
+    tapi.bs_encode_frames_packed(frames, budgets, **kw)
+    torch.cuda.synchronize(dev)
+    held = frames.numel() + 2 * 512            # frames, budgets, counter
+    peak = torch.cuda.max_memory_allocated(dev) - base + held
+    print(f"peak {peak} B")
+    assert peak <= STEP_PEAK_BYTES
+    assert {k: bs_cuda.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "nv21_pix_dc": 1, "select_scale_pix": 1,
+        "emit_prep": 1, "emit_tail": 1}
+
+
 def _select_inputs(dev, nb, batch=6):
     """Pixel rows and thresholds for K1, their coefficients for K6, the
     plain answers (scale, bits, nz) and the coefficient output."""
@@ -802,14 +928,16 @@ def test_emit_refused_launch_raises(dev, monkeypatch):
 
 # Each fused route: (packer, kernel_sweep) and the launches of one call.
 FUSED_ROUTES = [
-    ("fused_mxu", True, {"select_scale_pix": 1, "emit_prep": 1,
-                         "place_vals": 1, "emit_tail": 1}),
-    ("fused_gather", True, {"select_scale_pix": 1, "emit_prep": 1,
-                            "place_vals_gather": 1, "emit_tail": 1}),
-    ("fused", True, {"select_scale_pix": 1, "emit_pack": 1,
-                     "emit_tail": 1}),
-    ("fused_pallas", True, {"select_scale_pix": 1, "emit_pack": 1,
-                            "place_streams": 1, "emit_tail": 1}),
+    ("fused_mxu", True, {"nv21_pix_dc": 1, "select_scale_pix": 1,
+                         "emit_prep": 1, "place_vals": 1, "emit_tail": 1}),
+    ("fused_gather", True, {"nv21_pix_dc": 1, "select_scale_pix": 1,
+                            "emit_prep": 1, "place_vals_gather": 1,
+                            "emit_tail": 1}),
+    ("fused", True, {"nv21_pix_dc": 1, "select_scale_pix": 1,
+                     "emit_pack": 1, "emit_tail": 1}),
+    ("fused_pallas", True, {"nv21_pix_dc": 1, "select_scale_pix": 1,
+                            "emit_pack": 1, "place_streams": 1,
+                            "emit_tail": 1}),
     ("fused_mxu", False, {"emit_pack": 1, "place_vals": 1, "emit_tail": 1}),
     ("fused_gather", False, {"emit_pack": 1, "place_vals_gather": 1,
                              "emit_tail": 1}),

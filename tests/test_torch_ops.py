@@ -14,6 +14,7 @@ from psxavenc_tpu.ops import bs as jbs
 from psxavenc_tpu.ops import fdct as jfdct
 from psxavenc_tpu_torch.ops import bitpack as tbp
 from psxavenc_tpu_torch.ops import bs as tbs
+from psxavenc_tpu_torch.ops import bs_cuda as tbs_cuda
 from psxavenc_tpu_torch.ops import fdct as tfdct
 
 from test_torch_parity import assert_same, run_both, video_frames
@@ -56,6 +57,51 @@ def test_rearranges_match_jax(wh):
                 rows.to(torch.int32).sum(dim=1))
     run_both(jbs.pixrows_to_coefs_zz, tbs.pixrows_to_coefs_zz,
              want_rows.astype(np.int32))
+
+
+def _nv21_batch(kind, w, h, batch):
+    """``batch`` NV21 w x h frames: synthetic video (the last one noise
+    when there are several), all 0 or all 255."""
+    if kind == "video":
+        return video_frames(w, h, max(batch - 1, 1), seed=w + batch,
+                            noise=int(batch > 1))
+    return np.full((batch, w * h * 3 // 2), 0 if kind == "zeros" else 255,
+                   np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["video", "zeros", "full"])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("wh", [(16, 16), (32, 32), (48, 32), (320, 240)])
+def test_nv21_pix_dc_matches_glue_and_jax(wh, batch, kind):
+    """The NV21 kernel's wrapper on CPU frames (its plain version) gives
+    the pixel rows and quantized DCs of the glue it replaced
+    (rearrange_nv21_rows, dc_quant_from_pixrows) and of the JAX package's
+    rows and DC sums; an all-0 frame's DCs are -0x200, an all-255 frame's
+    0x1FC."""
+    w, h = wh
+    frames = _nv21_batch(kind, w, h, batch)
+    ft = torch.from_numpy(frames)
+    pix, dc_q = tbs_cuda.nv21_pix_dc(ft, w, h)
+    assert pix.dtype == torch.int8 and dc_q.dtype == torch.int32
+    assert pix.shape == (batch, 64, 6 * (w // 16) * (h // 16))
+    assert torch.equal(pix, tbs.rearrange_nv21_rows(ft, w, h))
+    assert torch.equal(dc_q, tbs.dc_quant_from_pixrows(pix))
+    want_rows = np.stack([np.asarray(jbs.rearrange_nv21_rows(
+        jnp.asarray(f), w, h)) for f in frames])
+    assert_same(want_rows, pix)
+    want_dc = jbs._clamp_coeff(jbs._div_rounded(
+        jnp.asarray(want_rows, jnp.int32).sum(axis=1), jnp.int32(16)))
+    assert_same(want_dc, dc_q)
+    if kind != "video":
+        assert dc_q.eq(-0x200 if kind == "zeros" else 0x1FC).all()
+
+
+@pytest.mark.parametrize("wh,shape", [((20, 16), (1, 480)),
+                                      ((16, 16), (1, 385)),
+                                      ((16, 16), (384,))])
+def test_nv21_pix_dc_refuses_bad_shapes(wh, shape):
+    with pytest.raises(ValueError):
+        tbs_cuda.nv21_pix_dc(torch.zeros(shape, dtype=torch.uint8), *wh)
 
 
 @pytest.mark.parametrize("codec", [jbs.BS_V3, jbs.BS_V3DC])

@@ -75,12 +75,14 @@ def test_chip_for_takes_the_h100_only():
 
 def test_video_census_stages_are_the_tables_bounds():
     """Each stage of a 128-frame 320x240 step at 18,144-byte budgets, as
-    PERF.md's kernel table bounds it: K1 0.0471 ms (operations), K2
+    PERF.md's kernel table bounds it: the NV21 kernel 0.0091 ms (bytes),
+    K1 0.0471 ms (operations), K2
     0.0008 (bytes, v3dc), K3 0.0136 (bytes), K4 0.0034 (bytes), the tail
     emission's test of every block 0.0003 (bytes)."""
     chip = rl.chip_for(H100)
     census = rl.video_census(320, 240, 128, cs.CAP_WORDS, codec=2)
-    want = {"K1": (0.0471, "operations"), "K2": (0.0008, "bytes"),
+    want = {"nv21": (0.0091, "bytes"), "K1": (0.0471, "operations"),
+            "K2": (0.0008, "bytes"),
             "K3": (0.0136, "bytes"), "K4": (0.0034, "bytes"),
             "tail": (0.0003, "bytes")}
     assert list(census) == list(want)
@@ -160,7 +162,7 @@ def _video_case():
     k1 = bs_cuda.select_scale_pix_plain(pix, thr)
     assert k1[0].tolist()[2] == 64 and 1 < min(k1[0].tolist()[:2])
     sidx = torch.where(k1[0] <= 63, k1[0], 1)
-    return {"pix": pix, "thr": thr, "dc_q": dc_q, "k1": k1,
+    return {"frames": frames, "pix": pix, "thr": thr, "dc_q": dc_q, "k1": k1,
             "c": bs_ops.pixrows_to_coefs_zz(pix).contiguous(),
             "emit_args": (sidx, dc_code, dc_bits)}
 
@@ -186,6 +188,9 @@ def _calls(v):
     k5 = adpcm_cuda.encode_units_plain(units, limits, z, z, filter_count=5,
                                        shift_range=12)
     return {
+        "nv21": ((v["frames"],), bs_cuda.nv21_pix_dc_plain(v["frames"], 32,
+                                                           32),
+                 lambda out: rl.nv21_pix_dc_work(3, 32, 32)),
         "K1": ((v["pix"], v["thr"]), v["k1"],
                cs.select_work_of(torch, nb, True)),
         "K2": ((v["dc_q"],), bs_cuda.dc_stage_plain(v["dc_q"], 2),
@@ -213,8 +218,8 @@ def _calls(v):
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6",
-                                    "K7", "K8", "K9", "K10", "tail"])
+@pytest.mark.parametrize("kernel", ["nv21", "K1", "K2", "K3", "K4", "K5",
+                                    "K6", "K7", "K8", "K9", "K10", "tail"])
 def test_work_bytes_are_the_calls_inputs_and_outputs(kernel):
     """Each kernel's work function, as chip_smoke.py calls it, counts
     every input and output of the call once at its dtype (the tail

@@ -57,6 +57,34 @@ def test_stages_in_order_give_the_steps_words(stages_tool, codec):
         assert "c" in before and "vals32" not in before
 
 
+@pytest.mark.parametrize("codec", [0, 1, 2])
+def test_step_words_equal_the_old_glues(codec):
+    """The step, whose ``nv21`` stage makes the pixel rows and DCs through
+    ``ops.bs_cuda.nv21_pix_dc``, gives the words, scales, totals and
+    nonzero counts of the stages after it run on what the glue it replaced
+    made (``rearrange_nv21_rows``, ``dc_quant_from_pixrows``). Video,
+    noise, all-0 and all-255 frames, one unfittable budget."""
+    from psxavenc_tpu_torch.ops import bs as tbs
+
+    w, h = 32, 32
+    frames = torch.from_numpy(video_frames(w, h, 3, seed=23, noise=1))
+    frames = torch.cat([frames, torch.zeros_like(frames[:1]),
+                        torch.full_like(frames[:1], 255)])
+    budgets = torch.tensor([1200, 800, 1200, 60, 1500, 1200],
+                           dtype=torch.int32)
+    kw = dict(codec=codec, width=w, height=h, capacity_words=746)
+    got = tapi.bs_encode_frames_packed(frames, budgets, **kw)
+    stages = tapi.step_stages(**kw)
+    assert stages[0][0] == "nv21"
+    pix = tbs.rearrange_nv21_rows(frames, w, h)
+    state = tapi.run_stages(stages[1:], {
+        "frames": frames, "budgets": budgets, "pix": pix,
+        "dc_q": tbs.dc_quant_from_pixrows(pix)})
+    assert int(state["scale"][3]) == 64
+    for key in ("words", "scale", "total_bits", "nz_count"):
+        assert torch.equal(got[key], state[key]), key
+
+
 def test_native_profile_harness_runs():
     tool = _load("tools/torch_profile_native.py")
     assert tool.SRC.exists() and "psxavenc_tpu_torch" in str(tool.SRC)

@@ -49,7 +49,8 @@ def _roofline():
 
 # The shapes of PERF.md section 6's rows, as chip_smoke.py runs them: BS v2
 # 320x240, B = 128, 18,144-byte budgets (capacity 9,068 u16 words), NB =
-# 1,800 blocks, padded to 2,048 in K1's int16 coefficients; K5 on 4,096
+# 1,800 blocks, padded to 2,048 in K1's int16 coefficients (the NV21
+# kernel makes the pixel rows and DCs of those frames); K5 on 4,096
 # streams x 64 units (5, 12) and on a 60 s stereo XA track (2 x 81,000
 # units, (4, 12)), four packed words a unit. The counts that the data
 # sets: K1 two scale evaluations a frame; K6 two on each of phase 10's
@@ -65,6 +66,7 @@ def rows(rl):
     nonzero = rl.NONZERO_DENSITY * 63 * B * NB
     int16_coefs, int32_coefs = B * 64 * NB_PAD * 2, B * 63 * NB * 4
     return {
+        "nv21": [rl.nv21_pix_dc_work(B, 320, 240)],
         "K1": [rl.fdct_select_work(B, NB, NB_PAD, rl.EVALS_PER_FRAME * B)],
         "K2": [rl.dc_work(B, NB)],
         "K3": [rl.emit_prep_work(B, NB, int16_coefs, nonzero)],

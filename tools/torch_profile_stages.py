@@ -6,11 +6,11 @@ kernel sweep, the main path) goes.
         [--mixes video,video+noise,noise] [--reps N]
 
 Each stage of the step (``api.step_stages``, the stages the step itself
-runs: the NV21 rearrangement, the DC sums and K2, K1, K3, K4, the tail
-emission, and the glue between them) is captured alone as a CUDA graph
-on the inputs the stages before it made and timed as chip_smoke.py times
-a kernel row (``graph_ms``); the whole
-step is timed the same way, and "the rest" is the whole step less the
+runs: the NV21 kernel, which makes the pixel rows and the quantized DCs,
+K2, K1, K3, K4, the tail emission, and the glue between them) is captured
+alone as a CUDA graph on the inputs the stages before it made and timed
+as chip_smoke.py times a kernel row (``graph_ms``); the whole step is
+timed the same way, and "the rest" is the whole step less the
 named stages (the glue, and what one graph saves over several). Inputs
 are chip_smoke.py's phase 6: BS 320x240, B = 128 frames of synthetic
 video, video with every eighth frame noise, or noise, 18,144-byte
@@ -32,7 +32,7 @@ MIXES = ("video", "video+noise", "noise")
 # others (``api.step_stages``' glue) are timed alone too and counted in
 # "the rest".
 NAMED = ("nv21", "dc", "k1", "k3", "k4", "tail")
-LABELS = {"nv21": "NV21 rearrangement", "dc": "DC sums and K2",
+LABELS = {"nv21": "NV21 rows and DCs (kernel)", "dc": "DC stage (K2)",
           "threshold": "glue: AC threshold",
           "k1": "K1 (FDCT + scale search)",
           "totals": "glue: scale index, totals",
@@ -42,7 +42,7 @@ LABELS = {"nv21": "NV21 rearrangement", "dc": "DC sums and K2",
 
 def label(name, codec):
     if name == "dc" and codec == 0:
-        return "DC sums and the DC stage (v2: no kernel)"
+        return "DC stage (v2: no kernel)"
     return LABELS[name]
 
 
