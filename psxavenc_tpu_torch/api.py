@@ -339,12 +339,18 @@ def run_stages(stages, state):
     return state
 
 
-def _select_pixels(frames, budgets, codec, width, height, st):
+def _select_pixels(frames, budgets, codec, width, height, st,
+                   k1_stats=False):
     """``_select_stages`` run on a batch: the state dict, with ``scale``,
     ``scale_idx``, ``nz_count``, ``total_bits``, ``dc_bits``, ``dc_code``
-    and the zigzag coefficients ``c``."""
-    return run_stages(_select_stages(codec, width, height, st),
-                      {"frames": frames, "budgets": budgets})
+    and the zigzag coefficients ``c``; with ``k1_stats``, also K1's
+    statistics rows ``k1_stats``."""
+    state = {"frames": frames, "budgets": budgets}
+    if k1_stats:
+        state["k1_stats"] = torch.empty(
+            (frames.shape[0], len(bs_cuda.STAT_NAMES)), dtype=torch.int32,
+            device=frames.device)
+    return run_stages(_select_stages(codec, width, height, st), state)
 
 
 def _fused_words(sel, packer, prep, eof, capacity_words, st):
@@ -356,7 +362,7 @@ def _fused_words(sel, packer, prep, eof, capacity_words, st):
 
 def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
                             capacity_words, kernel_sweep=True, packer=None,
-                            use_kernels=True):
+                            use_kernels=True, k1_stats=False):
     """BS frame batch, pixels in, packed bitstream out: (B, w*h*3/2) uint8
     NV21 frames and (B,) int32 byte budgets on one device -> dict of
     device tensors:
@@ -402,7 +408,11 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     selection's for the fused packers and the packer's for the others;
     they differ only on an unfittable frame. ``use_kernels=False`` runs
     the plain versions on any device (for measuring the plain path; never
-    chosen automatically).
+    chosen automatically). ``k1_stats=True`` (the ``fused*`` packers with
+    the kernel sweep only, which run K1; ValueError otherwise) adds
+    ``k1_stats`` to the dict: (B, 8) int32, K1's statistics of each frame
+    (``ops.bs_cuda.STAT_NAMES``; zero where its plain version ran); the
+    step makes that tensor only then.
     """
     if packer is None:
         packer = "fused_mxu" if kernel_sweep else "blocks"
@@ -411,20 +421,28 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     st = _KERNELS if use_kernels else _PLAIN
     eof = _eof(codec)
 
+    if k1_stats and not (packer.startswith("fused") and kernel_sweep):
+        raise ValueError(f"k1_stats: packer {packer!r} with kernel_sweep="
+                         f"{kernel_sweep} does not run K1")
+
     if packer.startswith("fused"):
         if kernel_sweep:
-            sel = _select_pixels(frames, budgets, codec, width, height, st)
+            sel = _select_pixels(frames, budgets, codec, width, height, st,
+                                 k1_stats)
         else:
             sel = bs_ops.encode_frames_symbols(
                 _frames_to_coefs(frames, width, height), budgets,
                 codec=codec, kernel_sweep=False, emit=False)
-        return {"scale": sel["scale"],
-                "words": _fused_words(
-                    sel, packer,
-                    kernel_sweep and packer in ("fused_mxu", "fused_gather"),
-                    eof, capacity_words, st),
-                "total_bits": sel["total_bits"],
-                "nz_count": sel["nz_count"]}
+        out = {"scale": sel["scale"],
+               "words": _fused_words(
+                   sel, packer,
+                   kernel_sweep and packer in ("fused_mxu", "fused_gather"),
+                   eof, capacity_words, st),
+               "total_bits": sel["total_bits"],
+               "nz_count": sel["nz_count"]}
+        if k1_stats:
+            out["k1_stats"] = sel["k1_stats"]
+        return out
 
     out = bs_ops.encode_frames_symbols(
         _frames_to_coefs(frames, width, height), budgets, codec=codec,

@@ -19,7 +19,10 @@ Spans (``utils/spans.py``), one each a K5 call: ``adpcm.upload`` (the
 host arrays to the device), ``adpcm.kernel`` (the states, K5 and the
 unpack on the device, or the host gather and the native call on the
 CPU) and ``adpcm.read_back``; the copies through pageable host memory
-count their bytes.
+count their bytes. While a profile runs, each K5 call (or its plain
+version) also fills a stats row (``adpcm_cuda.STAT_NAMES``), read back
+with the outputs into the counters ``k5_units`` and ``k5_walked_units``;
+with no profile running no such tensor is made.
 """
 
 import os
@@ -92,11 +95,15 @@ def upload(x, device):
     return t.to(device)
 
 
+_WALKED = adpcm_cuda.STAT_NAMES.index("walked_units")
+
+
 def _encode(dev, pcm, offsets, lim, prev1, prev2, state_t, filter_count,
             shift_range):
-    """K5 on ``dev`` -> (headers uint8, values uint8, final prev1, final
-    prev2) there, not read back (:func:`_run` does); on the CPU the native
-    tier's host arrays, unless PSXAVENC_NO_NATIVE_ADPCM is set.
+    """K5 on ``dev`` -> ((headers uint8, values uint8, final prev1, final
+    prev2) there, not read back (:func:`_run` does), and K5's (5,) int64
+    stats there while a profile runs, else None); on the CPU the native
+    tier's host arrays and None, unless PSXAVENC_NO_NATIVE_ADPCM is set.
 
     ``pcm`` (B, N) int16, ``offsets`` (B, T) int32 or None (K5's dense
     layout) and ``lim`` (B, T) int32 go up here, and their device copies
@@ -115,32 +122,41 @@ def _encode(dev, pcm, offsets, lim, prev1, prev2, state_t, filter_count,
                 units.numpy(), lim.numpy(), _state(prev1, B),
                 _state(prev2, B), filter_count, shift_range)
         rows = np.arange(B)
-        return h, v, s1[rows, state_t], s2[rows, state_t]
+        return (h, v, s1[rows, state_t], s2[rows, state_t]), None
+    stats = torch.empty(len(adpcm_cuda.STAT_NAMES), dtype=torch.int64,
+                        device=dev) if spans.enabled() else None
     with spans.span("adpcm.kernel"):
         h, w, s1, s2 = adpcm_cuda.encode_pcm_units(
             pcm, offsets, lim, upload(_state(prev1, B), dev),
             upload(_state(prev2, B), dev),
-            filter_count=filter_count, shift_range=shift_range)
+            filter_count=filter_count, shift_range=shift_range,
+            stats_out=stats)
         del pcm, offsets, lim
         t_idx = upload(state_t, dev)[:, None]
         f1 = s1.gather(1, t_idx)[:, 0]
         f2 = s2.gather(1, t_idx)[:, 0]
         h = h.to(torch.uint8)
         values = adpcm_cuda.unpack_words_u8(w, shift_range)
-    return h, values, f1, f2
+    return (h, values, f1, f2), stats
 
 
 def _run(shards, filter_count, shift_range, B):
     """:func:`_encode` on each shard (its arguments up to ``state_t``),
-    all enqueued before any read-back (which counts its bytes) -> the
-    outputs on the host, the shards' rows concatenated, rows 0..B-1."""
-    outs = [_encode(*shard, filter_count, shift_range) for shard in shards]
+    all enqueued before any read-back (which counts its bytes, and K5's
+    stats where it made them) -> the outputs on the host, the shards'
+    rows concatenated, rows 0..B-1."""
+    outs, stats = zip(*(_encode(*shard, filter_count, shift_range)
+                        for shard in shards))
+    outs = list(outs)
     for k, out in enumerate(outs):
         if torch.is_tensor(out[0]):     # not the native tier's arrays
             with spans.span("adpcm.read_back"):
                 for t in out:
                     spans.count_d2h(t)
                 outs[k] = [t.cpu().numpy() for t in out]
+                if stats[k] is not None:
+                    spans.count("k5_units", out[0].numel())
+                    spans.count("k5_walked_units", stats[k][_WALKED].item())
     return tuple(outs[0]) if len(outs) == 1 else \
         tuple(np.concatenate(col)[:B] for col in zip(*outs))
 

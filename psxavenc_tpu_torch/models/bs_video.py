@@ -29,7 +29,12 @@ constructor) and, once a batch keyed by its sequence number, ``bs.stack``
 (the frames and budgets stacked), ``bs.stage`` (the pinned staging copy
 and its wait on the last upload), ``bs.launch`` (the uploads, the step's
 launches, the read-back copies and events), ``bs.wait`` (``fetch``'s wait
-on the event) and ``bs.collect`` (the headers and buffers).
+on the event) and ``bs.collect`` (the headers and buffers). While a
+profile runs, the device tier's step also returns K1's statistics rows,
+which come back with the batch's read-back and are added to the counters
+``k1_frames``, ``k1_global_frames`` and ``k1_evaluations`` at ``fetch``
+(over several devices too); with no profile running the step makes no
+such tensor.
 
 The compute tier is read from PSXAVENC_VIDEO_TIER at construction
 (``video_tier``): ``device`` runs ``api.bs_encode_frames_packed`` on the
@@ -51,10 +56,13 @@ import torch
 from .. import api
 from ..native import tiers
 from ..ops import bs as bs_ops
+from ..ops import bs_cuda
 from ..parallel import mesh
 from ..utils import spans
 
 TIERS = ("auto", "device", "native")
+_GLOBAL = bs_cuda.STAT_NAMES.index("global_reader")
+_EVALS = [bs_cuda.STAT_NAMES.index(k) for k in ("ladder", "fused", "exact")]
 
 
 def video_tier(devices):
@@ -110,6 +118,13 @@ def _stack_frames(frames, pad_to):
     return np.stack(rows)
 
 
+def _count_k1(stats):
+    """A batch's K1 statistics rows (B, 8), read back, into the counters."""
+    spans.count("k1_frames", len(stats))
+    spans.count("k1_global_frames", int(stats[:, _GLOBAL].sum()))
+    spans.count("k1_evaluations", int(stats[:, _EVALS].sum()))
+
+
 def _bucket(n):
     """Frames per device batch: 128 for long inputs, 32 or 8 for short."""
     return 128 if n >= 96 else (32 if n >= 32 else BsFrameEncoder.CHUNK)
@@ -163,9 +178,9 @@ class BsFrameEncoder:
             if self.tier == "native":
                 tiers.lib()         # a failed build raises here
             self.quant_scale_sum = 0
-            # The step per capacity, the staging buffers and the stream of
-            # the uploads, steps and read-backs; the next batch's sequence
-            # number (its spans' key).
+            # The step per (capacity, K1 statistics or not), the staging
+            # buffers and the stream of the uploads, steps and read-backs;
+            # the next batch's sequence number (its spans' key).
             self._steps = {}
             self._staging = [_Staging(), _Staging()]
             self._turn = 0
@@ -213,17 +228,17 @@ class BsFrameEncoder:
         n_dev = len(self.devices)
         return -(-frames // n_dev) * n_dev
 
-    def _step(self, cap_words):
-        step = self._steps.get(cap_words)
+    def _step(self, cap_words, k1_stats):
+        step = self._steps.get((cap_words, k1_stats))
         if step is None:
             kw = dict(codec=self.codec, width=self.width, height=self.height,
-                      capacity_words=cap_words)
+                      capacity_words=cap_words, k1_stats=k1_stats)
             if len(self.devices) > 1:
                 step = mesh.packed_video_step(self.devices, **kw)
             else:
                 def step(frames, budgets):
                     return api.bs_encode_frames_packed(frames, budgets, **kw)
-            self._steps[cap_words] = step
+            self._steps[cap_words, k1_stats] = step
         return step
 
     def _launch(self, frames_nv21, sizes, pad_to, cap_words):
@@ -244,7 +259,7 @@ class BsFrameEncoder:
             with spans.span("bs.launch", seq):
                 out = self._native_encode(fr, budgets, cap_words)
             return sizes, out, None, seq
-        step = self._step(cap_words)
+        step = self._step(cap_words, spans.enabled())
         if self.device.type != "cuda":
             with spans.span("bs.launch", seq):
                 out = step(torch.tensor(np.asarray(fr), device=self.device),
@@ -315,8 +330,10 @@ class BsFrameEncoder:
             with spans.span("bs.wait", seq):
                 done.synchronize()
         with spans.span("bs.collect", seq):
-            return self._collect({k: np.asarray(v) for k, v in out.items()},
-                                 sizes)
+            out = {k: np.asarray(v) for k, v in out.items()}
+            if "k1_stats" in out:
+                _count_k1(out.pop("k1_stats"))
+            return self._collect(out, sizes)
 
     def _collect(self, out, sizes):
         """A batch's host results -> list of (buffer, info), the 8-byte BS

@@ -572,7 +572,8 @@ def select_stages(codec, dc_stage, select):
     ``totals``. Each fn(s) reads what the stages before it put into the
     dict ``s`` (first ``pix``, the (B, NB) clamped quantized DCs ``dc_q``,
     which ``dc`` takes out of it, and ``budgets``) and adds its own
-    results."""
+    results. Where ``s`` holds ``k1_stats``, a (B, 8) int32 tensor, ``k1``
+    passes it to ``select`` as ``stats_out``."""
 
     def dc(s):
         dc_q = s.pop("dc_q")
@@ -587,8 +588,9 @@ def select_stages(codec, dc_stage, select):
                                 s["pix"].shape[2])
 
     def k1(s):
+        kw = {"stats_out": s["k1_stats"]} if "k1_stats" in s else {}
         s["scale"], s["ac_bits"], s["nz_count"], s["c"] = select(
-            s["pix"], s["thr"])
+            s["pix"], s["thr"], **kw)
 
     def totals(s):
         # Unfittable frames emit at scale 1 (the caller raises for them).

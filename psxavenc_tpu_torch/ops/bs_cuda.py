@@ -406,16 +406,19 @@ def _opt_ptr(t):
     return _build.ptr(t) if t is not None else None
 
 
-def select_scale_pix_plain(pix, thr_ac, seeds=None):
+def select_scale_pix_plain(pix, thr_ac, seeds=None, stats_out=None):
     """FDCT + first-fit scale selection (plain torch).
 
     pix: (B, 64, NB) int8 centered pixel rows; thr_ac: (B,) int32;
-    ``seeds`` is ignored (no answer depends on it).
+    ``seeds`` is ignored (no answer depends on it); ``stats_out``, K1's
+    statistics rows, is zeroed (the plain version counts nothing).
     Returns (scale, ac_bits, nz, coefs): the selection of
     :func:`select_scale_plain` on the FDCT, and the FDCT itself as coefs
     (B, 64, nb_pad) int16 signed zigzag rows, row 63 and the pad lanes
     zero.
     """
+    if stats_out is not None:
+        stats_out.zero_()
     B, P, nb = pix.shape
     c = bs_ops.pixrows_to_coefs_zz(pix)                    # (B, 63, NB)
     coefs = torch.zeros((B, 64, nb_padded(nb)), dtype=torch.int16,
@@ -436,9 +439,7 @@ def select_scale_pix(pix, thr_ac, seeds=None, stats_out=None):
     stats_out = _stats_arg(stats_out, pix.shape[0], pix.device,
                            "select_scale_pix")
     if not _on_cuda(pix, "select_scale_pix"):
-        if stats_out is not None:
-            stats_out.zero_()
-        return select_scale_pix_plain(pix, thr_ac)
+        return select_scale_pix_plain(pix, thr_ac, stats_out=stats_out)
     _require(pix, torch.int8, 3, "select_scale_pix pix")
     B, P, nb = pix.shape
     if P != 64:

@@ -151,17 +151,17 @@ class _Split:
 
 
 def packed_video_step(devices, *, codec, width, height, capacity_words,
-                      kernel_sweep=True, packer=None):
+                      kernel_sweep=True, packer=None, k1_stats=False):
     """The split video encoder: ``step(frames, budgets)`` runs
     ``api.bs_encode_frames_packed`` on each shard of the (B, w*h*3/2)
     uint8 frames and (B,) int32 budgets (on any device; B a multiple of
     the device count) and returns its dict on the first device, equal to
-    the single-device call."""
+    the single-device call (``k1_stats`` as there)."""
     def fn(frames, budgets):
         return api.bs_encode_frames_packed(
             frames, budgets, codec=codec, width=width, height=height,
             capacity_words=capacity_words, kernel_sweep=kernel_sweep,
-            packer=packer)
+            packer=packer, k1_stats=k1_stats)
     return _Split(devices, fn)
 
 

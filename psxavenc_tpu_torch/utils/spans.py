@@ -17,7 +17,11 @@ pair up by their order on their thread.
 
 ``count(name, n)`` adds ``n`` to a counter, also only while a profile
 runs; ``count_h2d`` and ``count_d2h`` add a tensor's bytes to the
-pageable-copy counters at a copy between the host and a card.
+pageable-copy counters at a copy between the host and a card. The
+kernels' own statistics become counters too: while a profile runs, the
+video step hands K1 a stats row a frame and each K5 call a stats row,
+read back with the outputs (``models/bs_video.py``,
+``models/adpcm_stream.py``); with no profile running neither is made.
 ``snapshot()`` reads the aggregates and the counters, ``reset()``
 clears them. ``NAMES`` lists every span the port opens, ``COUNTERS`` every
 counter.
@@ -48,7 +52,18 @@ NAMES = frozenset({
     "adpcm.upload", "adpcm.kernel", "adpcm.read_back",
 })
 
-COUNTERS = frozenset({"h2d_pageable_bytes", "d2h_pageable_bytes"})
+COUNTERS = frozenset({
+    "h2d_pageable_bytes", "d2h_pageable_bytes",
+    # From K1's stats rows (ops.bs_cuda.STAT_NAMES): the frames a video
+    # step searched, of them those on the global-memory reader, and the
+    # ladder, fused and exact evaluations (the last two 0 where K1's plain
+    # version ran, which zeroes the rows).
+    "k1_frames", "k1_global_frames", "k1_evaluations",
+    # From K5's stats (ops.adpcm_cuda.STAT_NAMES): the units of its calls,
+    # and of them those its serial walk encoded (0 where its plain version
+    # ran).
+    "k5_units", "k5_walked_units",
+})
 
 if hasattr(_autograd_profiler, "_is_profiler_enabled"):
     def enabled():

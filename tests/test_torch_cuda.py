@@ -240,6 +240,92 @@ def test_video_step_peak_holds_no_int32_rows(dev, monkeypatch):
         "emit_prep": 1, "emit_tail": 1}
 
 
+# One step of 128 640x480 frames (7,200 blocks; 9,068 words) at its end,
+# as STEP_PEAK_BYTES: the frames and int8 rows, K1's (B, 64, 7,680) int16
+# coefficients, K3's vals32 and e0, block totals, DC bits and codes, K4's
+# words and ten (B,) and (1,) tensors.
+STEP640_PEAK_BYTES = (2 * 128 * 460800 + 128 * 64 * 7680 * 2
+                      + 128 * 7201 * 40 + 3 * 128 * 7200 * 4
+                      + 128 * 4534 * 4 + 10 * 512)
+
+
+def _bench_movie(n, w, h, dev, seed):
+    """n NV21 frames of the benchmark's synthetic movie
+    (``benchmark/benchlib/traffic.py``, loaded by path), made on ``dev``."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "benchmark" \
+        / "benchlib" / "traffic.py"
+    spec = importlib.util.spec_from_file_location("bench_traffic", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.movie(seed, n, w, h, dev)
+
+
+def test_640x480_batch_on_the_global_reader(dev):
+    """One 128-frame 640x480 batch through BsFrameEncoder at the
+    ``str640.encoder`` cell's budgets (16,128 and 18,144 bytes): its bytes
+    equal the plain versions' step; K1 searches every frame from global
+    memory (its statistics' ``global_reader`` column 1, counted under a
+    profile as ``k1_global_frames``); the encoder's device peak is at most
+    STEP640_PEAK_BYTES (294,048,768) plus 1 MiB; with no profile running
+    the batch makes no statistics tensor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+    from psxavenc_tpu_torch.utils import spans
+
+    w, h, B = 640, 480, 128
+    frames = _bench_movie(B, w, h, dev, seed=2024)
+    sizes = [16128 if k % 4 == 0 else 18144 for k in range(B)]
+    kw = dict(codec=tbs.BS_V2, width=w, height=h, capacity_words=9068)
+    fr_d = torch.from_numpy(frames).to(dev)
+    bud_d = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    got = api.bs_encode_frames_packed(fr_d, bud_d, k1_stats=True, **kw)
+    plain = api.bs_encode_frames_packed(fr_d, bud_d, use_kernels=False,
+                                        **kw)
+    for k in plain:
+        assert torch.equal(got[k], plain[k]), k
+    stats = got["k1_stats"].cpu()
+    col = bs_cuda.STAT_NAMES.index("global_reader")
+    assert (stats[:, col] == 1).all()
+    scales = got["scale"].cpu()
+    assert ((scales >= 1) & (scales <= 63)).all()
+    print(f"scales {sorted(set(scales.tolist()))}, evaluations a frame "
+          f"{stats[:, :3].sum().item() / B}")
+    del fr_d, bud_d, got
+
+    enc = BsFrameEncoder(tbs.BS_V2, w, h, dev)
+    want = enc._collect({k: v.cpu().numpy() for k, v in plain.items()},
+                        sizes)
+    del plain
+    enc.fetch(enc.encode_frames_async(list(frames), sizes))    # warm-up
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    handle = enc.encode_frames_async(list(frames), sizes)
+    out = enc.fetch(handle)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"peak {peak} B")
+    assert "k1_stats" not in handle[1]
+    assert [b.tobytes() for b, _ in out] == [b.tobytes() for b, _ in want]
+    assert peak <= STEP640_PEAK_BYTES + (1 << 20)
+
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        handle = enc.encode_frames_async(list(frames), sizes)
+        again = enc.fetch(handle)
+    counters = spans.snapshot()["counters"]
+    spans.reset()
+    enc.close()
+    assert handle[1]["k1_stats"].shape == (B, len(bs_cuda.STAT_NAMES))
+    assert [b.tobytes() for b, _ in again] == [b.tobytes() for b, _ in want]
+    assert counters["k1_frames"] == counters["k1_global_frames"] == B
+    assert counters["k1_evaluations"] >= B
+
+
 def _select_inputs(dev, nb, batch=6):
     """Pixel rows and thresholds for K1, their coefficients for K6, the
     plain answers (scale, bits, nz) and the coefficient output."""

@@ -381,6 +381,16 @@ def test_every_span_literal_is_catalogued():
     assert {a for _, a in counted} == spans.COUNTERS, counted
 
 
+@pytest.mark.parametrize("name", ["k1_frames", "k1_global_frames",
+                                  "k1_evaluations", "k5_units",
+                                  "k5_walked_units"])
+def test_the_kernel_stats_counters_are_listed(name):
+    """The counters read from K1's and K5's statistics are in
+    ``COUNTERS``, and the package counts each by that literal."""
+    assert name in spans.COUNTERS
+    assert name in {a for _, a in _calls("count")}
+
+
 def test_the_cost_tool_measures_each_call():
     """``tools/torch_span_cost.py`` times a span off and on, a count off
     and an ungated record function, and leaves no aggregates behind."""
