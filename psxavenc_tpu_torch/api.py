@@ -15,7 +15,9 @@ Counterpart of ``psxavenc_tpu.api``:
     NV21 -> pixel rows and quantized DCs (one kernel) -> DC stage (K2
     for v3/v3dc) -> AC fit threshold -> FDCT + scale search (K1) ->
     emission + placement prep (K3) -> placement (K4) -> the tail emission
-    of blocks over 256 bits (which every ``fused*`` packer ends with).
+    of blocks over 256 bits (which every ``fused*`` packer ends with);
+- ``bs_encode_frames_owned``: that default step on frames its caller
+  gives up, freed after the NV21 kernel (``BsFrameEncoder``'s step).
 
 The device is the input tensors' device; on the CPU every kernel runs
 its plain version. No step of that path on the card waits for the
@@ -34,6 +36,7 @@ from .ops import bitpack_cuda
 from .ops import bs as bs_ops
 from .ops import bs_cuda
 from .ops import fdct as fdct_ops
+from .utils import spans
 
 
 class _Counters:
@@ -250,10 +253,11 @@ def _select_stages(codec, width, height, st):
     ``ops.bs.select_stages`` (DC stage, AC threshold, FDCT + scale search
     (K1), totals) on ``st``'s kernels or plain versions. Each fn(s) reads
     what the stages before it put into the dict ``s`` (first ``frames``
-    and ``budgets``) and adds its own results."""
+    and ``budgets``) and adds its own results; ``nv21`` takes ``frames``
+    out of ``s``, the NV21 kernel being their last reader."""
 
     def nv21(s):
-        s["pix"], s["dc_q"] = st.nv21_pix_dc(s["frames"], width, height)
+        s["pix"], s["dc_q"] = st.nv21_pix_dc(s.pop("frames"), width, height)
 
     return [("nv21", nv21)] + bs_ops.select_stages(codec, st.dc_stage,
                                                    st.select)
@@ -322,10 +326,11 @@ def step_stages(*, codec, width, height, capacity_words, use_kernels=True):
     ``threshold``, ``k1``, ``totals``, ``k3``,
     ``k4``, ``tail``, ``words``. Each fn(state) reads what the stages
     before it put into the dict ``state`` (first ``frames`` and
-    ``budgets``) and adds its own; after the last, ``state`` holds the
-    step's ``words``, ``scale``, ``total_bits`` and ``nz_count``. The
-    step runs these very stages; tools/torch_profile_stages.py times each
-    alone."""
+    ``budgets``) and adds its own, and takes out what it reads last
+    (``nv21`` the frames, ``dc`` the DCs, ``k1`` the pixel rows); after
+    the last, ``state`` holds the step's ``words``, ``scale``,
+    ``total_bits`` and ``nz_count``. The step runs these very stages;
+    tools/torch_profile_stages.py times each alone."""
     st = _KERNELS if use_kernels else _PLAIN
     return (_select_stages(codec, width, height, st)
             + _emit_stages("fused_mxu", True, _eof(codec), capacity_words,
@@ -339,18 +344,25 @@ def run_stages(stages, state):
     return state
 
 
+def _select_batch(batch, codec, width, height, st, k1_stats):
+    """``_select_stages`` run on the dict ``batch`` of ``frames`` and
+    ``budgets``, which becomes the state dict, with ``scale``,
+    ``scale_idx``, ``nz_count``, ``total_bits``, ``dc_bits``, ``dc_code``
+    and the zigzag coefficients ``c`` (the frames and pixel rows taken out
+    of it); with ``k1_stats``, also K1's statistics rows ``k1_stats``."""
+    if k1_stats:
+        budgets = batch["budgets"]
+        batch["k1_stats"] = torch.empty(
+            (budgets.shape[0], len(bs_cuda.STAT_NAMES)), dtype=torch.int32,
+            device=budgets.device)
+    return run_stages(_select_stages(codec, width, height, st), batch)
+
+
 def _select_pixels(frames, budgets, codec, width, height, st,
                    k1_stats=False):
-    """``_select_stages`` run on a batch: the state dict, with ``scale``,
-    ``scale_idx``, ``nz_count``, ``total_bits``, ``dc_bits``, ``dc_code``
-    and the zigzag coefficients ``c``; with ``k1_stats``, also K1's
-    statistics rows ``k1_stats``."""
-    state = {"frames": frames, "budgets": budgets}
-    if k1_stats:
-        state["k1_stats"] = torch.empty(
-            (frames.shape[0], len(bs_cuda.STAT_NAMES)), dtype=torch.int32,
-            device=frames.device)
-    return run_stages(_select_stages(codec, width, height, st), state)
+    """``_select_batch`` on frames the caller keeps."""
+    return _select_batch({"frames": frames, "budgets": budgets}, codec,
+                         width, height, st, k1_stats)
 
 
 def _fused_words(sel, packer, prep, eof, capacity_words, st):
@@ -358,6 +370,37 @@ def _fused_words(sel, packer, prep, eof, capacity_words, st):
     capacity_words) int16 words."""
     return run_stages(_emit_stages(packer, prep, eof, capacity_words, st),
                       dict(sel))["words"]
+
+
+def _fused_out(sel, packer, prep, eof, capacity_words, st):
+    """The fused packers' result dict from the selection ``sel``."""
+    out = {"scale": sel["scale"],
+           "words": _fused_words(sel, packer, prep, eof, capacity_words, st),
+           "total_bits": sel["total_bits"], "nz_count": sel["nz_count"]}
+    if "k1_stats" in sel:
+        out["k1_stats"] = sel["k1_stats"]
+    return out
+
+
+def bs_encode_frames_owned(batch, *, codec, width, height, capacity_words,
+                           k1_stats=False):
+    """:func:`bs_encode_frames_packed`'s default step (``fused_mxu`` with
+    the kernel sweep, on the kernels) on frames that its caller gives up.
+    ``batch`` is a dict of the (B, w*h*3/2) uint8 ``frames`` and (B,)
+    int32 ``budgets`` on one device, and no other reference to the frames
+    tensor remains: a tensor passed as an argument stays alive for the
+    whole call, one in a dict the step empties does not. The step runs on
+    ``batch`` as its state, so the frames are freed right after the NV21
+    kernel, their last reader, and the pixel rows after K1, on the current
+    stream, before K1's coefficients are made; ``batch`` is empty on
+    return. Returns the dict of :func:`bs_encode_frames_packed`. Counted,
+    while a profile runs, as ``bs_steps_frames_dropped``."""
+    sel = _select_batch(batch, codec, width, height, _KERNELS, k1_stats)
+    spans.count("bs_steps_frames_dropped", 1)
+    out = _fused_out(sel, "fused_mxu", True, _eof(codec), capacity_words,
+                     _KERNELS)
+    batch.clear()
+    return out
 
 
 def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
@@ -412,7 +455,9 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     the kernel sweep only, which run K1; ValueError otherwise) adds
     ``k1_stats`` to the dict: (B, 8) int32, K1's statistics of each frame
     (``ops.bs_cuda.STAT_NAMES``; zero where its plain version ran); the
-    step makes that tensor only then.
+    step makes that tensor only then. The step only reads ``frames``, and
+    holds its pixel rows only up to K1; the frames stay the caller's
+    (:func:`bs_encode_frames_owned` frees them after the NV21 kernel).
     """
     if packer is None:
         packer = "fused_mxu" if kernel_sweep else "blocks"
@@ -433,16 +478,10 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
             sel = bs_ops.encode_frames_symbols(
                 _frames_to_coefs(frames, width, height), budgets,
                 codec=codec, kernel_sweep=False, emit=False)
-        out = {"scale": sel["scale"],
-               "words": _fused_words(
-                   sel, packer,
-                   kernel_sweep and packer in ("fused_mxu", "fused_gather"),
-                   eof, capacity_words, st),
-               "total_bits": sel["total_bits"],
-               "nz_count": sel["nz_count"]}
-        if k1_stats:
-            out["k1_stats"] = sel["k1_stats"]
-        return out
+        return _fused_out(
+            sel, packer, kernel_sweep and packer in ("fused_mxu",
+                                                     "fused_gather"),
+            eof, capacity_words, st)
 
     out = bs_ops.encode_frames_symbols(
         _frames_to_coefs(frames, width, height), budgets, codec=codec,

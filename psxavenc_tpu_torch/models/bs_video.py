@@ -2,10 +2,12 @@
 
 Counterpart of ``psxavenc_tpu/models/bs_video.py``: frames go to the
 device in chunk-sized batches (8, 32 or 128 frames, padded with the last
-frame), ``api.bs_encode_frames_packed`` encodes them (split over the
-devices by ``parallel.mesh.packed_video_step`` when the encoder has more
-than one), and the host adds the 8-byte frame headers. The device is
-explicit; on the CPU the kernels run their plain versions.
+frame), ``api.bs_encode_frames_owned`` encodes them (the default step
+of ``api.bs_encode_frames_packed``, handed the uploaded frames, which it
+frees after the NV21 kernel; split over the devices by
+``parallel.mesh.packed_video_step`` when the encoder has more than one),
+and the host adds the 8-byte frame headers. The device is explicit; on
+the CPU the kernels run their plain versions.
 
 Batches are pipelined one deep with a CUDA stream and events, where the
 JAX encoder uses an uploader thread: ``encode_frames`` stacks batch k+1's
@@ -37,15 +39,14 @@ which come back with the batch's read-back and are added to the counters
 such tensor.
 
 The compute tier is read from PSXAVENC_VIDEO_TIER at construction
-(``video_tier``): ``device`` runs ``api.bs_encode_frames_packed`` on the
-encoder's devices (the kernels on the card, their plain versions on the
-CPU); ``native`` runs the native C++ frame encoder
-(``native/tiers.py``, bit-exact with both) on the host's cores, one call
-for all the frames of a call, with per-worker search seeds carried across
-calls; ``auto`` (the default) is ``native`` when every device of the
-encoder is the CPU and ``device`` otherwise. ``native`` on an encoder
-with a CUDA device raises ValueError: an encoder on the card never
-reaches the native library.
+(``video_tier``): ``device`` runs that step on the encoder's devices
+(the kernels on the card, their plain versions on the CPU); ``native``
+runs the native C++ frame encoder (``native/tiers.py``, bit-exact with
+both) on the host's cores, one call for all the frames of a call, with
+per-worker search seeds carried across calls; ``auto`` (the default) is
+``native`` when every device of the encoder is the CPU and ``device``
+otherwise. ``native`` on an encoder with a CUDA device raises
+ValueError: an encoder on the card never reaches the native library.
 """
 
 import os
@@ -229,15 +230,22 @@ class BsFrameEncoder:
         return -(-frames // n_dev) * n_dev
 
     def _step(self, cap_words, k1_stats):
+        """step(batch) on a dict of the batch's ``frames`` and ``budgets``
+        on the devices, which it empties: on one device
+        ``api.bs_encode_frames_owned``, which frees the frames after the
+        NV21 kernel; on several the split, which holds them to its end."""
         step = self._steps.get((cap_words, k1_stats))
         if step is None:
             kw = dict(codec=self.codec, width=self.width, height=self.height,
                       capacity_words=cap_words, k1_stats=k1_stats)
             if len(self.devices) > 1:
-                step = mesh.packed_video_step(self.devices, **kw)
+                split = mesh.packed_video_step(self.devices, **kw)
+
+                def step(batch):
+                    return split(batch.pop("frames"), batch.pop("budgets"))
             else:
-                def step(frames, budgets):
-                    return api.bs_encode_frames_packed(frames, budgets, **kw)
+                def step(batch):
+                    return api.bs_encode_frames_owned(batch, **kw)
             self._steps[cap_words, k1_stats] = step
         return step
 
@@ -262,8 +270,10 @@ class BsFrameEncoder:
         step = self._step(cap_words, spans.enabled())
         if self.device.type != "cuda":
             with spans.span("bs.launch", seq):
-                out = step(torch.tensor(np.asarray(fr), device=self.device),
-                           torch.from_numpy(budgets).to(self.device))
+                out = step({"frames": torch.tensor(np.asarray(fr),
+                                                   device=self.device),
+                            "budgets": torch.from_numpy(budgets).to(
+                                self.device)})
             return sizes, out, None, seq
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=self.device)
@@ -272,11 +282,14 @@ class BsFrameEncoder:
         with spans.span("bs.stage", seq):
             frames_h, budgets_h = staging.fill(fr, budgets)
         with spans.span("bs.launch", seq), torch.cuda.stream(self._stream):
-            frames_d = frames_h.to(self.device, non_blocking=True)
-            budgets_d = budgets_h.to(self.device, non_blocking=True)
+            # The step holds the only reference to the uploaded frames, so
+            # their block goes back to the allocator, on this stream, once
+            # the NV21 kernel is enqueued.
+            batch = {"frames": frames_h.to(self.device, non_blocking=True),
+                     "budgets": budgets_h.to(self.device, non_blocking=True)}
             staging.uploaded = torch.cuda.Event()
             staging.uploaded.record(self._stream)
-            out = step(frames_d, budgets_d)
+            out = step(batch)
             host = {}
             for k, v in out.items():
                 host[k] = torch.empty(v.shape, dtype=v.dtype,

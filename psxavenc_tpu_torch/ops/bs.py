@@ -571,12 +571,16 @@ def select_stages(codec, dc_stage, select):
     (``select``: K1's FDCT and scale search, or its plain version) and
     ``totals``. Each fn(s) reads what the stages before it put into the
     dict ``s`` (first ``pix``, the (B, NB) clamped quantized DCs ``dc_q``,
-    which ``dc`` takes out of it, and ``budgets``) and adds its own
-    results. Where ``s`` holds ``k1_stats``, a (B, 8) int32 tensor, ``k1``
-    passes it to ``select`` as ``stats_out``."""
+    and ``budgets``) and adds its own results. A stage takes a tensor out
+    of ``s`` at its last use: ``dc`` takes ``dc_q`` (and keeps its width
+    NB as the int ``nb``), ``k1`` takes ``pix``, so the caching allocator
+    has their blocks back while the later stages are enqueued. Where ``s``
+    holds ``k1_stats``, a (B, 8) int32 tensor, ``k1`` passes it to
+    ``select`` as ``stats_out``."""
 
     def dc(s):
         dc_q = s.pop("dc_q")
+        s["nb"] = dc_q.shape[1]
         if codec == BS_V2:
             s["dc_bits"], s["dc_code"] = _dc_stage(dc_q, codec)
         else:
@@ -584,19 +588,17 @@ def select_stages(codec, dc_stage, select):
         s["dc_total"] = s["dc_bits"].sum(dim=1, dtype=torch.int32)
 
     def threshold(s):
-        s["thr"] = ac_threshold(s["budgets"], s["dc_total"],
-                                s["pix"].shape[2])
+        s["thr"] = ac_threshold(s["budgets"], s["dc_total"], s["nb"])
 
     def k1(s):
         kw = {"stats_out": s["k1_stats"]} if "k1_stats" in s else {}
         s["scale"], s["ac_bits"], s["nz_count"], s["c"] = select(
-            s["pix"], s["thr"], **kw)
+            s.pop("pix"), s["thr"], **kw)
 
     def totals(s):
         # Unfittable frames emit at scale 1 (the caller raises for them).
         s["scale_idx"] = torch.where(s["scale"] <= 63, s["scale"] - 1, 0)
-        s["total_bits"] = s["ac_bits"] + s["dc_total"] + \
-            2 * s["pix"].shape[2] + 10
+        s["total_bits"] = s["ac_bits"] + s["dc_total"] + 2 * s["nb"] + 10
 
     return [("dc", dc), ("threshold", threshold), ("k1", k1),
             ("totals", totals)]

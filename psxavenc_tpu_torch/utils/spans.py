@@ -63,6 +63,9 @@ COUNTERS = frozenset({
     # and of them those its serial walk encoded (0 where its plain version
     # ran).
     "k5_units", "k5_walked_units",
+    # api.bs_encode_frames_owned: the video steps that freed their frames
+    # after the NV21 kernel (one a BsFrameEncoder batch on one device).
+    "bs_steps_frames_dropped",
 })
 
 if hasattr(_autograd_profiler, "_is_profiler_enabled"):

@@ -198,20 +198,24 @@ def test_step_equals_the_old_glues(dev, codec):
 
 
 # What one step of 128 320x240 frames (fused_mxu, the kernel sweep, 9,068
-# words) holds on the card at its end, in bytes: the frames, the int8 rows,
-# K1's (B, 64, 2,048) int16 coefficients, K3's placement prep (vals32, e0)
-# and block totals, the DC bits and codes, K4's words and nine (B,) int32
-# tensors and the overflow counter (512 B each, the allocator's least).
-STEP_PEAK_BYTES = (2 * 128 * 115200 + 128 * 64 * 2048 * 2 + 128 * 1801 * 40
-                   + 3 * 128 * 1800 * 4 + 128 * 4534 * 4 + 10 * 512)
+# words) holds on the card at its peak, K1's call, in bytes, the frames
+# being freed after the NV21 kernel: the int8 rows (freed after K1), K1's
+# (B, 64, 2,048) int16 coefficients, the DC bits and codes and seven (B,)
+# and (1,) tensors (the budgets, DC totals, threshold, K1's scales, bits
+# and nonzero counts, the overflow counter; 512 B each, the allocator's
+# least). At the step's end it holds less: the coefficients, K3's vals32,
+# e0 and block totals, the DC bits and codes, K4's words.
+STEP_PEAK_BYTES = (128 * 64 * 1800 + 128 * 64 * 2048 * 2
+                   + 2 * 128 * 1800 * 4 + 7 * 512)
 
 
 def test_video_step_peak_holds_no_int32_rows(dev, monkeypatch):
     """One step at B = 128, 320x240 launches the NV21 kernel once and runs
     none of the glue it replaced, and holds at most STEP_PEAK_BYTES
-    (77,358,080) at once, its frames and budgets included: no int32 copy
-    of the (B, 64, NB) rows (56.25 MiB), which put the glue's peak at
-    89,396,224."""
+    (50,146,816) at once besides the caller's frames: no int32 copy of the
+    (B, 64, NB) rows (56.25 MiB), which put the glue's peak at 89,396,224
+    with the frames, and the pixel rows freed after K1 (77,358,080 with
+    the frames while the step held its rows to its end)."""
     from psxavenc_tpu_torch import api as tapi
 
     B = 128
@@ -231,22 +235,63 @@ def test_video_step_peak_holds_no_int32_rows(dev, monkeypatch):
     before = dict(bs_cuda.LAUNCHES)
     tapi.bs_encode_frames_packed(frames, budgets, **kw)
     torch.cuda.synchronize(dev)
-    held = frames.numel() + 2 * 512            # frames, budgets, counter
+    held = 2 * 512                              # budgets, counter
     peak = torch.cuda.max_memory_allocated(dev) - base + held
-    print(f"peak {peak} B")
+    print(f"peak {peak} B besides the caller's frames")
     assert peak <= STEP_PEAK_BYTES
     assert {k: bs_cuda.LAUNCHES[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0), "nv21_pix_dc": 1, "select_scale_pix": 1,
         "emit_prep": 1, "emit_tail": 1}
 
 
-# One step of 128 640x480 frames (7,200 blocks; 9,068 words) at its end,
-# as STEP_PEAK_BYTES: the frames and int8 rows, K1's (B, 64, 7,680) int16
-# coefficients, K3's vals32 and e0, block totals, DC bits and codes, K4's
-# words and ten (B,) and (1,) tensors.
-STEP640_PEAK_BYTES = (2 * 128 * 460800 + 128 * 64 * 7680 * 2
-                      + 128 * 7201 * 40 + 3 * 128 * 7200 * 4
-                      + 128 * 4534 * 4 + 10 * 512)
+# One step of 128 640x480 frames (7,200 blocks; 9,068 words) at K1's call,
+# as STEP_PEAK_BYTES: the int8 rows, K1's (B, 64, 7,680) int16
+# coefficients, DC bits and codes and seven (B,) and (1,) tensors.
+STEP640_PEAK_BYTES = (128 * 64 * 7200 + 128 * 64 * 7680 * 2
+                      + 2 * 128 * 7200 * 4 + 7 * 512)
+
+
+def _encoder_batch_peak(enc, frames, sizes, dev):
+    """The device bytes one BsFrameEncoder batch holds at once, after a
+    warm-up batch: its peak less what was held before it -> (peak,
+    frames and infos)."""
+    enc.fetch(enc.encode_frames_async(list(frames), sizes))     # warm-up
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    handle = enc.encode_frames_async(list(frames), sizes)
+    out = enc.fetch(handle)
+    torch.cuda.synchronize(dev)
+    assert "k1_stats" not in handle[1]
+    return torch.cuda.max_memory_allocated(dev) - base, out
+
+
+def test_encoder_batch_frees_frames_after_nv21(dev):
+    """One 128-frame 320x240 BsFrameEncoder batch (the ``str.encoder``
+    cell's movie and budgets) holds at most STEP_PEAK_BYTES (50,146,816)
+    plus 1 MiB on the card: its uploaded frames are freed after the NV21
+    kernel and its rows after K1. Its bytes equal the plain versions'
+    step's. (640x480: ``test_640x480_batch_on_the_global_reader``.)"""
+    from psxavenc_tpu_torch import api
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+
+    B = 128
+    frames = _bench_movie(B, W, H, dev, seed=2025)
+    sizes = [16128 if k % 4 == 0 else 18144 for k in range(B)]
+    plain = api.bs_encode_frames_packed(
+        torch.from_numpy(frames).to(dev),
+        torch.tensor(sizes, dtype=torch.int32, device=dev),
+        codec=tbs.BS_V2, width=W, height=H, capacity_words=9068,
+        use_kernels=False)
+    enc = BsFrameEncoder(tbs.BS_V2, W, H, dev)
+    want = enc._collect({k: v.cpu().numpy() for k, v in plain.items()},
+                        sizes)
+    del plain
+    peak, out = _encoder_batch_peak(enc, frames, sizes, dev)
+    enc.close()
+    print(f"peak {peak} B")
+    assert [b.tobytes() for b, _ in out] == [b.tobytes() for b, _ in want]
+    assert peak <= STEP_PEAK_BYTES + (1 << 20)
 
 
 def _bench_movie(n, w, h, dev, seed):
@@ -268,8 +313,10 @@ def test_640x480_batch_on_the_global_reader(dev):
     equal the plain versions' step; K1 searches every frame from global
     memory (its statistics' ``global_reader`` column 1, counted under a
     profile as ``k1_global_frames``); the encoder's device peak is at most
-    STEP640_PEAK_BYTES (294,048,768) plus 1 MiB; with no profile running
-    the batch makes no statistics tensor."""
+    STEP640_PEAK_BYTES (192,187,904) plus 1 MiB, its frames freed after
+    the NV21 kernel (counted under a profile as
+    ``bs_steps_frames_dropped``) and its rows after K1; with no profile
+    running the batch makes no statistics tensor."""
     from torch.profiler import ProfilerActivity, profile
 
     from psxavenc_tpu_torch import api
@@ -300,16 +347,8 @@ def test_640x480_batch_on_the_global_reader(dev):
     want = enc._collect({k: v.cpu().numpy() for k, v in plain.items()},
                         sizes)
     del plain
-    enc.fetch(enc.encode_frames_async(list(frames), sizes))    # warm-up
-    torch.cuda.synchronize(dev)
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    handle = enc.encode_frames_async(list(frames), sizes)
-    out = enc.fetch(handle)
-    torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev) - base
+    peak, out = _encoder_batch_peak(enc, frames, sizes, dev)
     print(f"peak {peak} B")
-    assert "k1_stats" not in handle[1]
     assert [b.tobytes() for b, _ in out] == [b.tobytes() for b, _ in want]
     assert peak <= STEP640_PEAK_BYTES + (1 << 20)
 
@@ -324,6 +363,7 @@ def test_640x480_batch_on_the_global_reader(dev):
     assert [b.tobytes() for b, _ in again] == [b.tobytes() for b, _ in want]
     assert counters["k1_frames"] == counters["k1_global_frames"] == B
     assert counters["k1_evaluations"] >= B
+    assert counters["bs_steps_frames_dropped"] == 1
 
 
 def _select_inputs(dev, nb, batch=6):

@@ -145,13 +145,13 @@ def test_unfittable_frame_in_the_second_batch(monkeypatch):
         enc = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
         first_batch = bs_video.BsFrameEncoder(jbs.BS_V2, W, H, "cpu")
     calls = []
-    step = tapi.bs_encode_frames_packed
+    step = tapi.bs_encode_frames_owned
 
     def counted(*args, **kw):
         calls.append(1)
         return step(*args, **kw)
 
-    monkeypatch.setattr(tapi, "bs_encode_frames_packed", counted)
+    monkeypatch.setattr(tapi, "bs_encode_frames_owned", counted)
     with pytest.raises(RuntimeError, match="does not fit"):
         enc.encode_frames(frames, budgets)
     assert len(calls) == 3
@@ -167,7 +167,7 @@ def test_unfittable_frame_in_the_second_batch(monkeypatch):
             raise ValueError("the third batch's step failed")
         return step(*args, **kw)
 
-    monkeypatch.setattr(tapi, "bs_encode_frames_packed", third_fails)
+    monkeypatch.setattr(tapi, "bs_encode_frames_owned", third_fails)
     with pytest.raises(ValueError, match="third batch's step failed"):
         enc.encode_frames(frames, budgets)
 

@@ -104,7 +104,8 @@ def test_k1_counters_only_under_a_profile(frames, monkeypatch):
         assert handle[1]["k1_stats"].shape == (8, len(bs_cuda.STAT_NAMES))
         _encode(frames, BUDGETS[1], "device", monkeypatch)
     assert spans.snapshot()["counters"] == {
-        "k1_frames": 16, "k1_global_frames": 0, "k1_evaluations": 0}
+        "k1_frames": 16, "k1_global_frames": 0, "k1_evaluations": 0,
+        "bs_steps_frames_dropped": 2}
     assert [b.tobytes() for b, _ in on] == [b.tobytes() for b, _ in off]
 
 
