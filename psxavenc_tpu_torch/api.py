@@ -379,6 +379,7 @@ def _fused_out(sel, packer, prep, eof, capacity_words, st):
            "total_bits": sel["total_bits"], "nz_count": sel["nz_count"]}
     if "k1_stats" in sel:
         out["k1_stats"] = sel["k1_stats"]
+        out["dc_total"] = sel["dc_total"]
     return out
 
 
@@ -455,8 +456,10 @@ def bs_encode_frames_packed(frames, budgets, *, codec, width, height,
     the kernel sweep only, which run K1; ValueError otherwise) adds
     ``k1_stats`` to the dict: (B, 8) int32, K1's statistics of each frame
     (``ops.bs_cuda.STAT_NAMES``; zero where its plain version ran); the
-    step makes that tensor only then. The step only reads ``frames``, and
-    holds its pixel rows only up to K1; the frames stay the caller's
+    step makes that tensor only then. It also adds ``dc_total``, (B,)
+    int32, each frame's DC bits, which the step holds anyway. The step
+    only reads ``frames``, and holds its pixel rows only up to K1; the
+    frames stay the caller's
     (:func:`bs_encode_frames_owned` frees them after the NV21 kernel).
     """
     if packer is None:

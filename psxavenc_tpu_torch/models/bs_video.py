@@ -32,11 +32,12 @@ constructor) and, once a batch keyed by its sequence number, ``bs.stack``
 and its wait on the last upload), ``bs.launch`` (the uploads, the step's
 launches, the read-back copies and events), ``bs.wait`` (``fetch``'s wait
 on the event) and ``bs.collect`` (the headers and buffers). While a
-profile runs, the device tier's step also returns K1's statistics rows,
-which come back with the batch's read-back and are added to the counters
-``k1_frames``, ``k1_global_frames`` and ``k1_evaluations`` at ``fetch``
-(over several devices too); with no profile running the step makes no
-such tensor.
+profile runs, the device tier's step also returns K1's statistics rows
+and each frame's DC bits, which come back with the batch's read-back and
+are added to the counters ``k1_frames``, ``k1_global_frames``,
+``k1_evaluations``, ``dc_bits`` and ``frame_bits`` at ``fetch`` (over
+several devices too); with no profile running the step makes no
+statistics tensor and reads back no DC bits.
 
 The compute tier is read from PSXAVENC_VIDEO_TIER at construction
 (``video_tier``): ``device`` runs that step on the encoder's devices
@@ -119,11 +120,16 @@ def _stack_frames(frames, pad_to):
     return np.stack(rows)
 
 
-def _count_k1(stats):
-    """A batch's K1 statistics rows (B, 8), read back, into the counters."""
+def _count_stats(out, n):
+    """A batch's statistics, read back, into the counters: K1's rows (B,
+    8) (padded frames included), and the DC bits and total bits of its
+    ``n`` frames."""
+    stats = out.pop("k1_stats")
     spans.count("k1_frames", len(stats))
     spans.count("k1_global_frames", int(stats[:, _GLOBAL].sum()))
     spans.count("k1_evaluations", int(stats[:, _EVALS].sum()))
+    spans.count("dc_bits", int(out.pop("dc_total")[:n].sum()))
+    spans.count("frame_bits", int(out["total_bits"][:n].sum()))
 
 
 def _bucket(n):
@@ -345,7 +351,7 @@ class BsFrameEncoder:
         with spans.span("bs.collect", seq):
             out = {k: np.asarray(v) for k, v in out.items()}
             if "k1_stats" in out:
-                _count_k1(out.pop("k1_stats"))
+                _count_stats(out, len(sizes))
             return self._collect(out, sizes)
 
     def _collect(self, out, sizes):

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..utils import spans
 from . import _build
 from . import bs as bs_ops
 from . import bitpack as bitpack_ops
@@ -605,9 +606,12 @@ def dc_stage_segmented_plain(dc_q, codec, lanes=32):
 
 
 def dc_stage(dc_q, codec):
-    """K2 (``csrc/bs_dc.cu``): see :func:`dc_stage_plain`; v3/v3dc only."""
+    """K2 (``csrc/bs_dc.cu``): see :func:`dc_stage_plain`; v3/v3dc only.
+    While a profile runs, adds the batch's frames to the counter
+    ``k2_frames`` (its plain version's too, on the CPU)."""
     if codec not in (bs_ops.BS_V3, bs_ops.BS_V3DC):
         raise ValueError("dc_stage: codec must be BS_V3 or BS_V3DC")
+    spans.count("k2_frames", dc_q.shape[0])
     if not _on_cuda(dc_q, "dc_stage"):
         return dc_stage_plain(dc_q, codec)
     dc_q = dc_q.to(torch.int32).contiguous()

@@ -66,6 +66,11 @@ COUNTERS = frozenset({
     # api.bs_encode_frames_owned: the video steps that freed their frames
     # after the NV21 kernel (one a BsFrameEncoder batch on one device).
     "bs_steps_frames_dropped",
+    # ops.bs_cuda.dc_stage: the frames of each K2 launch (v3/v3dc), padded
+    # batches included. models/bs_video.py at fetch, from the device
+    # tier's step: the DC bits and the whole bitstream's bits (the end of
+    # frame included, the header not) of the frames handed back.
+    "k2_frames", "dc_bits", "frame_bits",
 })
 
 if hasattr(_autograd_profiler, "_is_profiler_enabled"):

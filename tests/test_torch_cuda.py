@@ -366,6 +366,47 @@ def test_640x480_batch_on_the_global_reader(dev):
     assert counters["bs_steps_frames_dropped"] == 1
 
 
+def _bench_ref_v3():
+    """``benchmark/benchref/bs_v3.py``, its package loaded by path."""
+    import importlib
+    import importlib.util
+    import pathlib
+    import sys
+
+    bench = pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+    if "benchref" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "benchref", bench / "benchref" / "__init__.py",
+            submodule_search_locations=[str(bench / "benchref")])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules["benchref"] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module("benchref.bs_v3")
+
+
+def test_v3_frames_equal_the_reference(dev):
+    """16 frames of the benchmark's movie in BS v3 through BsFrameEncoder
+    at the ``str3.encoder`` cell's budgets: two batches of 8, each one K2
+    launch, and every frame equal to the plain v3 reference
+    (``benchmark/benchref/bs_v3.py``, on the card) byte for byte."""
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+
+    frames = _bench_movie(16, W, H, dev, seed=2026)
+    sizes = [16128 if k % 4 == 0 else 18144 for k in range(16)]
+    enc = BsFrameEncoder(tbs.BS_V3, W, H, dev)
+    before = bs_cuda.LAUNCHES["dc_stage"]
+    out = enc.encode_frames(list(frames), sizes)
+    enc.close()
+    assert bs_cuda.LAUNCHES["dc_stage"] == before + 2
+    ref = _bench_ref_v3()
+    bufs, scales, _, _ = ref.encode_frames(
+        torch.from_numpy(frames).to(dev),
+        torch.tensor(sizes, device=dev), W, H)
+    assert [info["quant_scale"] for _, info in out] == scales.tolist()
+    for (buf, _), want in zip(out, bufs):
+        assert buf.tobytes() == want.cpu().numpy().tobytes()
+
+
 def _select_inputs(dev, nb, batch=6):
     """Pixel rows and thresholds for K1, their coefficients for K6, the
     plain answers (scale, bits, nz) and the coefficient output."""

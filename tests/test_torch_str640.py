@@ -95,17 +95,22 @@ def test_frames_equal_the_reference(frames, budget, tier, monkeypatch):
 def test_k1_counters_only_under_a_profile(frames, monkeypatch):
     """Off: no statistics tensor comes back and nothing is counted. On:
     each batch adds its padded frames to ``k1_frames``; the plain K1
-    zeroes its rows, so the rest read 0; the bytes are the same."""
+    zeroes its rows, so the rest read 0; the three frames' DC bits (v2's
+    10 a block) and total bits reach ``dc_bits`` and ``frame_bits``; the
+    bytes are the same."""
     handle, off = _encode(frames, BUDGETS[0], "device", monkeypatch)
-    assert "k1_stats" not in handle[1]
+    assert "k1_stats" not in handle[1] and "dc_total" not in handle[1]
     assert spans.snapshot()["counters"] == {}
     with profile(activities=[ProfilerActivity.CPU]):
         handle, on = _encode(frames, BUDGETS[0], "device", monkeypatch)
         assert handle[1]["k1_stats"].shape == (8, len(bs_cuda.STAT_NAMES))
-        _encode(frames, BUDGETS[1], "device", monkeypatch)
+        handle2, _ = _encode(frames, BUDGETS[1], "device", monkeypatch)
+    total = sum(int(h[1]["total_bits"][:3].sum()) for h in (handle,
+                                                             handle2))
     assert spans.snapshot()["counters"] == {
         "k1_frames": 16, "k1_global_frames": 0, "k1_evaluations": 0,
-        "bs_steps_frames_dropped": 2}
+        "bs_steps_frames_dropped": 2, "dc_bits": 2 * 3 * 7200 * 10,
+        "frame_bits": total}
     assert [b.tobytes() for b, _ in on] == [b.tobytes() for b, _ in off]
 
 
