@@ -86,7 +86,16 @@ Phases, one or more lines each:
    native unit encoder and the plain model of the scheme, the kernels'
    stats (segments, speculation, repair, rounds, walk) equal the model's,
    both timed in a CUDA graph beside segments=1 and the native tier's
-   host time;
+   host time; then K5 on the shared row, as the batch runner's grouped
+   call hands it over: mono clips at a sound bank's lengths (256,
+   0.1-5 s log-uniform at 44,100 Hz; the serial route) and at eight
+   15-30 s loops' (the plan's segments), each with an empty stream whose
+   units have positive limits, and the XA track's two channels by their
+   chunk offsets beside an empty third: on the plan's route and with
+   ADPCM_FORCED_SEGMENTS, equal to the native tier on the host's gather
+   and to the plain version on the first units, one "shared_row" input
+   and the route's launches a call, timed in a CUDA graph beside the
+   dense layout on the clips zero-padded;
 9. the audio and A/V path: the CLI (-t xa, xacd, spu, vag, vagi, and the
    flagship -t strcd / -t str: 320x240 15 fps BS v2 with 37,800 Hz stereo
    XA) run in this process on the card, every output equal to its
@@ -279,6 +288,10 @@ NATIVE_FRAMES = 2048                 # frames a codec at 320x240
 NATIVE_GEOMETRIES = ((16, 16, 96), (48, 32, 192), (640, 480, 96))
 NATIVE_STREAMS, NATIVE_UNITS = 256, 300
 XA_TRACK_UNITS = 37800 * 60 // 28    # a 60 s 37,800 Hz channel: 81,000
+# Phase 8's shared rows: (label, clips, shortest and longest seconds,
+# spacing), a grouped job list's mono 44,100 Hz clips.
+SHARED_ROW_LISTS = (("bank", 256, 0.1, 5.0, "log"),
+                    ("long", 8, 15.0, 30.0, "linear"))
 
 
 def out_name(key):
@@ -447,6 +460,45 @@ def xa_chunk_layout(np, synth, seed=61):
     lim = np.clip((lengths[:, None] - k).reshape(-1), -(1 << 30), 28)
     return (pcm, np.stack([offs, offs]).astype(np.int32),
             np.stack([lim, lim]).astype(np.int32))
+
+
+def clip_lengths(np, clips, lo, hi, spacing, rate=44100):
+    """Sample counts of a job list's clips: ``clips`` quantiles of a
+    log-uniform (``spacing`` "log") or uniform law over [lo, hi] s."""
+    q = (np.arange(clips) + 0.5) / clips
+    sec = np.exp(np.log(lo) + q * (np.log(hi) - np.log(lo))) \
+        if spacing == "log" else lo + q * (hi - lo)
+    return [int(round(x * rate)) for x in sec]
+
+
+def shared_row_clips(np, synth, lengths, seed):
+    """The grouped call's input for mono SPU clips of ``lengths`` samples
+    and one empty stream after them: the (N,) int16 shared row, each
+    stream's start and length, no offsets (28-sample blocks), the (B, T)
+    limits zero-padded to the longest clip (the empty stream's first
+    three units at 28, which K5 masks) and carried-in states."""
+    n = np.asarray(list(lengths) + [0], np.int64)
+    row = synth.rand_pcm(int(n.sum()), seed=seed)
+    base = np.concatenate([[0], np.cumsum(n)[:-1]])
+    T = int(-(-n.max() // 28))
+    k = 28 * np.arange(T)
+    lim = np.where(k < n[:, None], np.minimum(n[:, None] - k, 28), 0)
+    lim[-1, :3] = 28
+    rng = np.random.default_rng(seed)
+    p1, p2 = rng.integers(-0x8000, 0x8000, (2, len(n))).astype(np.int32)
+    return row, None, lim.astype(np.int32), base, n, p1, p2
+
+
+def shared_row_xa(np, synth):
+    """The XA track's two channels (``xa_chunk_layout``) as one shared row
+    by their chunk offsets, and an empty third stream that starts at the
+    row's end, its units at 28 (masked); zero states."""
+    pcm, offs, lim = xa_chunk_layout(np, synth)
+    N = pcm.shape[1]
+    lim = np.concatenate([lim, np.full((1, lim.shape[1]), 28, np.int32)])
+    zero = np.zeros(3, np.int32)
+    return (pcm.reshape(-1), np.concatenate([offs, offs[:1]]), lim,
+            np.array([0, N, 2 * N]), np.array([N, N, 0]), zero, zero)
 
 
 def tone_track_units(np, synth):
@@ -1942,7 +1994,8 @@ def adpcm_tracks(torch, np, synth, card):
     out = adpcm_cuda.encode_pcm_units(*args, filter_count=4, shift_range=12,
                                       stats_out=stats)
     if adpcm_cuda.INPUTS != {"offsets": inputs["offsets"] + 1,
-                             "dense": inputs["dense"]}:
+                             "dense": inputs["dense"],
+                             "shared_row": inputs["shared_row"]}:
         raise AssertionError(f"K5's chunk call counted as {adpcm_cuda.INPUTS}"
                              f" after {inputs}")
     got = (out[0], adpcm_cuda.unpack_words(out[1], 12), *out[2:])
@@ -1966,6 +2019,106 @@ def adpcm_tracks(torch, np, synth, card):
         f" equal the model's, counted as the offsets layout; in a CUDA graph"
         f" {ms:.4f} ms; on {card}")
     row["chunk_ms"] = ms
+    tiers.COUNTERS.update(paths_calls)
+    return row
+
+
+def adpcm_shared_rows(torch, np, synth, card):
+    """Phase 8: K5 on the shared row (``shared_row_clips`` at
+    SHARED_ROW_LISTS' lengths, ``shared_row_xa``): the plan's route and
+    ADPCM_FORCED_SEGMENTS segments equal the native unit encoder on the
+    units gathered on the host and the plain version on the first
+    ADPCM_CHECK_UNITS units; each call counts one "shared_row" input and
+    its route's launches; the plan's route timed in a CUDA graph beside
+    the dense layout on the same streams zero-padded (equal to it too).
+    Returns the K5 row's shared-row keys."""
+    from psxavenc_tpu_torch.native import tiers
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    dev = torch.device("cuda", 0)
+    paths_calls = dict(tiers.COUNTERS)       # the references are no path's
+    cases = [(label, f"{clips} mono clips of {lo}-{hi} s ({spacing})", 5,
+              shared_row_clips(np, synth, clip_lengths(
+                  np, clips, lo, hi, spacing), seed=101 + i))
+             for i, (label, clips, lo, hi, spacing)
+             in enumerate(SHARED_ROW_LISTS)]
+    cases.append(("xa", "the XA track's two channels by their chunk "
+                  "offsets", 4, shared_row_xa(np, synth)))
+    row = {}
+    for label, what, fc, (pcm, offs, lim, base, lengths, p1, p2) in cases:
+        B, T = lim.shape
+        base, lengths = adpcm_cuda.shared_row(base, lengths, len(pcm))
+        units = adpcm_cuda.gather_units_plain(
+            torch.from_numpy(pcm), None if offs is None
+            else torch.from_numpy(offs), T, base=base, lengths=lengths)
+        want = tuple(torch.from_numpy(np.asarray(w, np.int32)).to(dev)
+                     for w in tiers.adpcm_encode_units(units.numpy(), lim, p1,
+                                                       p2, fc, 12))
+        n = ADPCM_CHECK_UNITS
+        head = adpcm_cuda.encode_units_plain(
+            units[:, :n], torch.from_numpy(lim[:, :n]), torch.from_numpy(p1),
+            torch.from_numpy(p2), filter_count=fc, shift_range=12)
+        head = tuple(t.to(dev) for t in (head[0], adpcm_cuda.unpack_words(
+            head[1], 12), *head[2:]))
+        args = [None if a is None else torch.from_numpy(a).to(dev)
+                for a in (pcm, offs, lim, p1, p2)]
+        base_d, lengths_d = (torch.from_numpy(a).to(dev)
+                             for a in (base, lengths))
+
+        def k5(segments=None):
+            return adpcm_cuda.encode_pcm_units(
+                *args, filter_count=fc, shift_range=12, segments=segments,
+                base=base_d, lengths=lengths_d)
+
+        S = adpcm_cuda.plan_segments(B, T)
+        errs = {}
+        for segments in (None, ADPCM_FORCED_SEGMENTS):
+            inputs = dict(adpcm_cuda.INPUTS)
+            launches = adpcm_cuda.LAUNCHES["adpcm_encode_units"]
+            out = k5(segments)
+            route = S if segments is None else segments
+            if adpcm_cuda.INPUTS != dict(
+                    inputs, shared_row=inputs["shared_row"] + 1) or \
+                    adpcm_cuda.LAUNCHES["adpcm_encode_units"] - launches \
+                    != (1 if route == 1 else 2 + adpcm_cuda.ROUNDS):
+                raise AssertionError(
+                    f"K5's shared row ({label}, {route} segments) counted as "
+                    f"{adpcm_cuda.INPUTS}, launches {launches} -> "
+                    f"{adpcm_cuda.LAUNCHES}")
+            got = (out[0], adpcm_cuda.unpack_words(out[1], 12), *out[2:])
+            errs[route] = max(
+                max_abs_err(torch, got, want, "adpcm_encode_pcm_units"),
+                max_abs_err(torch, tuple(g[:, :n] for g in got), head,
+                            "adpcm_encode_pcm_units"))
+        if any(errs.values()):
+            raise AssertionError(f"K5 on the shared row ({label}): max "
+                                 f"|kernel - reference| by route {errs}")
+        ms = graph_ms(torch, k5, reps=5)
+        bound_ms, bound_by = rl.bound(*rl.adpcm_work(B, T, fc,
+                                                     out[1].shape[2]))
+        dense = units.to(torch.int16).to(dev)
+        dense_out = adpcm_cuda.encode_units(dense, *args[2:],
+                                            filter_count=fc, shift_range=12)
+        dense_err = max_abs_err(torch, dense_out, out,
+                                "adpcm_encode_units")
+        if dense_err:
+            raise AssertionError(f"K5 on the shared row ({label}) differs "
+                                 f"from the dense layout by {dense_err}")
+        dense_ms = graph_ms(torch, lambda: adpcm_cuda.encode_units(
+            dense, *args[2:], filter_count=fc, shift_range=12), reps=5)
+        del dense, dense_out
+        say(f"[8] adpcm_encode_pcm_units ({fc}, 12) on a shared row of "
+            f"{what} ({B} streams x {T} units, {len(pcm)} samples, an empty "
+            f"stream; the plan's {S} segments a stream and "
+            f"{ADPCM_FORCED_SEGMENTS} forced): equal to the native tier and "
+            f"to the plain version on the first {n} units, one shared_row "
+            f"input and the route's launches a call; in a CUDA graph "
+            f"{ms:.4f} ms, the dense layout on the same streams zero-padded "
+            f"{dense_ms:.4f} ms ({ms / dense_ms:.4f}x), bound "
+            f"{bound_ms:.4f} ms ({bound_by}); on {card}")
+        row.update({f"{label}_shared_ms": ms,
+                    f"{label}_shared_dense_ms": dense_ms,
+                    f"{label}_shared_bound_ms": bound_ms})
     tiers.COUNTERS.update(paths_calls)
     return row
 
@@ -2877,6 +3030,8 @@ def main():
         del full, ref
         rows["adpcm_encode_units"].update(adpcm_tracks(torch, np, synth,
                                                        card))
+        rows["adpcm_encode_units"].update(adpcm_shared_rows(torch, np, synth,
+                                                            card))
         av = av_path(torch, digests, tmp, card, out_dir)
         k10_rows, k3_inputs = block_stream_kernels(torch, np, synth, card)
         for name, row in k10_rows.items():

@@ -6,10 +6,10 @@ across files:
 
 - **audio jobs** (xa/xacd/spu/vag/spui/vagi): a planning pass runs each
   container with an encoder that captures its ADPCM request (int16
-  samples, unit offsets, limits) and stops it; every file's units then
-  gather into one batch, and ALL files of a (filter_count, shift_range)
-  class encode in ONE K5 call. The muxers replay with their slices, so
-  the bytes equal serial runs.
+  samples, unit offsets, limits) and stops it; every file's samples then
+  join one unpadded shared row, and ALL files of a (filter_count,
+  shift_range) class encode in ONE K5 call. The muxers replay with their
+  slices, so the bytes equal serial runs.
 - **video jobs** (str/strcd/strv/sbs): every file's budgeted frames join
   one frame sequence per (codec, geometry) class; ``BsFrameEncoder``
   encodes it in its usual device batches, so the tail frames of one file
@@ -106,47 +106,62 @@ def _replay_encoder(results):
     return enc
 
 
+def _on_grid(offsets):
+    """True where every unit of a request starts at 28 t of its stream."""
+    T = offsets.shape[1]
+    return torch.equal(offsets, (streams.SAMPLES_PER_UNIT * torch.arange(
+        T, dtype=torch.int32)).expand_as(offsets))
+
+
 def _encode_audio_groups(reqs, device, quiet=False):
-    """One K5 call per (filter_count, shift_range) class over the
-    requests' units gathered into the rows of one zero-padded int16 batch
-    (``streams.encode_prepared_units``); returns each request's (headers,
-    values, prev1, prev2), host numpy."""
+    """One K5 call per (filter_count, shift_range) class
+    (``streams.encode_prepared_units``): the requests' int16 samples back
+    to back in one shared row, unpadded, each stream's start and length
+    beside it, and the (B, T) limits zero-padded to the longest; unit
+    offsets go along only where some request's units do not start at
+    28 t. Returns each request's (headers, values, prev1, prev2), host
+    numpy."""
     out = [None] * len(reqs)
     groups = {}
     for i, r in enumerate(reqs):
         groups.setdefault((r["fc"], r["sr"]), []).append(i)
     for (fc, sr), idxs in groups.items():
         with spans.span("batch.encode"):
-            t_max = max(reqs[i]["lim"].shape[1] for i in idxs)
-            b_tot = sum(reqs[i]["lim"].shape[0] for i in idxs)
-            units = torch.zeros((b_tot, t_max, streams.SAMPLES_PER_UNIT),
-                                dtype=torch.int16)
+            rs = [reqs[i] for i in idxs]
+            t_max = max(r["lim"].shape[1] for r in rs)
+            b_tot = sum(r["lim"].shape[0] for r in rs)
             lim = torch.zeros((b_tot, t_max), dtype=torch.int32)
+            offsets = None if all(_on_grid(r["offsets"]) for r in rs) \
+                else torch.zeros((b_tot, t_max), dtype=torch.int32)
+            base, lengths, state_t = np.zeros((3, b_tot), np.int64)
             p1, p2 = np.zeros((2, b_tot), np.int32)
-            state_t = np.zeros(b_tot, np.int64)
-            b0 = 0
-            for i in idxs:
-                r = reqs[i]
+            b0 = start = 0
+            for r in rs:
                 b, t = r["lim"].shape
-                adpcm_cuda.gather_units_plain(r["pcm"], r["offsets"], t,
-                                              out=units[b0:b0 + b, :t])
+                n = r["pcm"].shape[1]
+                base[b0:b0 + b] = start + n * np.arange(b)
+                lengths[b0:b0 + b] = n
                 lim[b0:b0 + b, :t] = r["lim"]
+                if offsets is not None:
+                    offsets[b0:b0 + b, :t] = r["offsets"]
                 state_t[b0:b0 + b] = t - 1
                 if r["prev1"] is not None:
                     p1[b0:b0 + b] = r["prev1"]
                     p2[b0:b0 + b] = r["prev2"]
                 b0 += b
+                start += b * n
+            row = torch.cat([r["pcm"].reshape(-1) for r in rs])
             if not quiet:
                 print(f"[batch] audio group fc={fc} sr={sr}: "
                       f"{len(idxs)} jobs, {b_tot} streams x {t_max} units "
                       f"in one device call", file=sys.stderr)
-            h, n, s1, s2 = streams.encode_prepared_units(
-                units, lim, fc, sr, prev1=p1, prev2=p2, state_t=state_t,
-                device=device)
+            h, v, s1, s2 = streams.encode_prepared_units(
+                row, lim, fc, sr, prev1=p1, prev2=p2, state_t=state_t,
+                device=device, base=base, lengths=lengths, offsets=offsets)
             b0 = 0
             for i in idxs:
                 b, t = reqs[i]["lim"].shape
-                out[i] = (h[b0:b0 + b, :t], n[b0:b0 + b, :t],
+                out[i] = (h[b0:b0 + b, :t], v[b0:b0 + b, :t],
                           s1[b0:b0 + b], s2[b0:b0 + b])
                 b0 += b
     return out

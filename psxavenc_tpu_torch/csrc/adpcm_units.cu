@@ -6,17 +6,21 @@
 // scheme: ops/adpcm_cuda.py::encode_units_segmented_plain.
 //
 // The input. Each stream is a row of int16 PCM, n samples; unit t of
-// stream b starts at sample offsets[b * T + t] (the CLI's chunk layout,
-// where a chunk's last unit is partial and the next chunk starts at the
-// next sample), or at 28 t where offsets is null (the dense layout: the
-// batch runner's zero-padded files, the tensor API's (B, T, 28) units).
-// A lane reads its two samples straight from the PCM. On the chunk layout
-// the index is clamped to [0, n - 1] as ops/adpcm_cuda.py::
-// gather_units_plain clamps it: a unit past the end repeats the last
-// sample and its limit masks it. The dense layout has n = 28 T (the
-// wrapper holds it), so its indices need no clamp. No
-// unit tensor is materialised: a sample costs 2 bytes on the card, a unit
-// 4 more for its offset on the chunk layout.
+// stream b starts at sample offsets[b * T + t] of its stream (the CLI's
+// chunk layout, where a chunk's last unit is partial and the next chunk
+// starts at the next sample), or at 28 t where offsets is null (the dense
+// layout: the tensor API's (B, T, 28) units). The rows are either the
+// rows of one (B, n) tensor, or, in the shared row (the batch runner's
+// grouped call), every stream's samples back to back in one unpadded row:
+// stream b is the len[b] samples from base[b]. A lane reads its two
+// samples straight from the PCM. On the chunk layout and in the shared
+// row the index is clamped to [0, n - 1] (n = len[b]) as ops/
+// adpcm_cuda.py::gather_units_plain clamps it: a unit past the end
+// repeats the last sample and its limit masks it; a stream of no samples
+// reads zeros. The dense layout has n = 28 T (the wrapper holds it), so
+// its indices need no clamp. No unit tensor is materialised: a sample
+// costs 2 bytes on the card, a unit 4 more for its offset on the chunk
+// layout; the shared row pads only the (B, T) limits and outputs.
 //
 // Per stream and per 28-sample unit, in time order: samples at or past the
 // unit's limit count as 0; each filter's minimum shift comes from the
@@ -143,17 +147,55 @@ struct Group {
   int* raw;
 };
 
-// The call's input (the note at the top): n >= 1 samples a stream (the
-// wrapper hands a stream of none one zero sample), n = 28 T on the dense
-// layout. Sample indices are int32: the wrapper holds every offset + 27
-// and n under 2^31.
+// The call's input (the note at the top): without a shared row, n >= 1
+// samples a stream (the wrapper hands a stream of none one zero sample),
+// n = 28 T on the dense layout. Sample indices within a stream are int32:
+// the wrapper holds every offset + 27, n and each len under 2^31; a
+// stream's start in the shared row is int64.
 struct Source {
   const int16_t* pcm;
-  const int* offsets;   // null: the dense layout
+  const int* offsets;      // null: unit t at sample 28 t
+  const long long* base;   // null: stream b is row b of n samples
+  const int* len;          // with base: stream b's sample count
   const int* limits;
   int n;
   int T;
 };
+
+// How a kernel reads stream b's samples: row b of a (B, n) tensor, the
+// index clamped to [0, n - 1] on the chunk layout (a branch uniform over
+// the launch), or, in the shared row, the len[b] samples from base[b],
+// resolved once a stream so that no unit waits on their load, the index
+// clamped to at most len[b] - 1 (offsets are non-negative: the wrapper
+// holds them). A stream of no samples reads zeros: its units are masked
+// whole (unit_limit), so its reads of sample 0 (the wrapper points it at
+// the row's first sample) count for nothing; a test of the length at
+// each load made the serial route 38% slower on the card.
+template <bool kShared>
+struct Samples;
+
+template <>
+struct Samples<false> {
+  int b;
+};
+
+template <>
+struct Samples<true> {
+  const int16_t* pcm;
+  int last;     // max(len[b] - 1, 0)
+  bool empty;   // len[b] == 0
+};
+
+template <bool kShared>
+__device__ __forceinline__ Samples<kShared> samples_of(const Source& src,
+                                                       int b) {
+  if constexpr (kShared) {
+    const int len = __ldg(src.len + b);
+    return {src.pcm + __ldg(src.base + b), max(len - 1, 0), len == 0};
+  } else {
+    return {b};
+  }
+}
 
 // Where unit t of stream b starts in its stream.
 __device__ __forceinline__ int unit_offset(const Source& src, int b, int t) {
@@ -162,12 +204,30 @@ __device__ __forceinline__ int unit_offset(const Source& src, int b, int t) {
              : t * kSamples;
 }
 
-// Sample i of the unit that starts at `off` in stream b; the clamp only
-// on the chunk layout (a branch uniform over the launch).
-__device__ __forceinline__ int unit_sample(const Source& src, int b, int off,
+// Sample i of the unit that starts at `off` in the stream.
+__device__ __forceinline__ int unit_sample(const Source& src,
+                                           const Samples<false>& s, int off,
                                            int i) {
   const int j = src.offsets ? min(max(off + i, 0), src.n - 1) : off + i;
-  return __ldg(src.pcm + static_cast<long long>(b) * src.n + j);
+  return __ldg(src.pcm + static_cast<long long>(s.b) * src.n + j);
+}
+
+__device__ __forceinline__ int unit_sample(const Source&,
+                                           const Samples<true>& s, int off,
+                                           int i) {
+  return __ldg(s.pcm + min(off + i, s.last));
+}
+
+// Unit t's limit, 0 in the shared row for a stream of no samples.
+template <bool kShared>
+__device__ __forceinline__ int unit_limit(const Source& src,
+                                          const Samples<kShared>& s, int b,
+                                          int t) {
+  const int lim = __ldg(src.limits + static_cast<long long>(b) * src.T + t);
+  if constexpr (kShared)
+    return s.empty ? 0 : lim;
+  else
+    return lim;
 }
 
 // One unit's inputs as lane l holds them: samples l and l + 16 (the latter
@@ -177,14 +237,16 @@ struct UnitIn {
   int a, b, lim;
 };
 
-__device__ __forceinline__ UnitIn load_unit(const Source& src, int b, int t,
-                                            int lane) {
+template <bool kShared>
+__device__ __forceinline__ UnitIn load_unit(const Source& src,
+                                            const Samples<kShared>& s, int b,
+                                            int t, int lane) {
   const int off = unit_offset(src, b, t);
   UnitIn in;
-  in.a = unit_sample(src, b, off, lane);
-  in.b = lane < kSamples - kGroup ? unit_sample(src, b, off, lane + kGroup)
+  in.a = unit_sample(src, s, off, lane);
+  in.b = lane < kSamples - kGroup ? unit_sample(src, s, off, lane + kGroup)
                                   : 0;
-  in.lim = __ldg(src.limits + static_cast<long long>(b) * src.T + t);
+  in.lim = unit_limit(src, s, b, t);
   return in;
 }
 
@@ -348,7 +410,7 @@ __device__ __forceinline__ void count(unsigned long long* stats, int slot,
 
 // ------------------------------------------------------------ serial route
 
-template <int F, int SR>
+template <int F, int SR, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 adpcm_serial_kernel(const Source src, const int* __restrict__ prev1,
                     const int* __restrict__ prev2, int batch,
@@ -366,13 +428,14 @@ adpcm_serial_kernel(const Source src, const int* __restrict__ prev1,
   const Group g{static_cast<int>(threadIdx.x & (kGroup - 1)), kFull,
                 s_raw[slot]};
 
+  const Samples<kShared> smp = samples_of<kShared>(src, b);
   int p1 = prev1[b];
   int p2 = prev2[b];
-  UnitIn next = load_unit(src, b, 0, g.lane);
+  UnitIn next = load_unit(src, smp, b, 0, g.lane);
   for (int t = 0; t < T; ++t) {
     const long long u = static_cast<long long>(b) * T + t;
     const UnitIn cur = next;
-    if (t + 1 < T) next = load_unit(src, b, t + 1, g.lane);
+    if (t + 1 < T) next = load_unit(src, smp, b, t + 1, g.lane);
     const UnitOut o = encode_unit<F, SR>(g, cur, p1, p2);
     p1 = o.p1;
     p2 = o.p2;
@@ -406,7 +469,7 @@ __device__ __forceinline__ bool segment_group(int* raw_base, int batch,
   return true;
 }
 
-template <int F, int SR>
+template <int F, int SR, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 adpcm_spec_kernel(const Source src, const int* __restrict__ prev1,
                   const int* __restrict__ prev2, int batch, int S,
@@ -423,21 +486,22 @@ adpcm_spec_kernel(const Source src, const int* __restrict__ prev1,
   const int t1 = seg_start(sg.k + 1, T, S);
   const long long base = static_cast<long long>(sg.b) * T;
   const int w0 = sg.k == 0 ? 0 : max(0, t0 - warmup);
+  const Samples<kShared> smp = samples_of<kShared>(src, sg.b);
   int p1, p2;
   if (w0 == 0) {
     p1 = prev1[sg.b];
     p2 = prev2[sg.b];
   } else {  // the guess: the raw samples before the warm-up
     const int off = unit_offset(src, sg.b, w0 - 1);
-    const int lim = __ldg(src.limits + base + w0 - 1);
-    p1 = lim > kSamples - 1 ? unit_sample(src, sg.b, off, kSamples - 1) : 0;
-    p2 = lim > kSamples - 2 ? unit_sample(src, sg.b, off, kSamples - 2) : 0;
+    const int lim = unit_limit(src, smp, sg.b, w0 - 1);
+    p1 = lim > kSamples - 1 ? unit_sample(src, smp, off, kSamples - 1) : 0;
+    p2 = lim > kSamples - 2 ? unit_sample(src, smp, off, kSamples - 2) : 0;
   }
-  UnitIn next = load_unit(src, sg.b, w0, g.lane);
+  UnitIn next = load_unit(src, smp, sg.b, w0, g.lane);
   for (int t = w0; t < t1; ++t) {
     if (t == t0 && g.lane == 0) starts[sg.gi] = make_int2(p1, p2);
     const UnitIn cur = next;
-    if (t + 1 < t1) next = load_unit(src, sg.b, t + 1, g.lane);
+    if (t + 1 < t1) next = load_unit(src, smp, sg.b, t + 1, g.lane);
     const UnitOut o = encode_unit<F, SR>(g, cur, p1, p2);
     p1 = o.p1;
     p2 = o.p2;
@@ -450,7 +514,7 @@ adpcm_spec_kernel(const Source src, const int* __restrict__ prev1,
   }
 }
 
-template <int F, int SR>
+template <int F, int SR, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 adpcm_round_kernel(const Source src, int batch, int S, int round,
                    int* __restrict__ hdr, int* __restrict__ words,
@@ -481,13 +545,14 @@ adpcm_round_kernel(const Source src, int batch, int S, int round,
   int p1 = from.x, p2 = from.y;
   bool merged = false;
   int t = t0;
-  UnitIn next = load_unit(src, sg.b, t0, g.lane);
+  const Samples<kShared> smp = samples_of<kShared>(src, sg.b);
+  UnitIn next = load_unit(src, smp, sg.b, t0, g.lane);
   int2 stored_next = load_state(s1, s2, base + t0);
   while (t < t1) {
     const UnitIn cur = next;
     const int2 stored = stored_next;
     if (t + 1 < t1) {
-      next = load_unit(src, sg.b, t + 1, g.lane);
+      next = load_unit(src, smp, sg.b, t + 1, g.lane);
       stored_next = load_state(s1, s2, base + t + 1);
     }
     const UnitOut o = encode_unit<F, SR>(g, cur, p1, p2);
@@ -508,7 +573,7 @@ adpcm_round_kernel(const Source src, int batch, int S, int round,
   }
 }
 
-template <int F, int SR>
+template <int F, int SR, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 adpcm_walk_kernel(const Source src, int batch, int S,
                   int* __restrict__ hdr, int* __restrict__ words,
@@ -527,6 +592,7 @@ adpcm_walk_kernel(const Source src, int batch, int S,
   const int T = src.T;
   const long long base = static_cast<long long>(stream) * T;
   const int2* st = starts + static_cast<long long>(stream) * S;
+  const Samples<kShared> smp = samples_of<kShared>(src, stream);
 
   // The walk's true state before segment k; segment 0 is exact.
   int k = 1;
@@ -569,13 +635,13 @@ adpcm_walk_kernel(const Source src, int batch, int S,
     int t = seg_start(k, T, S);
     int seg_end = seg_start(k + 1, T, S);
     bool merged = false;
-    UnitIn next = load_unit(src, stream, t, g.lane);
+    UnitIn next = load_unit(src, smp, stream, t, g.lane);
     int2 stored_next = load_state(s1, s2, base + t);
     while (t < T) {
       const UnitIn cur = next;
       const int2 stored = stored_next;
       if (t + 1 < T) {
-        next = load_unit(src, stream, t + 1, g.lane);
+        next = load_unit(src, smp, stream, t + 1, g.lane);
         stored_next = load_state(s1, s2, base + t + 1);
       }
       const UnitOut o = encode_unit<F, SR, true>(g, cur, p1, p2);
@@ -602,7 +668,7 @@ adpcm_walk_kernel(const Source src, int batch, int S,
   if (g.lane == 0) count(stats, kStatWalked, walked);
 }
 
-template <int F, int SR>
+template <int F, int SR, bool kShared>
 int launch(const Source& src, const void* prev1, const void* prev2,
            int batch, int S, int warmup, int rounds, void* hdr, void* words,
            void* s1, void* s2, void* starts, void* ends, void* stats,
@@ -616,7 +682,7 @@ int launch(const Source& src, const void* prev1, const void* prev2,
   auto* st = static_cast<unsigned long long*>(stats);
   if (S <= 1) {
     const int grid = (batch + kGroupsPerBlock - 1) / kGroupsPerBlock;
-    adpcm_serial_kernel<F, SR><<<grid, kThreads, 0, stream>>>(
+    adpcm_serial_kernel<F, SR, kShared><<<grid, kThreads, 0, stream>>>(
         src, p1, p2, batch, h, w, a, b, st);
     return static_cast<int>(cudaGetLastError());
   }
@@ -625,54 +691,71 @@ int launch(const Source& src, const void* prev1, const void* prev2,
                                     kGroupsPerBlock);
   int2* start = static_cast<int2*>(starts);
   int2* end[2] = {static_cast<int2*>(ends), static_cast<int2*>(ends) + groups};
-  adpcm_spec_kernel<F, SR><<<grid, kThreads, 0, stream>>>(
+  adpcm_spec_kernel<F, SR, kShared><<<grid, kThreads, 0, stream>>>(
       src, p1, p2, batch, S, warmup, h, w, a, b, start, end[0], st);
   int rc = static_cast<int>(cudaGetLastError());
   for (int r = 0; r < rounds && rc == 0; ++r) {
-    adpcm_round_kernel<F, SR><<<grid, kThreads, 0, stream>>>(
+    adpcm_round_kernel<F, SR, kShared><<<grid, kThreads, 0, stream>>>(
         src, batch, S, r, h, w, a, b, start, end[r & 1], end[(r + 1) & 1],
         st);
     rc = static_cast<int>(cudaGetLastError());
   }
   if (rc != 0) return rc;
   const int walk_grid = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  adpcm_walk_kernel<F, SR><<<walk_grid, kThreads, 0, stream>>>(
+  adpcm_walk_kernel<F, SR, kShared><<<walk_grid, kThreads, 0, stream>>>(
       src, batch, S, h, w, a, b, start, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared row has kernels of its own, so that the other layouts' read
+// as they would without it.
+template <int F, int SR, typename... Args>
+int launch_layout(const Source& src, Args... args) {
+  return src.base ? launch<F, SR, true>(src, args...)
+                  : launch<F, SR, false>(src, args...);
 }
 
 }  // namespace
 
 // Returns a cudaError_t value; cudaErrorInvalidValue (1) for a
 // (filter_count, shift_range) pair the kernel is not built for (it is
-// built for SPU (5, 12) and XA (4, 12) and (4, 8)), for n < 1 and for a
-// dense call with n != 28 T. `pcm` is (batch, n) int16; `offsets` (batch,
-// T) int32, or null for the dense layout (unit t at sample 28 t); `limits` (batch, T) int32, clipped to
-// [-(1 << 30), 28]. `segments` <= 1 runs the serial route (one launch),
-// else 2 + `rounds` launches; `starts` holds batch * segments int2 and
-// `ends` twice that; `stats` (5 u64, zeroed by the caller) may be null.
+// built for SPU (5, 12) and XA (4, 12) and (4, 8)), and, without a shared
+// row, for n < 1 and for a dense call with n != 28 T. `pcm` is (batch, n)
+// int16, or with `base` the shared row (n unused): stream b is the
+// `len`[b] samples from `base`[b] ((batch,) int64 and int32). `offsets`
+// is (batch, T) int32, or null (unit t at sample 28 t of its stream);
+// `limits` (batch, T) int32, clipped to [-(1 << 30), 28]. `segments` <= 1
+// runs the serial route (one launch), else 2 + `rounds` launches;
+// `starts` holds batch * segments int2 and `ends` twice that; `stats` (5
+// u64, zeroed by the caller) may be null.
 extern "C" int psx_adpcm_encode_pcm_units(
-    const void* pcm, const void* offsets, const void* limits,
-    const void* prev1, const void* prev2, int n, int batch, int T,
-    int filter_count, int shift_range, int segments, int warmup, int rounds,
-    void* hdr, void* words, void* s1, void* s2, void* starts, void* ends,
-    void* stats, void* stream) {
+    const void* pcm, const void* offsets, const void* base, const void* len,
+    const void* limits, const void* prev1, const void* prev2, int n,
+    int batch, int T, int filter_count, int shift_range, int segments,
+    int warmup, int rounds, void* hdr, void* words, void* s1, void* s2,
+    void* starts, void* ends, void* stats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || T <= 0) return 0;
-  if (rounds > 63 || n < 1 ||
-      (!offsets && n != static_cast<long long>(kSamples) * T))
+  if (rounds > 63 || (!base != !len) ||
+      (!base && (n < 1 || (!offsets &&
+                           n != static_cast<long long>(kSamples) * T))))
     return static_cast<int>(cudaErrorInvalidValue);
   const Source src{static_cast<const int16_t*>(pcm),
                    static_cast<const int*>(offsets),
+                   static_cast<const long long*>(base),
+                   static_cast<const int*>(len),
                    static_cast<const int*>(limits), n, T};
   if (filter_count == 5 && shift_range == 12)
-    return launch<5, 12>(src, prev1, prev2, batch, segments, warmup, rounds,
-                         hdr, words, s1, s2, starts, ends, stats, st);
+    return launch_layout<5, 12>(src, prev1, prev2, batch, segments, warmup,
+                                rounds, hdr, words, s1, s2, starts, ends,
+                                stats, st);
   if (filter_count == 4 && shift_range == 12)
-    return launch<4, 12>(src, prev1, prev2, batch, segments, warmup, rounds,
-                         hdr, words, s1, s2, starts, ends, stats, st);
+    return launch_layout<4, 12>(src, prev1, prev2, batch, segments, warmup,
+                                rounds, hdr, words, s1, s2, starts, ends,
+                                stats, st);
   if (filter_count == 4 && shift_range == 8)
-    return launch<4, 8>(src, prev1, prev2, batch, segments, warmup, rounds,
-                        hdr, words, s1, s2, starts, ends, stats, st);
+    return launch_layout<4, 8>(src, prev1, prev2, batch, segments, warmup,
+                               rounds, hdr, words, s1, s2, starts, ends,
+                               stats, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,8 +6,10 @@ boundaries (offset, limit) of a whole stream are computed up front; the
 int16 PCM, an int32 offset and a limit a unit go to the device
 (:func:`k5_input` converts every route's input, once), and one K5 launch
 reads each unit straight from the PCM and threads the decoder state over
-time for all B streams. The batch runner's zero-padded units go up in
-K5's dense layout, a shard a device where it gives several. On a CPU
+time for all B streams. The batch runner's grouped call sends its
+streams' samples unpadded, back to back in one shared row (only the
+(B, T) limits and outputs are padded), a shard a device where it gives
+several. On a CPU
 device the units are gathered on the host for the native C++ unit
 encoder (``native/tiers.py``, bit-exact with K5), as the JAX module's
 no-TPU tier does, unless PSXAVENC_NO_NATIVE_ADPCM is set: then K5's
@@ -98,26 +100,30 @@ def upload(x, device):
 _WALKED = adpcm_cuda.STAT_NAMES.index("walked_units")
 
 
-def _encode(dev, pcm, offsets, lim, prev1, prev2, state_t, filter_count,
-            shift_range):
+def _encode(dev, pcm, offsets, lim, prev1, prev2, state_t, base, lengths,
+            filter_count, shift_range):
     """K5 on ``dev`` -> ((headers uint8, values uint8, final prev1, final
     prev2) there, not read back (:func:`_run` does), and K5's (5,) int64
     stats there while a profile runs, else None); on the CPU the native
     tier's host arrays and None, unless PSXAVENC_NO_NATIVE_ADPCM is set.
 
-    ``pcm`` (B, N) int16, ``offsets`` (B, T) int32 or None (K5's dense
-    layout) and ``lim`` (B, T) int32 go up here, and their device copies
-    are the call's only references: the samples are freed once K5 has
-    run, before the unpack, so the call's device peak is K5's own working
-    set. ``state_t`` (B,) int64: each row's unit whose post-state is
-    final."""
+    ``pcm`` (B, N) int16, ``offsets`` (B, T) int32 or None (unit t at
+    sample 28 t), ``lim`` (B, T) int32 and, for a shared row, ``base`` and
+    ``lengths`` (host arrays of :func:`adpcm_cuda.shared_row`, ``pcm``
+    then (N,); else None) go up here, and their device copies are the
+    call's only references: the samples are freed once K5 has run, and
+    the states once the final ones are taken, before the unpack, so the
+    call's device peak is K5's own working set. ``state_t`` (B,) int64:
+    each row's unit whose post-state is final."""
     with spans.span("adpcm.upload"):
-        pcm, offsets, lim = (x if x is None else upload(x, dev)
-                             for x in (pcm, offsets, lim))
+        pcm, offsets, lim, base, lengths = (
+            x if x is None else upload(x, dev)
+            for x in (pcm, offsets, lim, base, lengths))
     B, T = lim.shape
     if dev.type == "cpu" and not os.environ.get("PSXAVENC_NO_NATIVE_ADPCM"):
         with spans.span("adpcm.kernel"):
-            units = adpcm_cuda.gather_units_plain(pcm, offsets, T)
+            units = adpcm_cuda.gather_units_plain(pcm, offsets, T, base=base,
+                                                  lengths=lengths)
             h, v, s1, s2 = tiers.adpcm_encode_units(
                 units.numpy(), lim.numpy(), _state(prev1, B),
                 _state(prev2, B), filter_count, shift_range)
@@ -130,18 +136,19 @@ def _encode(dev, pcm, offsets, lim, prev1, prev2, state_t, filter_count,
             pcm, offsets, lim, upload(_state(prev1, B), dev),
             upload(_state(prev2, B), dev),
             filter_count=filter_count, shift_range=shift_range,
-            stats_out=stats)
-        del pcm, offsets, lim
+            stats_out=stats, base=base, lengths=lengths)
+        del pcm, offsets, lim, base, lengths
         t_idx = upload(state_t, dev)[:, None]
         f1 = s1.gather(1, t_idx)[:, 0]
         f2 = s2.gather(1, t_idx)[:, 0]
+        del s1, s2
         h = h.to(torch.uint8)
         values = adpcm_cuda.unpack_words_u8(w, shift_range)
     return (h, values, f1, f2), stats
 
 
 def _run(shards, filter_count, shift_range, B):
-    """:func:`_encode` on each shard (its arguments up to ``state_t``),
+    """:func:`_encode` on each shard (its arguments up to ``lengths``),
     all enqueued before any read-back (which counts its bytes, and K5's
     stats where it made them) -> the outputs on the host, the shards'
     rows concatenated, rows 0..B-1."""
@@ -186,7 +193,8 @@ def encode_unit_streams(channel_samples, offsets, limits, filter_count,
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),
                 np.zeros(B, np.int32), np.zeros(B, np.int32))
     return _run([(torch.device(device), pcm, offsets, lim, prev1, prev2,
-                  np.full(B, T - 1))], filter_count, shift_range, B)
+                  np.full(B, T - 1), None, None)], filter_count, shift_range,
+                B)
 
 
 def whole_file(unit_encoder):
@@ -199,16 +207,27 @@ def whole_file(unit_encoder):
 
 def encode_prepared_units(units, lim, filter_count, shift_range,
                           prev1=None, prev2=None, state_t=None,
-                          device="cuda"):
-    """Encode pre-gathered (B, T, 28) units of s16 samples (see
-    encode_unit_streams; the batch runner concatenates many files' streams
-    on B before calling): numpy arrays or tensors on any device, made
-    K5's input where they are (:func:`k5_input`) and moved to the device
-    as (B, T * 28) samples in K5's dense layout.
+                          device="cuda", base=None, lengths=None,
+                          offsets=None):
+    """Encode B streams of s16 samples (see encode_unit_streams; the batch
+    runner concatenates many files' streams on B before calling), given
+    as numpy arrays or tensors on any device, made K5's input where they
+    are (:func:`k5_input`), and (B, T) limits. The samples go up as one
+    shared row, as they are; only the limits and outputs are padded:
+
+    - with ``base`` and ``lengths`` ((B,) host arrays), ``units`` is the
+      shared (N,) row: stream b is the ``lengths[b]`` samples from
+      ``base[b]`` (:func:`adpcm_cuda.shared_row` checks them), unit t at
+      ``offsets[b, t]`` of its stream ((B, T) host offsets,
+      :func:`adpcm_cuda.unit_offsets`) or, with none, at 28 t; a unit
+      past a stream's end repeats its last sample (its limit masks it);
+    - without, ``units`` (B, T, 28) are pre-gathered units: the row of B
+      streams of 28 T samples each.
 
     ``device``: one, or a list of at most B devices: then B is padded
     with masked rows to a multiple of their count and cut into one equal
-    shard a device, each shard's device memory the one-device call's.
+    shard a device, each shard's device memory the one-device call's: its
+    streams' slice of the row, rebased, and their limits.
 
     ``state_t``: optional (B,) per-row unit index whose post-state to
     return as the final decoder state (rows padded with masked units
@@ -216,26 +235,48 @@ def encode_prepared_units(units, lim, filter_count, shift_range,
     the last column.
     """
     units, lim = k5_input(units, lim)
-    B, T, n = units.shape
+    B, T = lim.shape
     p1, p2 = _state(prev1, B), _state(prev2, B)
     if T == 0:
         return (np.zeros((B, 0), np.uint8),
                 np.zeros((B, 0, SAMPLES_PER_UNIT), np.uint8),
                 p1.copy(), p2.copy())
     t_idx = np.full(B, T - 1) if state_t is None else state_t
+    if base is None:
+        if units.shape != (B, T, SAMPLES_PER_UNIT) or offsets is not None:
+            raise ValueError("encode_prepared_units: expected (B, T, 28) "
+                             "units, or a shared row with its starts and "
+                             "lengths")
+        units = units.reshape(-1)
+        base = SAMPLES_PER_UNIT * T * np.arange(B)
+        lengths = np.full(B, SAMPLES_PER_UNIT * T)
+    elif units.ndim != 1:
+        raise ValueError("encode_prepared_units: a shared row is 1-d")
+    base, lengths = adpcm_cuda.shared_row(base, lengths, units.shape[0])
+    if offsets is not None:
+        offsets = torch.from_numpy(adpcm_cuda.unit_offsets(offsets))
     devices = mesh.device_list(device)
     devices = devices[:1] if B < len(devices) else devices
     b = -(-B // len(devices))
     pad = b * len(devices) - B
     if pad:
-        units = torch.cat([units, units.new_zeros((pad, T, n))])
+        if offsets is not None:
+            offsets = torch.cat([offsets, offsets.new_zeros((pad, T))])
         lim = torch.cat([lim, lim.new_zeros((pad, T))])
-    p1, p2, t_idx = (np.concatenate([a, np.zeros(pad, a.dtype)])
-                     for a in (p1, p2, np.asarray(t_idx, np.int64)))
-    cut = [slice(i * b, (i + 1) * b) for i in range(len(devices))]
-    return _run([(dev, units[r].reshape(b, T * n), None, lim[r], p1[r],
-                  p2[r], t_idx[r]) for dev, r in zip(devices, cut)],
-                filter_count, shift_range, B)
+    p1, p2, t_idx, base, lengths = (
+        np.concatenate([a, np.zeros(pad, a.dtype)])
+        for a in (p1, p2, np.asarray(t_idx, np.int64), base, lengths))
+    shards = []
+    for i, dev in enumerate(devices):
+        r = slice(i * b, (i + 1) * b)
+        live = lengths[r] > 0
+        lo, hi = (int(base[r][live].min()),
+                  int((base[r] + lengths[r])[live].max())) \
+            if live.any() else (0, 0)
+        shards.append((dev, units[lo:hi], None if offsets is None
+                       else offsets[r], lim[r], p1[r], p2[r], t_idx[r],
+                       np.where(live, base[r] - lo, 0), lengths[r]))
+    return _run(shards, filter_count, shift_range, B)
 
 
 def pack_spu_blocks(headers, nibbles, flags=None):

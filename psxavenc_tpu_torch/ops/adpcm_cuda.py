@@ -12,8 +12,10 @@ tensors; ``LAUNCHES`` counts the launches.
 K5 reads its units straight from int16 PCM (:func:`encode_pcm_units`): a
 (B, N) row of samples a stream and a (B, T) int32 offset a unit (the
 CLI's chunk layout), or no offsets (the dense layout, unit t at sample
-28 t: :func:`encode_units`' (B, T, 28) units and the batch runner's).
-``INPUTS`` counts the card's calls by layout.
+28 t: :func:`encode_units`' (B, T, 28) units); or the shared row (the
+batch runner's grouped call), every stream's samples back to back in one
+unpadded (N,) row, a start and a length a stream, with offsets or at
+28 t. ``INPUTS`` counts the card's calls by layout.
 
 On the card the plan (:func:`plan_segments`) picks the route from (B, T)
 alone: the serial route where the batch fills the card, else each stream
@@ -34,7 +36,7 @@ from . import adpcm
 from .bs_cuda import _on_cuda, _opt_ptr, _require
 
 LAUNCHES = {"adpcm_encode_units": 0}
-INPUTS = {"offsets": 0, "dense": 0}
+INPUTS = {"offsets": 0, "dense": 0, "shared_row": 0}
 
 # (filter_count, shift_range) pairs the kernel is built for: SPU and the
 # two XA bit depths.
@@ -110,17 +112,47 @@ def unit_offsets(offsets):
     return np.ascontiguousarray(offsets, np.int32)
 
 
-def gather_units_plain(pcm, offsets, T, out=None):
+def shared_row(base, lengths, n):
+    """(B,) host starts and sample counts of the streams in a shared row
+    of ``n`` samples -> contiguous int64 and int32 numpy arrays, as K5
+    takes them, a stream of no samples started at 0 (K5 reads sample 0
+    for it and masks its units); raises ValueError where one is negative,
+    a count does not fit int32 or a stream ends past the row."""
+    base, lengths = np.asarray(base), np.asarray(lengths)
+    if base.ndim != 1 or base.shape != lengths.shape:
+        raise ValueError("a shared row takes (B,) starts and lengths")
+    if base.size and (int(base.min()) < 0 or int(lengths.min()) < 0
+                      or int(lengths.max()) > _INT32_MAX
+                      or int((base.astype(np.int64)
+                              + lengths.astype(np.int64)).max()) > n):
+        raise ValueError(f"a shared row's streams must lie within its {n} "
+                         "samples")
+    return (np.ascontiguousarray(np.where(lengths > 0, base, 0), np.int64),
+            np.ascontiguousarray(lengths, np.int32))
+
+
+def gather_units_plain(pcm, offsets, T, base=None, lengths=None):
     """The units K5 reads: (B, N) samples and (B, T) offsets -> (B, T, 28)
-    int32 on the samples' device, or written into ``out`` ((B, T, 28), in
-    its dtype) with nothing of that size made beside it. Sample indices
-    clip to [0, N - 1], so a unit past the end repeats the last sample
-    (its limit masks it); N == 0 gives zeros. ``offsets`` None is the
-    dense layout, N = 28 T: the samples reshaped."""
-    B, N = pcm.shape
+    int32 on the samples' device. Sample indices clip to [0, N - 1], so a
+    unit past the end repeats the last sample (its limit masks it); N == 0
+    gives zeros. ``offsets`` None is the dense layout, N = 28 T: the
+    samples reshaped.
+
+    With ``base`` and ``lengths`` ((B,) arrays or tensors) ``pcm`` is a
+    shared (N,) row: stream b, the ``lengths[b]`` samples from
+    ``base[b]``, is gathered as a request of that one row would be, at
+    ``offsets[b]`` or, where ``offsets`` is None, at 28 t."""
     n = adpcm.SAMPLES_PER_UNIT
-    if out is None:
-        out = torch.empty((B, T, n), dtype=torch.int32, device=pcm.device)
+    out = torch.empty((len(lengths) if base is not None else pcm.shape[0],
+                       T, n), dtype=torch.int32, device=pcm.device)
+    if base is not None:
+        grid = (n * torch.arange(T, device=pcm.device))[None]
+        for b, (s, m) in enumerate(zip(base.tolist(), lengths.tolist())):
+            at = offsets[b:b + 1] if offsets is not None \
+                else None if m == n * T else grid
+            out[b] = gather_units_plain(pcm[s:s + m][None], at, T)[0]
+        return out
+    B, N = pcm.shape
     if offsets is None:
         return out.copy_(pcm.reshape(B, T, n))
     if N == 0:
@@ -380,7 +412,8 @@ def _stats_arg(stats_out, device):
 
 
 def encode_pcm_units(pcm, offsets, limits, prev1, prev2, *, filter_count,
-                     shift_range, segments=None, stats_out=None):
+                     shift_range, segments=None, stats_out=None, base=None,
+                     lengths=None):
     """K5 (``csrc/adpcm_units.cu``) on units read from int16 PCM -> the
     outputs of :func:`encode_units_plain`.
 
@@ -394,10 +427,26 @@ def encode_pcm_units(pcm, offsets, limits, prev1, prev2, *, filter_count,
     route), for tests and measurements; no output depends on it.
     ``stats_out``: optional (5,) int64 tensor on the samples' device that
     the kernels fill with ``STAT_NAMES``; the CPU path zeroes it. On the
-    CPU the plain version runs on :func:`gather_units_plain`'s units."""
+    CPU the plain version runs on :func:`gather_units_plain`'s units.
+
+    ``base``, ``lengths``: the shared row. ``pcm`` is then one (N,) int16
+    row and stream b the ``lengths[b]`` samples from ``base[b]``: (B,)
+    int64 and int32 tensors on the samples' device, made by
+    :func:`shared_row`, which checks them on the host as
+    :func:`unit_offsets` checks the offsets (here only that 28 T fits
+    int32 where ``offsets`` is None). Unit t of stream b starts at
+    ``offsets[b, t]`` of its stream, or at 28 t where ``offsets`` is None;
+    its indices clip to [0, lengths[b] - 1], and a stream of no samples
+    reads zeros."""
     stats_out = _stats_arg(stats_out, pcm.device)
     B, T = limits.shape[:2]
-    if offsets is None and pcm.shape[1] != adpcm.SAMPLES_PER_UNIT * T:
+    if base is not None:
+        if base.shape != (B,) or lengths.shape != (B,) or (
+                offsets is None
+                and adpcm.SAMPLES_PER_UNIT * T - 1 > _INT32_MAX):
+            raise ValueError("encode_pcm_units: a shared row takes B starts "
+                             "and lengths, and unit offsets that fit int32")
+    elif offsets is None and pcm.shape[1] != adpcm.SAMPLES_PER_UNIT * T:
         raise ValueError(f"encode_pcm_units: the dense layout takes 28 T = "
                          f"{adpcm.SAMPLES_PER_UNIT * T} samples a stream, "
                          f"got {pcm.shape[1]}")
@@ -405,32 +454,43 @@ def encode_pcm_units(pcm, offsets, limits, prev1, prev2, *, filter_count,
         _segments(B, T, segments)
         if stats_out is not None:
             stats_out.zero_()
-        return encode_units_plain(gather_units_plain(pcm, offsets, T),
-                                  limits, prev1, prev2,
-                                  filter_count=filter_count,
-                                  shift_range=shift_range)
+        return encode_units_plain(
+            gather_units_plain(pcm, offsets, T, base=base, lengths=lengths),
+            limits, prev1, prev2, filter_count=filter_count,
+            shift_range=shift_range)
     if (filter_count, shift_range) not in KERNEL_VARIANTS:
         raise ValueError(f"encode_pcm_units: no kernel for filter_count="
                          f"{filter_count}, shift_range={shift_range}")
-    _require(pcm, torch.int16, 2, "encode_pcm_units pcm")
+    _require(pcm, torch.int16, 1 if base is not None else 2,
+             "encode_pcm_units pcm")
     if offsets is not None:
         _require(offsets, torch.int32, 2, "encode_pcm_units offsets")
+    if base is not None:
+        _require(base, torch.int64, 1, "encode_pcm_units base")
+        _require(lengths, torch.int32, 1, "encode_pcm_units lengths")
     _require(limits, torch.int32, 2, "encode_pcm_units limits")
     _require(prev1, torch.int32, 1, "encode_pcm_units prev1")
     _require(prev2, torch.int32, 1, "encode_pcm_units prev2")
     dev = pcm.device
-    if pcm.shape[0] != B or prev1.shape != (B,) or prev2.shape != (B,) \
+    if (base is None and pcm.shape[0] != B) or prev1.shape != (B,) \
+            or prev2.shape != (B,) \
             or (offsets is not None and offsets.shape != (B, T)) \
             or any(t is not None and t.device != dev
-                   for t in (offsets, limits, prev1, prev2)):
+                   for t in (offsets, base, lengths, limits, prev1, prev2)):
         raise ValueError("encode_pcm_units: expected pcm (B, N), offsets "
                          "and limits (B, T) and prev1/prev2 (B,) on one "
                          "device")
-    if pcm.shape[1] > _INT32_MAX:
-        raise ValueError("encode_pcm_units: K5's sample indices must fit "
-                         "int32")
-    if pcm.shape[1] == 0:   # as gather_units_plain: every sample reads 0
-        pcm = pcm.new_zeros((B, 1))
+    if base is not None:
+        if pcm.numel() == 0:    # the sample 0 that an empty stream reads
+            pcm = pcm.new_zeros(1)
+        n = 0                     # K5 takes each stream's from `lengths`
+    else:
+        if pcm.shape[1] > _INT32_MAX:
+            raise ValueError("encode_pcm_units: K5's sample indices must "
+                             "fit int32")
+        if pcm.shape[1] == 0:  # as gather_units_plain: every sample reads 0
+            pcm = pcm.new_zeros((B, 1))
+        n = pcm.shape[1]
     S = _segments(B, T, segments)
     limits = clip_limits(limits)
     hdr = torch.empty((B, T), dtype=torch.int32, device=dev)
@@ -445,12 +505,14 @@ def encode_pcm_units(pcm, offsets, limits, prev1, prev2, *, filter_count,
         if S > 1:
             starts = torch.empty((B * S, 2), dtype=torch.int32, device=dev)
             ends = torch.empty((2, B * S, 2), dtype=torch.int32, device=dev)
-        INPUTS["dense" if offsets is None else "offsets"] += 1
+        INPUTS["shared_row" if base is not None else
+               "dense" if offsets is None else "offsets"] += 1
         LAUNCHES["adpcm_encode_units"] += 1 if S == 1 else 2 + ROUNDS
         _build.launch("psx_adpcm_encode_pcm_units", pcm, _build.ptr(pcm),
-                      _opt_ptr(offsets), _build.ptr(limits),
-                      _build.ptr(prev1), _build.ptr(prev2), pcm.shape[1], B,
-                      T, filter_count, shift_range, S, WARMUP_UNITS, ROUNDS,
+                      _opt_ptr(offsets), _opt_ptr(base), _opt_ptr(lengths),
+                      _build.ptr(limits), _build.ptr(prev1),
+                      _build.ptr(prev2), n, B, T, filter_count, shift_range,
+                      S, WARMUP_UNITS, ROUNDS,
                       _build.ptr(hdr), _build.ptr(words), _build.ptr(s1),
                       _build.ptr(s2), _opt_ptr(starts), _opt_ptr(ends),
                       _opt_ptr(stats_out))

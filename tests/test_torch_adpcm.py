@@ -341,6 +341,46 @@ def test_dense_gather_is_the_offset_grid():
                                     filter_count=5, shift_range=12)
 
 
+@pytest.mark.parametrize("layout", ["grid", "offsets", "past_end"])
+def test_shared_row_gather_is_the_per_request_gather(layout):
+    """``gather_units_plain``'s shared-row form: stream b, the lengths[b]
+    samples from base[b] of one (N,) row, gathers as its own one-row
+    request does (a stream of none reads zeros, a unit past its end
+    repeats its last sample), at its offsets or at 28 t; a stream that
+    ends past the row raises (``shared_row``, ``encode_prepared_units``),
+    and a stream of none starts at 0, where K5 reads its masked sample."""
+    lens = [0, 1, 57, 140, 3]
+    row = torch.from_numpy(rand_pcm(sum(lens), seed=80))
+    base = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    T = 6
+    offs = torch.from_numpy(np.stack(
+        [np.pad(o, (0, T - len(o))) for o in
+         (tstreams.chunk_unit_layout(c)[0] for c in
+          ([], [1], [20, 37], [50, 3, 60], [3]))]).astype(np.int32))
+    grid = (28 * torch.arange(T)).expand(len(lens), T)
+    if layout == "past_end":
+        lim = torch.full((len(lens), T), 28, dtype=torch.int32)
+        lens[-1] += 1
+        with pytest.raises(ValueError, match="within its"):
+            adpcm_cuda.shared_row(base, lens, len(row))
+        with pytest.raises(ValueError, match="within its"):
+            tstreams.encode_prepared_units(row, lim, 5, 12, device="cpu",
+                                           base=base, lengths=lens)
+        start, _ = adpcm_cuda.shared_row([len(row), 2], [0, 3], len(row))
+        assert start.dtype == np.int64 and list(start) == [0, 2]
+        return
+    at = offs if layout == "offsets" else None
+    got = adpcm_cuda.gather_units_plain(row, at, T, base=base,
+                                        lengths=np.array(lens))
+    for b, (s, n) in enumerate(zip(base, lens)):
+        want = adpcm_cuda.gather_units_plain(
+            row[s:s + n][None], (offs if at is not None else grid)[b:b + 1],
+            T)
+        assert torch.equal(got[b:b + 1], want)
+    assert not got[0].any()
+    assert (got[1] == row[base[1]]).all()
+
+
 @pytest.mark.parametrize("sample,ok", [(-32768, True), (32767, True),
                                        (-32769, False), (32768, False)])
 def test_units_past_s16_raise(sample, ok):

@@ -112,8 +112,8 @@ def test_batch_groups_device_work(tmp_path, capsys):
 def test_batch_requests_hold_int16_samples(tmp_path, monkeypatch):
     """Every request the planning pass captures holds the container's
     samples as (B, N) int16, (B, T) int32 offsets and clipped int32
-    limits, and no (B, T, 28) tensor; the group's int16 rows gathered from
-    it are the int32 units K5 reads. A sample outside s16 raises."""
+    limits, and no (B, T, 28) tensor; its int16 samples gather to the
+    units of their int32 copy. A sample outside s16 raises."""
     from psxavenc_tpu_torch.ops import adpcm_cuda
 
     jobs = _jobs(tmp_path, _mixed_specs(tmp_path))
@@ -137,13 +137,9 @@ def test_batch_requests_hold_int16_samples(tmp_path, monkeypatch):
         assert int(r["lim"].min()) >= -(1 << 30) and int(r["lim"].max()) <= 28
         assert not [v for v in r.values()
                     if torch.is_tensor(v) and v.ndim == 3]
-        rows = torch.zeros((B + 1, T + 2, 28), dtype=torch.int16)
-        adpcm_cuda.gather_units_plain(r["pcm"], r["offsets"], T,
-                                      out=rows[1:, :T])
-        assert torch.equal(rows[1:, :T].to(torch.int32),
-                           adpcm_cuda.gather_units_plain(
-                               r["pcm"].to(torch.int32), r["offsets"], T))
-        assert not rows[0].any() and not rows[:, T:].any()
+        assert torch.equal(adpcm_cuda.gather_units_plain(
+            r["pcm"], r["offsets"], T), adpcm_cuda.gather_units_plain(
+                r["pcm"].to(torch.int32), r["offsets"], T))
     with pytest.raises(ValueError, match="s16"):
         real(np.array([[0, 40000]], np.int32), np.array([[0]]),
              np.array([[2]]), 5, 12, None, None)
@@ -299,3 +295,112 @@ def test_main_needs_a_card_unless_cpu(tmp_path, monkeypatch, capsys):
     assert jbatch.run_jobs([["-q", "-t", "vag", "-f", "44100", str(wav),
                              str(want)]], quiet=True) == [0]
     assert out.read_bytes() == want.read_bytes()
+
+
+def _spu_requests():
+    """Ragged SPU requests as the containers hand them over: a stream of
+    no samples (masked units), one of one sample, one with a partial last
+    unit, one with carried-in states, and a stereo (spui) one; every unit
+    at 28 t of its stream."""
+    from psxavenc_tpu_torch.models import adpcm_stream as tstreams
+
+    def req(pcm, lens, prev=(None, None)):
+        offs, lims = tstreams.chunk_unit_layout(lens)
+        ch = pcm.shape[0]
+        return tbatch._request(pcm, np.broadcast_to(offs, (ch, len(offs))),
+                               np.broadcast_to(lims, (ch, len(lims))), 5, 12,
+                               *prev)
+
+    empty = tbatch._request(np.zeros((1, 0), np.int32), np.array([[0, 28]]),
+                            np.array([[0, -3]]), 5, 12, None, None)
+    return [empty,
+            req(rand_pcm(1, seed=71)[None], [1]),
+            req(rand_pcm(125, seed=72)[None], [28] * 4 + [13]),
+            req(rand_pcm(252, seed=73)[None], [28] * 9,
+                ([1234], [-567])),
+            req(rand_pcm(89, channels=2, seed=74).T.copy(), [28] * 3 + [5])]
+
+
+def _xa_requests():
+    """Stereo XA requests laid out as ``XaAudioSectors`` lays out sectors
+    (here 4 units a sector): the second sector's units start off the 28 t
+    grid and the last sectors' trailing units have non-positive limits."""
+    out = []
+    for seed, lengths, prev in ((75, [112, 60, 30], (None, None)),
+                                (76, [112, 112, 7], ([300, -9], [12, 40]))):
+        prefix = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        k = 28 * np.arange(4)
+        offs = (prefix[:, None] + k).reshape(-1)
+        lims = (np.asarray(lengths)[:, None] - k).reshape(-1)
+        pcm = rand_pcm(sum(lengths), channels=2, seed=seed).T.copy()
+        out.append(tbatch._request(pcm, np.broadcast_to(offs, (2, 12)),
+                                   np.broadcast_to(lims, (2, 12)), 4, 12,
+                                   *prev))
+    return out
+
+
+def _mixed_requests():
+    """Both classes in one call; the SPU class also holds a request whose
+    chunks put its units off the 28 t grid."""
+    from psxavenc_tpu_torch.models import adpcm_stream as tstreams
+
+    offs, lims = tstreams.chunk_unit_layout([50, 3, 90])
+    off_grid = tbatch._request(rand_pcm(143, seed=77)[None], offs[None],
+                               lims[None], 5, 12, None, None)
+    spu = _spu_requests()
+    return [spu[1], _xa_requests()[0], off_grid, spu[2], spu[4],
+            _xa_requests()[1], spu[0]]
+
+
+@pytest.mark.parametrize("tier", ["native", "plain"])
+@pytest.mark.parametrize("case", ["spu_ragged", "xa_stereo", "mixed",
+                                  "shards"])
+def test_grouped_shared_row_matches_per_request(monkeypatch, case, tier):
+    """The grouped call reads every request's samples from one unpadded
+    shared row: the same headers, values and final states as one
+    ``encode_unit_streams`` call a request, offsets sent only for a class
+    with a unit off the 28 t grid, and (the plain tier) one shared-row
+    ``encode_pcm_units`` call a class and shard."""
+    from psxavenc_tpu_torch.models import adpcm_stream as tstreams
+    from psxavenc_tpu_torch.ops import adpcm_cuda
+
+    reqs = {"spu_ragged": _spu_requests, "xa_stereo": _xa_requests,
+            "mixed": _mixed_requests,
+            "shards": _mixed_requests}[case]()
+    device = [torch.device("cpu")] * 4 if case == "shards" else "cpu"
+    if tier == "plain":
+        monkeypatch.setenv("PSXAVENC_NO_NATIVE_ADPCM", "1")
+    else:
+        monkeypatch.delenv("PSXAVENC_NO_NATIVE_ADPCM", raising=False)
+    sent = {}
+    real = tstreams.encode_prepared_units
+
+    def spy(row, lim, fc, sr, **kw):
+        sent[fc, sr] = kw["offsets"] is not None
+        assert row.ndim == 1 and row.dtype == torch.int16
+        assert len(row) == sum(r["pcm"].numel() for r in reqs
+                               if (r["fc"], r["sr"]) == (fc, sr))
+        return real(row, lim, fc, sr, **kw)
+
+    calls = []
+    k5 = adpcm_cuda.encode_pcm_units
+
+    def k5_spy(pcm, *a, base=None, **kw):
+        calls.append(base is not None and pcm.ndim == 1)
+        return k5(pcm, *a, base=base, **kw)
+
+    monkeypatch.setattr(tstreams, "encode_prepared_units", spy)
+    monkeypatch.setattr(adpcm_cuda, "encode_pcm_units", k5_spy)
+    got = tbatch._encode_audio_groups(reqs, device, quiet=True)
+    assert all(calls)
+    assert sent == {"spu_ragged": {(5, 12): False},
+                    "xa_stereo": {(4, 12): True}}.get(
+        case, {(5, 12): True, (4, 12): True})
+    assert len(calls) == (0 if tier == "native" else
+                          len(sent) * (4 if case == "shards" else 1))
+    for r, g in zip(reqs, got, strict=True):
+        want = tstreams.encode_unit_streams(
+            r["pcm"], r["offsets"].numpy(), r["lim"], r["fc"], r["sr"],
+            prev1=r["prev1"], prev2=r["prev2"], device="cpu")
+        for w, x in zip(want, g, strict=True):
+            assert x.dtype == w.dtype and np.array_equal(x, w)

@@ -1610,7 +1610,8 @@ def test_adpcm_pcm_units_match_model(dev, filter_count, shift_range,
         filter_count=filter_count, shift_range=shift_range,
         segments=segments, stats_out=stats)
     assert adpcm_cuda.INPUTS == {"offsets": inputs["offsets"] + 1,
-                                 "dense": inputs["dense"]}
+                                 "dense": inputs["dense"],
+                                 "shared_row": inputs["shared_row"]}
     got = (got[0], adpcm_cuda.unpack_words(got[1], shift_range), *got[2:])
     for g, m, w in zip(got, (model[0], adpcm_cuda.unpack_words(
             model[1], shift_range), *model[2:]), want):
@@ -1695,12 +1696,25 @@ def _grouped_peak(dev, device, units, lim, state_t, p1, p2):
     return got, torch.cuda.max_memory_allocated(dev) - base
 
 
+def _dense_want(dev, units, lim, state_t, p1, p2):
+    """K5's dense layout (``adpcm_cuda.encode_units``) on the bank's units
+    -> the grouped call's (headers, values, prev1, prev2), host numpy."""
+    h, w, s1, s2 = adpcm_cuda.encode_units(
+        *(torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)),
+        filter_count=5, shift_range=12)
+    rows = torch.arange(len(lim), device=dev)
+    t_idx = torch.from_numpy(state_t).to(dev)
+    return tuple(t.cpu().numpy() for t in (
+        h.to(torch.uint8), adpcm_cuda.unpack_words(w, 12).to(torch.uint8),
+        s1[rows, t_idx], s2[rows, t_idx]))
+
+
 def test_grouped_unit_call_peak_is_k5_working_set(dev):
     """One ``encode_prepared_units`` call on a bank's zero-padded (256,
     7,816) SPU units holds at most 94 bytes a unit on the card (the units
     as int16 samples 56, two clipped limits 8, K5's outputs 28: the unpack
-    runs after the samples are freed), takes K5's dense layout and gives
-    K5's headers, values and states."""
+    runs after the samples are freed), reads them as one shared row and
+    gives the headers, values and states of K5's dense layout."""
     units, lim, state_t, p1, p2 = _bank_units()
     B, T = lim.shape
     inputs = dict(adpcm_cuda.INPUTS)
@@ -1708,17 +1722,11 @@ def test_grouped_unit_call_peak_is_k5_working_set(dev):
     print(f"peak {peak} B, {peak / (B * T):.2f} B a unit")
     assert peak <= 94 * B * T + (1 << 20)
     assert adpcm_cuda.INPUTS == {"offsets": inputs["offsets"],
-                                 "dense": inputs["dense"] + 1}
-    h, w, s1, s2 = adpcm_cuda.encode_units(
-        *(torch.from_numpy(a).to(dev) for a in (units, lim, p1, p2)),
-        filter_count=5, shift_range=12)
-    rows = torch.arange(B, device=dev)
-    t_idx = torch.from_numpy(state_t).to(dev)
-    want = (h.to(torch.uint8), adpcm_cuda.unpack_words(w, 12).to(torch.uint8),
-            s1[rows, t_idx], s2[rows, t_idx])
+                                 "dense": inputs["dense"],
+                                 "shared_row": inputs["shared_row"] + 1}
+    want = _dense_want(dev, units, lim, state_t, p1, p2)
     for name, g, wnt in zip(("headers", "values", "prev1", "prev2"), got,
-                            want):
-        wnt = wnt.cpu().numpy()
+                            want, strict=True):
         assert g.dtype == wnt.dtype and np.array_equal(g, wnt), name
 
 
@@ -1731,11 +1739,89 @@ def test_grouped_unit_call_split_on_one_card(dev):
     inputs = dict(adpcm_cuda.INPUTS)
     two, two_peak = _grouped_peak(dev, [dev, dev], *args)
     print(f"peak one device {one_peak} B, two shards {two_peak} B")
-    assert adpcm_cuda.INPUTS["dense"] == inputs["dense"] + 2
+    assert adpcm_cuda.INPUTS["shared_row"] == inputs["shared_row"] + 2
     for name, g, w in zip(("headers", "values", "prev1", "prev2"), two, one,
                           strict=True):
         assert g.dtype == w.dtype and np.array_equal(g, w), name
     assert two_peak <= one_peak
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_grouped_shared_row_peak_is_k5_working_set(dev, shards):
+    """The batch runner's grouped call on a bank's ragged clips, their
+    samples unpadded and back to back in one shared row (over ``[cuda:0]
+    * shards``), holds at most 36 bytes a padded unit (two clipped limits
+    8, K5's outputs 28) and 2 a sample, plus 1 MiB, on the card, counts
+    a ``"shared_row"`` input a shard and gives K5's dense-layout headers,
+    values and states on the same clips zero-padded
+    (``adpcm_cuda.encode_units``)."""
+    from psxavenc_tpu_torch.models import adpcm_stream as streams
+
+    units, lim, state_t, p1, p2 = _bank_units()
+    B, T = lim.shape
+    lens = 28 * state_t + lim[np.arange(B), state_t]
+    row = torch.from_numpy(np.concatenate(
+        [units[b].reshape(-1)[:lens[b]] for b in range(B)]).astype(np.int16))
+    base = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    inputs = dict(adpcm_cuda.INPUTS)
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = streams.encode_prepared_units(
+        row, torch.from_numpy(lim), 5, 12, prev1=p1, prev2=p2,
+        state_t=state_t, device=[dev] * shards, base=base, lengths=lens)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    print(f"peak {peak} B: {B * T} padded units, {len(row)} samples")
+    assert peak <= 36 * B * T + 2 * len(row) + (1 << 20)
+    assert adpcm_cuda.INPUTS == {"offsets": inputs["offsets"],
+                                 "dense": inputs["dense"],
+                                 "shared_row": inputs["shared_row"] + shards}
+    want = _dense_want(dev, units, lim, state_t, p1, p2)
+    for name, g, w in zip(("headers", "values", "prev1", "prev2"), got,
+                          want, strict=True):
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+
+def test_shared_row_ragged_streams_match_the_host(dev):
+    """The batch runner's grouped call on the card, in the shared row, on
+    ragged requests: a stream of no samples whose units have positive
+    limits (it reads zeros), one of one sample, a partial last unit with
+    carried-in states, a stream long enough for the plan's segments, and
+    stereo XA sectors off the 28 t grid (offsets sent): each request's
+    headers, values and final states equal the native tier's on its own
+    samples, a ``"shared_row"`` input a class."""
+    from psxavenc_tpu_torch import batch
+    from psxavenc_tpu_torch.models import adpcm_stream as streams
+    from psxavenc_tpu_torch.utils.synth import rand_pcm
+
+    def req(pcm, offs, lims, fc=5, prev=(None, None)):
+        ch = pcm.shape[0]
+        return batch._request(pcm, np.broadcast_to(offs, (ch, len(offs))),
+                              np.broadcast_to(lims, (ch, len(lims))), fc,
+                              12, *prev)
+
+    def spu(n, seed, prev=(None, None)):
+        blocks = [28] * (n // 28) + ([n % 28] if n % 28 else [])
+        return req(rand_pcm(n, seed=seed)[None],
+                   *streams.chunk_unit_layout(blocks), prev=prev)
+
+    prefix = np.array([0, 112, 172])
+    k = 28 * np.arange(4)
+    reqs = [req(np.zeros((1, 0), np.int32), 28 * np.arange(3),
+                np.array([28, 28, 5])),
+            spu(1, 91), spu(125, 92, ([99], [-7])), spu(28 * 600 - 3, 93),
+            req(rand_pcm(202, channels=2, seed=94).T.copy(),
+                (prefix[:, None] + k).reshape(-1),
+                (np.array([112, 60, 30])[:, None] - k).reshape(-1), fc=4)]
+    inputs = dict(adpcm_cuda.INPUTS)
+    got = batch._encode_audio_groups(reqs, dev, quiet=True)
+    assert adpcm_cuda.INPUTS["shared_row"] == inputs["shared_row"] + 2
+    for r, g in zip(reqs, got, strict=True):
+        want = streams.encode_unit_streams(
+            r["pcm"], r["offsets"].numpy(), r["lim"], r["fc"], r["sr"],
+            prev1=r["prev1"], prev2=r["prev2"], device="cpu")
+        for w, x in zip(want, g, strict=True):
+            assert x.dtype == w.dtype and np.array_equal(x, w)
 
 
 def test_cuda_encoder_under_auto_makes_no_native_call(dev, monkeypatch):
