@@ -36,7 +36,6 @@ from .ops import bitpack_cuda
 from .ops import bs as bs_ops
 from .ops import bs_cuda
 from .ops import fdct as fdct_ops
-from .utils import spans
 
 
 class _Counters:
@@ -394,10 +393,8 @@ def bs_encode_frames_owned(batch, *, codec, width, height, capacity_words,
     ``batch`` as its state, so the frames are freed right after the NV21
     kernel, their last reader, and the pixel rows after K1, on the current
     stream, before K1's coefficients are made; ``batch`` is empty on
-    return. Returns the dict of :func:`bs_encode_frames_packed`. Counted,
-    while a profile runs, as ``bs_steps_frames_dropped``."""
+    return. Returns the dict of :func:`bs_encode_frames_packed`."""
     sel = _select_batch(batch, codec, width, height, _KERNELS, k1_stats)
-    spans.count("bs_steps_frames_dropped", 1)
     out = _fused_out(sel, "fused_mxu", True, _eof(codec), capacity_words,
                      _KERNELS)
     batch.clear()

@@ -17,9 +17,11 @@ CLI then prints "Profile written to DIR" on stderr unless ``-q``. The
 trace carries the port's spans (``utils/spans.py``, on only while a
 profiler runs) as ``user_annotation`` events on the clock of the kernels
 and copies, one a batch, chunk or file: ``bs.open``, ``bs.stack``,
-``bs.stage``, ``bs.launch``, ``bs.wait``, ``bs.collect`` (the video
-encoder), ``ingest.open``, ``ingest.demux``, ``ingest.resample``,
-``ingest.nv21``, ``ingest.stack``, ``str.schedule``, ``str.sectors``,
+``bs.stage``, ``bs.launch`` (``bs.upload``, ``bs.step`` and
+``bs.read_back`` inside it), ``bs.wait``, ``bs.collect`` (the video
+encoder), ``ingest.open`` (``ingest.native``, ``ingest.probe``,
+``ingest.demux``, ``ingest.resample``, ``ingest.nv21``, ``ingest.stack``
+and ``ingest.finish`` inside it), ``str.schedule``, ``str.sectors``,
 ``xa.sectors``, ``xa.encode``, ``xa.assemble``, ``batch.parse``,
 ``batch.plan``, ``batch.encode``, ``batch.replay``, ``adpcm.upload``,
 ``adpcm.kernel`` and ``adpcm.read_back``. The profiler's per-kernel device

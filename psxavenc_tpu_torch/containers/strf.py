@@ -15,6 +15,7 @@ so bytes a sector does not write keep the previous sector's values.
 
 import math
 import sys
+import time
 
 import numpy as np
 
@@ -188,9 +189,14 @@ class _FrameFeed:
         return self.scale_prefix[frames_started]
 
 
-def _write_video_sector(args, buffer, desc, fb, info, enc):
+def _write_video_sector(args, buffer, desc, fb, info, enc, ns=None):
     """init_sector_buffer_video (filefmt.c:73-91) + encode_sector_str
-    header/payload placement (mdec.c:782-835)."""
+    header/payload placement (mdec.c:782-835). ``ns``: the sector loop's
+    ``xa.sector_sums()``; where it is not None the header and payload add
+    their host nanoseconds to its ``sector_video_ns``, the checksums to
+    its ``sector_checksum_ns``."""
+    if ns is not None:
+        t0 = time.perf_counter_ns()
     fmt = args.format
     if fmt == ca.FORMAT_STRCD:
         host.sector_init(buffer, desc["lba"], host.SECTOR_MODE2_FORM1)
@@ -232,12 +238,17 @@ def _write_video_sector(args, buffer, desc, fb, info, enc):
     buffer[payload:payload + 32] = header
     buffer[payload + 32:payload + 32 + 2016] = \
         fb[desc["offset"]:desc["offset"] + 2016]
+    if ns is not None:
+        t1 = time.perf_counter_ns()
+        ns["sector_video_ns"] += t1 - t0
 
     if fmt in (ca.FORMAT_STR, ca.FORMAT_STRCD):
         # The reference always computes Form1 checksums here, even for the
         # 2336-byte layout where the buffer is not framed as a full
         # sector (filefmt.c:474).
         host.calc_checksums(buffer[:2352], host.SECTOR_MODE2_FORM1)
+        if ns is not None:
+            ns["sector_checksum_ns"] += time.perf_counter_ns() - t1
 
 
 def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
@@ -258,26 +269,37 @@ def _mux(args, dec, output, sectors, audio_lengths, frame_budgets,
     buffer = np.zeros(buffer_size, dtype=np.uint8)
     progress = Progress(args)
     frame_count = 0
-    # One span over the loop: its self time is the per-sector host work;
-    # the frame batches and audio chunks it pulls open their own.
+    # One span over the loop: its self time is the per-sector host work,
+    # whose steps ``xamod.sector_sums`` times while a profile runs; the
+    # frame batches and audio chunks it pulls open their own spans.
+    ns = xamod.sector_sums()
+    clock = time.perf_counter_ns
     with spans.span("str.sectors"):
         for desc in sectors:
             if desc["video"]:
                 frame_count = desc["frame"]
                 fb, info = frames.frame(frame_count)
-                _write_video_sector(args, buffer, desc, fb, info, enc)
+                _write_video_sector(args, buffer, desc, fb, info, enc, ns)
                 if desc["chunk_index"] == desc["chunk_count"] - 1:
                     frames.evict_below(frame_count + 1)
             elif desc["length"] > 0:
                 xs, i = audio.sector(desc["audio_index"])
-                xs.write_sector(buffer, i, desc["lba"], desc["eoi"])
+                xs.write_sector(buffer, i, desc["lba"], desc["eoi"], ns)
                 audio.evict(desc["audio_index"])
             # length == 0: the reference writes the untouched buffer
             # (filefmt.c:482-494 with an empty encode), i.e. previous bytes.
+            if ns is not None:
+                t0 = clock()
             output.write(buffer[:sector_size].tobytes())
+            if ns is not None:
+                t1 = clock()
+                ns["sector_write_ns"] += t1 - t0
             progress.print_str(frame_count, desc["lba"],
                                frames.quant_scale_sum(frame_count),
                                args.str_fps_num, args.str_fps_den)
+            if ns is not None:
+                ns["sector_progress_ns"] += clock() - t1
+        xamod.count_sector_sums(ns, len(sectors))
     if hasattr(dec, "close"):
         dec.close()
 

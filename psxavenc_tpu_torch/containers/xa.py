@@ -17,6 +17,8 @@ sector byte assembly and EDC are host C++ (``native/host.py``). The batch
 runner injects its own ``unit_encoder`` (``batch.py``).
 """
 
+import time
+
 import numpy as np
 
 from .. import cli_args as ca
@@ -28,6 +30,31 @@ from ..utils.progress import Progress
 
 SUBMODE_AUDIO_RT_FORM2 = 0x64  # AUDIO | FORM2 | RT (adpcm.c:272-275)
 SUBMODE_EOF = 0x80
+
+
+# The sector loops' steps, timed while a profile runs: host nanoseconds
+# summed in a dict (``sector_sums``) and added to these counters once a
+# loop (``count_sector_sums``).
+SECTOR_NS = ("sector_video_ns", "sector_audio_ns", "sector_checksum_ns",
+             "sector_write_ns", "sector_progress_ns")
+
+
+def sector_sums():
+    """A sector loop's sums of its steps' host nanoseconds, a dict over
+    ``SECTOR_NS`` at 0, while a profile runs; else None, and the loop
+    reads no clock."""
+    return dict.fromkeys(SECTOR_NS, 0) if spans.enabled() else None
+
+
+def count_sector_sums(ns, sectors):
+    """Add a finished loop's sums (the steps it ran) and its ``sectors``
+    to the counters; nothing where ``ns`` is None."""
+    if ns is None:
+        return
+    for name, v in ns.items():
+        if v:
+            spans.count(name, v)
+    spans.count("sectors", sectors)
 
 
 def xa_sector_size(args):
@@ -125,12 +152,17 @@ class XaAudioSectors:
                 host.xa_assemble(h[s], n[s], self.upb_total, bits8)
                 for s in range(S)])
 
-    def write_sector(self, buffer, index, lba, eof):
+    def write_sector(self, buffer, index, lba, eof, ns=None):
         """Fill the persistent sector buffer with audio sector ``index``.
 
         Touches exactly the bytes psx_audio_xa_encode touches; computes the
-        EDC before applying the EOF flag (bug-compatible ordering).
+        EDC before applying the EOF flag (bug-compatible ordering). ``ns``:
+        the sector loop's :func:`sector_sums`; where it is not None the
+        header and payload add their host nanoseconds to its
+        ``sector_audio_ns``, the EDC to its ``sector_checksum_ns``.
         """
+        if ns is not None:
+            t0 = time.perf_counter_ns()
         args = self.args
         is_cd = xa_sector_size(args) == 2352
         if is_cd:
@@ -147,12 +179,17 @@ class XaAudioSectors:
         buffer[sub + 4:sub + 8] = buffer[sub:sub + 4]
         data_off = sub + 8
         buffer[data_off:data_off + 2304] = self.payloads[index]
+        if ns is not None:
+            t1 = time.perf_counter_ns()
+            ns["sector_audio_ns"] += t1 - t0
         if is_cd:
             host.calc_checksums(buffer[:2352], host.SECTOR_MODE2_FORM2)
         else:
             e = host.edc(buffer[0:0x91C].tobytes())
             buffer[0x91C:0x920] = np.frombuffer(
                 int(e).to_bytes(4, "little"), np.uint8)
+        if ns is not None:
+            ns["sector_checksum_ns"] += time.perf_counter_ns() - t1
         if eof:
             buffer[sub + 2] |= SUBMODE_EOF
             buffer[sub + 6] |= SUBMODE_EOF
@@ -213,8 +250,9 @@ def encode_file_xa(args, dec, output, device, unit_encoder=None):
     bounded feed, so concurrent jobs' chunks can share device calls.
 
     Span ``xa.sectors`` around the sector loop: its self time is the
-    per-sector host work (subheaders, EDC, writes), less the chunks it
-    pulls (their ``xa.encode`` and ``xa.assemble``)."""
+    per-sector host work (subheaders, EDC, writes; while a profile runs
+    :func:`sector_sums` times each step), less the chunks it pulls (their
+    ``xa.encode`` and ``xa.assemble``)."""
     from ..io import ingest
 
     ch = args.audio_channels
@@ -235,14 +273,24 @@ def encode_file_xa(args, dec, output, device, unit_encoder=None):
                            unit_encoder=unit_encoder)
     buffer = np.zeros(2352, dtype=np.uint8)
     progress = Progress(args)
+    ns = sector_sums()
+    clock = time.perf_counter_ns
     with spans.span("xa.sectors"):
         for s in range(len(lengths)):
             xs, i = feed.sector(s)
-            xs.write_sector(buffer, i, s, eois[s])
+            xs.write_sector(buffer, i, s, eois[s], ns)
             feed.evict(s)
+            if ns is not None:
+                t0 = clock()
             output.write(buffer[:sector_size].tobytes())
+            if ns is not None:
+                t1 = clock()
+                ns["sector_write_ns"] += t1 - t0
             # The reference prints the pre-increment loop counter
             # (filefmt.c:177,199-208).
             progress.print_xa(s, sps, args.audio_frequency)
+            if ns is not None:
+                ns["sector_progress_ns"] += clock() - t1
+        count_sector_sums(ns, len(lengths))
     if hasattr(dec, "close"):
         dec.close()

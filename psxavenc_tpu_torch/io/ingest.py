@@ -848,12 +848,16 @@ def open_av_data(args, flags):
     own L0 stack, bit-exact by construction. Fallbacks (no ffmpeg dev
     libraries): pure-Python WAV/AVI readers, then the ffmpeg CLI. Raw
     escape-hatch extensions (.pcm/.s16/.nv21/.yuv) always bypass
-    libavformat. Spans: ``ingest.open`` around it all; inside it, where
+    libavformat. Spans: ``ingest.open`` around it all; inside it
+    ``ingest.native`` (the choice of the streaming tier and the native
+    extension's ingest, both also where the extension cannot load),
+    ``ingest.probe`` (the ffprobe CLI where it is on the path, with its
+    validation and loop tags; one a call, also where it is not) and, where
     Python does the steps, ``ingest.demux`` (the AVI or WAV reader),
     ``ingest.resample`` (the sound's rematrix and rate conversion, one a
     file, also where neither changes it), ``ingest.nv21`` (I420 to NV21,
-    scaling and the frame-rate grid) and ``ingest.stack`` (the frames into
-    one array).
+    scaling and the frame-rate grid), ``ingest.stack`` (the frames into
+    one array) and ``ingest.finish`` (the sound into one contiguous row).
     """
     with spans.span("ingest.open"):
         return _open_av_data(args, flags)
@@ -871,9 +875,12 @@ def _open_av_data(args, flags):
     raw_hint = ext in (".pcm", ".s16", ".nv21", ".yuv")
 
     if not raw_hint:
-        if _streaming_wanted(args, flags, path):
+        with spans.span("ingest.native"):
+            stream = _streaming_wanted(args, flags, path)
+            native = None if stream else _open_native_ingest(args, flags,
+                                                             path)
+        if stream:
             return StreamingDecoder(args, flags, path)
-        native = _open_native_ingest(args, flags, path)
         if native is not None:
             return native
 
@@ -893,11 +900,12 @@ def _open_av_data(args, flags):
 
     def get_probe():
         nonlocal probe
-        if probe is None:
-            probe = _ffprobe(path)
-            if probe is not None:
-                _validate_probe_streams(probe, flags)
-                _probe_loop_tags(dec, probe)
+        with spans.span("ingest.probe"):
+            if probe is None:
+                probe = _ffprobe(path)
+                if probe is not None:
+                    _validate_probe_streams(probe, flags)
+                    _probe_loop_tags(dec, probe)
         return probe
 
     if flags & DECODER_USE_AUDIO:
@@ -957,7 +965,8 @@ def _open_av_data(args, flags):
             # has_audio keys off stream presence, like the reference
             # (decoding.c / main: audio_stream != NULL), even when zero
             # samples decode.
-            dec.audio = np.ascontiguousarray(audio).reshape(-1)
+            with spans.span("ingest.finish"):
+                dec.audio = np.ascontiguousarray(audio).reshape(-1)
             dec.has_audio = True
         elif flags & DECODER_AUDIO_REQUIRED:
             print("Input file has no audio data", file=sys.stderr)

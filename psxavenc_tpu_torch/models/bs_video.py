@@ -29,15 +29,24 @@ CPU a batch is encoded when it is enqueued.
 Spans (``utils/spans.py``, on only under a profiler): ``bs.open`` (the
 constructor) and, once a batch keyed by its sequence number, ``bs.stack``
 (the frames and budgets stacked), ``bs.stage`` (the pinned staging copy
-and its wait on the last upload), ``bs.launch`` (the uploads, the step's
-launches, the read-back copies and events), ``bs.wait`` (``fetch``'s wait
-on the event) and ``bs.collect`` (the headers and buffers). While a
-profile runs, the device tier's step also returns K1's statistics rows
-and each frame's DC bits, which come back with the batch's read-back and
-are added to the counters ``k1_frames``, ``k1_global_frames``,
-``k1_evaluations``, ``dc_bits`` and ``frame_bits`` at ``fetch`` (over
-several devices too); with no profile running the step makes no
-statistics tensor and reads back no DC bits.
+and its wait on the last upload), ``bs.launch`` (what follows, in three
+children: ``bs.upload``, the uploads and their event; ``bs.step``, the
+step's launches; ``bs.read_back``, the pinned buffers, the copies into
+them and the event after them; on the CPU and the native tier
+``bs.step`` alone), ``bs.wait`` (``fetch``'s wait on the event) and
+``bs.collect`` (the headers and buffers). While a profile runs on a card,
+four timing events on the encoder's stream (before the upload; after it,
+the staging buffer's ``uploaded`` event; after the step's last launch;
+after the read-back, the batch's ``done`` event) give the batch's device
+time of each stage, read at ``fetch`` once the batch is done and added to
+the counters ``bs_upload_device_ns``, ``bs_step_device_ns`` and
+``bs_read_back_device_ns``. While a profile runs, the device tier's step
+also returns K1's statistics rows and each frame's DC bits, which come
+back with the batch's read-back and are added to the counters
+``k1_frames``, ``k1_global_frames``, ``k1_evaluations``, ``dc_bits`` and
+``frame_bits`` at ``fetch`` (over several devices too); with no profile
+running the step makes no statistics tensor, reads back no DC bits and
+records no timing event.
 
 The compute tier is read from PSXAVENC_VIDEO_TIER at construction
 (``video_tier``): ``device`` runs that step on the encoder's devices
@@ -130,6 +139,21 @@ def _count_stats(out, n):
     spans.count("k1_evaluations", int(stats[:, _EVALS].sum()))
     spans.count("dc_bits", int(out.pop("dc_total")[:n].sum()))
     spans.count("frame_bits", int(out["total_bits"][:n].sum()))
+
+
+def _recorded(stream, timing):
+    """An event recorded on ``stream`` now; a timing event if ``timing``."""
+    event = torch.cuda.Event(enable_timing=timing)
+    event.record(stream)
+    return event
+
+
+def _count_clocks(clocks):
+    """A done batch's four timing events into the device-time counters."""
+    up, step, back = (a.elapsed_time(b) for a, b in zip(clocks, clocks[1:]))
+    spans.count("bs_upload_device_ns", round(up * 1e6))
+    spans.count("bs_step_device_ns", round(step * 1e6))
+    spans.count("bs_read_back_device_ns", round(back * 1e6))
 
 
 def _bucket(n):
@@ -259,7 +283,8 @@ class BsFrameEncoder:
         """Enqueue one batch: its host prep, upload, step and read-back ->
         a handle for :meth:`fetch`: (budgets, dict of host arrays, the
         event after the read-back, or None on the CPU and the native
-        tier, the batch's sequence number)."""
+        tier, the batch's sequence number, its four timing events while a
+        profile runs on a card, else None)."""
         if self._closed:
             raise RuntimeError("BsFrameEncoder is closed")
         seq = self._seq
@@ -270,17 +295,20 @@ class BsFrameEncoder:
             budgets = np.array(sizes + [sizes[-1]] * (pad_to - len(sizes)),
                                np.int32)
         if self.tier == "native":
-            with spans.span("bs.launch", seq):
+            with spans.span("bs.launch", seq), spans.span("bs.step", seq):
                 out = self._native_encode(fr, budgets, cap_words)
-            return sizes, out, None, seq
-        step = self._step(cap_words, spans.enabled())
+            return sizes, out, None, seq, None
+        traced = spans.enabled()
+        step = self._step(cap_words, traced)
         if self.device.type != "cuda":
             with spans.span("bs.launch", seq):
-                out = step({"frames": torch.tensor(np.asarray(fr),
-                                                   device=self.device),
-                            "budgets": torch.from_numpy(budgets).to(
-                                self.device)})
-            return sizes, out, None, seq
+                batch = {"frames": torch.tensor(np.asarray(fr),
+                                                device=self.device),
+                         "budgets": torch.from_numpy(budgets).to(
+                             self.device)}
+                with spans.span("bs.step", seq):
+                    out = step(batch)
+            return sizes, out, None, seq, None
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=self.device)
         staging = self._staging[self._turn]
@@ -288,22 +316,30 @@ class BsFrameEncoder:
         with spans.span("bs.stage", seq):
             frames_h, budgets_h = staging.fill(fr, budgets)
         with spans.span("bs.launch", seq), torch.cuda.stream(self._stream):
-            # The step holds the only reference to the uploaded frames, so
-            # their block goes back to the allocator, on this stream, once
-            # the NV21 kernel is enqueued.
-            batch = {"frames": frames_h.to(self.device, non_blocking=True),
-                     "budgets": budgets_h.to(self.device, non_blocking=True)}
-            staging.uploaded = torch.cuda.Event()
-            staging.uploaded.record(self._stream)
-            out = step(batch)
-            host = {}
-            for k, v in out.items():
-                host[k] = torch.empty(v.shape, dtype=v.dtype,
-                                      pin_memory=True)
-                host[k].copy_(v, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-        return sizes, host, done, seq
+            with spans.span("bs.upload", seq):
+                if traced:
+                    start = _recorded(self._stream, True)
+                # The step holds the only reference to the uploaded
+                # frames, so their block goes back to the allocator, on
+                # this stream, once the NV21 kernel is enqueued.
+                batch = {"frames": frames_h.to(self.device,
+                                               non_blocking=True),
+                         "budgets": budgets_h.to(self.device,
+                                                 non_blocking=True)}
+                staging.uploaded = _recorded(self._stream, traced)
+            with spans.span("bs.step", seq):
+                out = step(batch)
+                if traced:
+                    stepped = _recorded(self._stream, True)
+            with spans.span("bs.read_back", seq):
+                host = {}
+                for k, v in out.items():
+                    host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                          pin_memory=True)
+                    host[k].copy_(v, non_blocking=True)
+                done = _recorded(self._stream, traced)
+        clocks = (start, staging.uploaded, stepped, done) if traced else None
+        return sizes, host, done, seq, clocks
 
     def encode_frames(self, frames_nv21, frame_max_sizes):
         """Encode N frames with per-frame budgets -> list of (buffer, info),
@@ -344,11 +380,13 @@ class BsFrameEncoder:
 
     def fetch(self, handle):
         """Wait for an enqueued batch -> list of (buffer, info)."""
-        sizes, out, done, seq = handle
+        sizes, out, done, seq, clocks = handle
         if done is not None:
             with spans.span("bs.wait", seq):
                 done.synchronize()
         with spans.span("bs.collect", seq):
+            if clocks is not None:
+                _count_clocks(clocks)
             out = {k: np.asarray(v) for k, v in out.items()}
             if "k1_stats" in out:
                 _count_stats(out, len(sizes))

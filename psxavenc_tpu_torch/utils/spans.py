@@ -10,10 +10,14 @@ the profiler's Chrome trace as a ``user_annotation`` on the clock of the
 card's kernels and copies, and it adds to in-memory aggregates per name:
 the count, the total nanoseconds and the self nanoseconds (the total less
 what its child spans on the same thread cover; each thread keeps its own
-stack). ``key`` names the request, a batch's sequence number or a job's
-index; it goes to the record function's argument string, which torch's
-Chrome export leaves out (torch 2.13), so in the trace a stage's spans
-pair up by their order on their thread.
+stack). A span reads its clock before it makes its record function and
+after it leaves it, so the record function counts in the span's own total
+and not in the self time of the span around it; the update of the
+aggregates, under a lock, lies outside both. ``key`` names the request, a
+batch's sequence number or a job's index; it goes to the record
+function's argument string, which torch's Chrome export leaves out (torch
+2.13), so in the trace a stage's spans pair up by their order on their
+thread.
 
 ``count(name, n)`` adds ``n`` to a counter, also only while a profile
 runs; ``count_h2d`` and ``count_d2h`` add a tensor's bytes to the
@@ -27,9 +31,11 @@ clears them. ``NAMES`` lists every span the port opens, ``COUNTERS`` every
 counter.
 
 Spans open at batch, chunk and file granularity, never per sector, frame
-or sample. A thread that starts after the profile does is not traced by
-torch's profiler unless it profiles all threads; its spans still reach the
-aggregates.
+or sample (about 17 us each while on); the muxers' sector loops sum
+their steps' ``time.perf_counter_ns`` differences in locals and add them
+to counters once a loop (``containers/xa.py::sector_sums``). A thread
+that starts after the profile does is not traced by torch's profiler
+unless it profiles all threads; its spans still reach the aggregates.
 """
 
 import threading
@@ -40,10 +46,11 @@ import torch.autograd.profiler as _autograd_profiler
 
 NAMES = frozenset({
     # models/bs_video.py
-    "bs.open", "bs.stack", "bs.stage", "bs.launch", "bs.wait", "bs.collect",
+    "bs.open", "bs.stack", "bs.stage", "bs.launch", "bs.upload", "bs.step",
+    "bs.read_back", "bs.wait", "bs.collect",
     # io/ingest.py
-    "ingest.open", "ingest.demux", "ingest.resample", "ingest.nv21",
-    "ingest.stack",
+    "ingest.open", "ingest.native", "ingest.probe", "ingest.demux",
+    "ingest.resample", "ingest.nv21", "ingest.stack", "ingest.finish",
     # containers/strf.py, containers/xa.py
     "str.schedule", "str.sectors", "xa.sectors", "xa.encode", "xa.assemble",
     # batch.py
@@ -63,14 +70,22 @@ COUNTERS = frozenset({
     # and of them those its serial walk encoded (0 where its plain version
     # ran).
     "k5_units", "k5_walked_units",
-    # api.bs_encode_frames_owned: the video steps that freed their frames
-    # after the NV21 kernel (one a BsFrameEncoder batch on one device).
-    "bs_steps_frames_dropped",
+    # models/bs_video.py at fetch, on a card: each batch's device
+    # nanoseconds between CUDA events on the encoder's stream, from before
+    # its upload to after it, to after the step's last launch, to after
+    # the read-back.
+    "bs_upload_device_ns", "bs_step_device_ns", "bs_read_back_device_ns",
     # ops.bs_cuda.dc_stage: the frames of each K2 launch (v3/v3dc), padded
     # batches included. models/bs_video.py at fetch, from the device
     # tier's step: the DC bits and the whole bitstream's bits (the end of
     # frame included, the header not) of the frames handed back.
     "k2_frames", "dc_bits", "frame_bits",
+    # containers/strf.py, containers/xa.py: host nanoseconds of the
+    # sector loops' steps, a video sector's and an audio sector's header
+    # and payload (checksums apart), the checksums and EDC, the writes,
+    # the progress line; and the sectors written.
+    "sector_video_ns", "sector_audio_ns", "sector_checksum_ns",
+    "sector_write_ns", "sector_progress_ns", "sectors",
 })
 
 if hasattr(_autograd_profiler, "_is_profiler_enabled"):
@@ -104,6 +119,7 @@ class _Span:
     __slots__ = ("name", "record", "t0", "child_ns")
 
     def __init__(self, name, key):
+        self.t0 = time.perf_counter_ns()
         self.name = name
         self.record = torch.profiler.record_function(
             name, None if key is None else str(key))
@@ -115,13 +131,12 @@ class _Span:
         if stack is None:
             stack = _local.stack = []
         stack.append(self)
-        self.t0 = time.perf_counter_ns()
 
     def __exit__(self, *exc):
-        dur = time.perf_counter_ns() - self.t0
         self.record.__exit__(*exc)
         stack = _local.stack
         stack.pop()
+        dur = time.perf_counter_ns() - self.t0
         if stack:
             stack[-1].child_ns += dur
         with _lock:

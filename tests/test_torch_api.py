@@ -171,11 +171,19 @@ def test_packed_keeps_the_callers_frames_and_frees_its_rows(
 
 def test_the_encoder_counts_one_dropped_frames_step_a_batch(monkeypatch):
     """On one device (the CPU, the device tier) every BsFrameEncoder batch
-    runs the owned step: under a profile ``bs_steps_frames_dropped``
-    counts one a batch, enqueued alone or by ``encode_frames``; the bytes
-    equal the public API's."""
+    runs the owned step, ``api.bs_encode_frames_owned``, once, and under a
+    profile the span ``bs.step`` counts one a batch, enqueued alone or by
+    ``encode_frames``; the bytes equal the public API's."""
     from torch.profiler import ProfilerActivity, profile
 
+    owned = []
+    real_owned = tapi.bs_encode_frames_owned
+
+    def spy(batch, **kw):
+        owned.append(batch["frames"].shape[0])
+        return real_owned(batch, **kw)
+
+    monkeypatch.setattr(tapi, "bs_encode_frames_owned", spy)
     monkeypatch.setenv("PSXAVENC_VIDEO_TIER", "device")
     frames = video_frames(W, H, 10, seed=31, noise=0)
     sizes = [2000] * 10
@@ -186,11 +194,11 @@ def test_the_encoder_counts_one_dropped_frames_step_a_batch(monkeypatch):
             one = enc.fetch(enc.encode_frames_async(list(frames[:3]),
                                                     sizes[:3]))
             two = enc.encode_frames(list(frames), sizes)   # 8 + 2 frames
-        counted = spans.snapshot()["counters"]
+        counted = spans.snapshot()["spans"]
     finally:
         enc.close()
         spans.reset()
-    assert counted["bs_steps_frames_dropped"] == 3
+    assert counted["bs.step"]["count"] == len(owned) == 3
     want = tapi.bs_encode_frames_packed(
         torch.from_numpy(frames), torch.tensor(sizes, dtype=torch.int32),
         codec=jbs.BS_V2, width=W, height=H, capacity_words=996)

@@ -263,6 +263,7 @@ def _encoder_batch_peak(enc, frames, sizes, dev):
     out = enc.fetch(handle)
     torch.cuda.synchronize(dev)
     assert "k1_stats" not in handle[1]
+    assert handle[4] is None                    # no timing event untraced
     return torch.cuda.max_memory_allocated(dev) - base, out
 
 
@@ -314,9 +315,9 @@ def test_640x480_batch_on_the_global_reader(dev):
     memory (its statistics' ``global_reader`` column 1, counted under a
     profile as ``k1_global_frames``); the encoder's device peak is at most
     STEP640_PEAK_BYTES (192,187,904) plus 1 MiB, its frames freed after
-    the NV21 kernel (counted under a profile as
-    ``bs_steps_frames_dropped``) and its rows after K1; with no profile
-    running the batch makes no statistics tensor."""
+    the NV21 kernel and its rows after K1 (its step counted under a
+    profile as the span ``bs.step``); with no profile running the batch
+    makes no statistics tensor."""
     from torch.profiler import ProfilerActivity, profile
 
     from psxavenc_tpu_torch import api
@@ -356,14 +357,68 @@ def test_640x480_batch_on_the_global_reader(dev):
     with profile(activities=[ProfilerActivity.CPU]):
         handle = enc.encode_frames_async(list(frames), sizes)
         again = enc.fetch(handle)
-    counters = spans.snapshot()["counters"]
+    snap = spans.snapshot()
+    counters = snap["counters"]
     spans.reset()
     enc.close()
     assert handle[1]["k1_stats"].shape == (B, len(bs_cuda.STAT_NAMES))
     assert [b.tobytes() for b, _ in again] == [b.tobytes() for b, _ in want]
     assert counters["k1_frames"] == counters["k1_global_frames"] == B
     assert counters["k1_evaluations"] >= B
-    assert counters["bs_steps_frames_dropped"] == 1
+    assert snap["spans"]["bs.step"]["count"] == 1
+
+
+def test_encoder_launch_split_and_device_clocks(dev, tmp_path):
+    """Two 128-frame 320x240 BsFrameEncoder batches under a profile: each
+    opens ``bs.upload``, ``bs.step`` and ``bs.read_back`` once inside
+    ``bs.launch``, whose self time is its total less theirs; the timing
+    events on the encoder's stream give ``bs_step_device_ns`` above 0 and
+    at least the device time of the kernels in the profile's trace (the
+    step's alone), and an upload and a read-back time above 0. Untraced,
+    a handle holds no timing event. The bytes equal the untraced ones."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from psxavenc_tpu_torch.models.bs_video import BsFrameEncoder
+    from psxavenc_tpu_torch.utils import spans
+
+    B = 128
+    frames = _bench_movie(2 * B, W, H, dev, seed=2026)
+    sizes = [16128 if k % 4 == 0 else 18144 for k in range(2 * B)]
+    enc = BsFrameEncoder(tbs.BS_V2, W, H, dev)
+    plain = [enc.encode_frames_async(list(frames[lo:lo + B]),
+                                     sizes[lo:lo + B]) for lo in (0, B)]
+    assert [h[4] for h in plain] == [None, None]
+    want = enc.fetch(plain[0]) + enc.fetch(plain[1])
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = [enc.encode_frames_async(list(frames[lo:lo + B]),
+                                          sizes[lo:lo + B])
+                  for lo in (0, B)]
+        got = enc.fetch(traced[0]) + enc.fetch(traced[1])
+    snap = spans.snapshot()
+    spans.reset()
+    enc.close()
+    assert [b.tobytes() for b, _ in got] == [b.tobytes() for b, _ in want]
+    assert all(len(h[4]) == 4 for h in traced)
+    s = snap["spans"]
+    for k in ("launch", "upload", "step", "read_back"):
+        assert s[f"bs.{k}"]["count"] == 2, k
+    assert s["bs.launch"]["self_ns"] == s["bs.launch"]["total_ns"] - sum(
+        s[f"bs.{k}"]["total_ns"] for k in ("upload", "step", "read_back"))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernel_ns = 1e3 * sum(float(e.get("dur", 0)) for e in events
+                          if e.get("ph") == "X" and e.get("cat") == "kernel")
+    c = snap["counters"]
+    print(f"step {c['bs_step_device_ns']} ns, kernels {kernel_ns:.0f} ns, "
+          f"upload {c['bs_upload_device_ns']} ns, read-back "
+          f"{c['bs_read_back_device_ns']} ns")
+    assert c["bs_step_device_ns"] >= kernel_ns > 0
+    assert c["bs_upload_device_ns"] > 0 and c["bs_read_back_device_ns"] > 0
 
 
 def _bench_ref_v3():

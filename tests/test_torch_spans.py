@@ -6,11 +6,13 @@ does nothing, and a ``-t vag`` job list through ``batch.run_jobs``, a
 through ``cli.main`` leave ``snapshot()`` empty. On: the same jobs put
 every span they reach into the profiler's Chrome trace as a
 ``user_annotation`` inside its parent, the aggregates count one
-``bs.launch`` a batch, one ``batch.plan`` and ``batch.replay`` a file and
-one ``ingest.resample`` and ``xa.sectors`` a track, and the outputs are
-byte-equal to the untraced ones. Spans open at
-batch, chunk and file granularity only, and every literal passed to
-``span(`` in the package is in ``NAMES``."""
+``bs.launch`` and one ``bs.step`` inside it a batch, one ``batch.plan``
+and ``batch.replay`` a file, ``ingest.open``'s steps inside it, and one
+``ingest.resample`` and ``xa.sectors`` a track, the sector loops' timed
+steps add up inside their span's self time, and the outputs are byte-equal to
+the untraced ones. Spans open at batch, chunk and file granularity only,
+and every literal passed to ``span(`` in the package is in ``NAMES``, to
+``count(`` (or ``containers/xa.py``'s ``SECTOR_NS``) in ``COUNTERS``."""
 
 import ast
 import importlib.util
@@ -27,6 +29,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from psxavenc_tpu_torch import batch, cli
+from psxavenc_tpu_torch.containers import xa
 from psxavenc_tpu_torch.models import bs_video
 from psxavenc_tpu_torch.utils import spans, synth
 
@@ -34,27 +37,30 @@ PKG = pathlib.Path(spans.__file__).resolve().parent.parent
 EMPTY = {"spans": {}, "counters": {}}
 
 # The innermost program span around each span, in the two jobs.
+OPEN_STEPS = ("native", "probe", "demux", "resample", "nv21", "stack",
+              "finish")
 MOVIE_PARENTS = {
-    "ingest.open": None, "ingest.demux": "ingest.open",
-    "ingest.resample": "ingest.open", "ingest.nv21": "ingest.open",
-    "ingest.stack": "ingest.open",
+    "ingest.open": None,
+    **{f"ingest.{k}": "ingest.open" for k in OPEN_STEPS},
     "str.schedule": None, "bs.open": None, "str.sectors": None,
     **{f"bs.{k}": "str.sectors"
        for k in ("stack", "stage", "launch", "wait", "collect")},
+    **{f"bs.{k}": "bs.launch" for k in ("upload", "step", "read_back")},
     "xa.encode": "str.sectors", "xa.assemble": "str.sectors",
     **{f"adpcm.{k}": "xa.encode" for k in ("upload", "kernel", "read_back")},
 }
 LIST_PARENTS = {
     "batch.parse": None, "batch.plan": None, "ingest.open": "batch.plan",
-    "ingest.demux": "ingest.open", "ingest.resample": "ingest.open",
+    **{f"ingest.{k}": "ingest.open" for k in OPEN_STEPS},
     "batch.encode": None,
     "batch.replay": None,
     **{f"adpcm.{k}": "batch.encode"
        for k in ("upload", "kernel", "read_back")},
 }
 TRACK_PARENTS = {
-    "ingest.open": None, "ingest.demux": "ingest.open",
-    "ingest.resample": "ingest.open", "xa.sectors": None,
+    "ingest.open": None,
+    **{f"ingest.{k}": "ingest.open" for k in OPEN_STEPS},
+    "xa.sectors": None,
     "xa.encode": "xa.sectors", "xa.assemble": "xa.sectors",
     **{f"adpcm.{k}": "xa.encode" for k in ("upload", "kernel", "read_back")},
 }
@@ -139,6 +145,22 @@ def _check_times(snap):
         assert 0 <= s["self_ns"] <= s["total_ns"], name
 
 
+SECTOR_TIMERS = ("sector_video_ns", "sector_audio_ns", "sector_checksum_ns",
+                 "sector_write_ns", "sector_progress_ns")
+
+
+def _check_sector_timers(snap, loop, n_sectors, kinds):
+    """The sector loop's timed steps: each of ``kinds`` counted,
+    ``sectors`` the file's sectors, and all of them inside ``loop``'s self
+    time (the sums open no span, so they take nothing off it)."""
+    c = snap["counters"]
+    assert c["sectors"] == n_sectors
+    timed = [c[f"sector_{k}_ns"] for k in kinds]
+    assert all(t > 0 for t in timed), c
+    assert set(c) & set(SECTOR_TIMERS) == {f"sector_{k}_ns" for k in kinds}
+    assert sum(timed) <= snap["spans"][loop]["self_ns"]
+
+
 def test_off_is_the_shared_noop():
     assert not spans.enabled()
     a = spans.span("bs.launch", 7)
@@ -147,6 +169,64 @@ def test_off_is_the_shared_noop():
         spans.count("h2d_pageable_bytes", 100)
     spans.count_h2d(torch.zeros(4), "cuda")
     assert spans.snapshot() == EMPTY
+
+
+def test_a_span_charges_its_record_function_to_itself(monkeypatch):
+    """A span's record function, entered and left, lies inside its own
+    clock readings: a child's instrumentation adds to the child's total
+    and nothing to the self time of the span around it. The clock here
+    ticks 1 ns a reading and 1,000 ns a record function's enter or exit."""
+    clock = [0]
+
+    def now():
+        clock[0] += 1
+        return clock[0]
+
+    class Record:
+        def __init__(self, name, args=None):
+            pass
+
+        def __enter__(self):
+            clock[0] += 1000
+
+        def __exit__(self, *exc):
+            clock[0] += 1000
+
+    monkeypatch.setattr(spans.time, "perf_counter_ns", now)
+    monkeypatch.setattr(spans.torch.profiler, "record_function", Record)
+    monkeypatch.setattr(spans, "enabled", lambda: True)
+    with spans.span("batch.encode"):
+        with spans.span("adpcm.kernel"):
+            pass
+    s = spans.snapshot()["spans"]
+    assert s["adpcm.kernel"]["total_ns"] >= 2000
+    outer = s["batch.encode"]
+    assert 2000 <= outer["self_ns"] < 2010
+    assert outer["total_ns"] == outer["self_ns"] + \
+        s["adpcm.kernel"]["total_ns"]
+
+
+def test_sector_sums_off_are_none():
+    """Off, a sector loop gets no sums, so it reads no clock, and its
+    flush counts nothing."""
+    assert xa.sector_sums() is None
+    xa.count_sector_sums(None, 5)
+    assert spans.snapshot() == EMPTY
+
+
+def test_sector_sums_add_to_the_counters_once_a_loop():
+    """On, a loop's sums start at 0 for every step, and the flush adds the
+    steps that ran and the sectors written to the counters, opening no
+    span."""
+    with profile(activities=[ProfilerActivity.CPU]):
+        ns = xa.sector_sums()
+        assert ns == dict.fromkeys(xa.SECTOR_NS, 0)
+        ns["sector_write_ns"] += 500
+        ns["sector_audio_ns"] += 70
+        xa.count_sector_sums(ns, 3)
+        xa.count_sector_sums(ns, 2)
+    assert spans.snapshot() == {"spans": {}, "counters": {
+        "sector_write_ns": 1000, "sector_audio_ns": 140, "sectors": 5}}
 
 
 def test_on_follows_the_profiler():
@@ -240,9 +320,10 @@ def test_threads_lose_no_update():
 
 def test_job_list_off_and_on(tmp_path, cpu):
     """A grouped ``-t vag`` list: nothing recorded untraced; traced, one
-    ``batch.plan`` and one ``batch.replay`` a file, each span in the
-    trace inside its parent, at most 5 spans a file and 6 a list; the
-    same bytes."""
+    ``batch.plan`` and one ``batch.replay`` a file, ``ingest.open``'s
+    steps (``ingest.native``, ``ingest.probe`` where the WAV has no loop
+    chunk, ``ingest.finish``) once a file, each span in the trace inside
+    its parent, at most 8 spans a file and 6 a list; the same bytes."""
     plain = _list(tmp_path, "plain")
     assert batch.run_jobs(plain, quiet=True, device="cpu") == [0] * CLIPS
     assert spans.snapshot() == EMPTY
@@ -256,8 +337,10 @@ def test_job_list_off_and_on(tmp_path, cpu):
     assert counts["batch.plan"] == counts["batch.replay"] == CLIPS
     assert counts["ingest.open"] == counts["ingest.demux"] == CLIPS
     assert counts["ingest.resample"] == CLIPS
+    for k in ("native", "probe", "finish"):
+        assert counts[f"ingest.{k}"] == CLIPS, k
     assert counts["batch.encode"] == counts["batch.parse"] == 1
-    assert sum(counts.values()) <= 5 * CLIPS + 6
+    assert sum(counts.values()) <= 8 * CLIPS + 6
     _check_times(snap)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
@@ -266,9 +349,10 @@ def test_job_list_off_and_on(tmp_path, cpu):
 
 def test_movie_off_and_on(tmp_path, cpu, monkeypatch, movie):
     """A 60 s ``-t str -x 2`` movie through the CLI: nothing recorded
-    untraced; under PSXAVENC_PROFILE one ``bs.launch`` a frame batch,
-    every span in the trace inside its parent, at most 200 spans; the same
-    bytes."""
+    untraced; under PSXAVENC_PROFILE one ``bs.launch`` and one ``bs.step``
+    inside it a frame batch, every span in the trace inside its parent, at
+    most 200 spans; the sector steps' sums, ``sectors`` the file's 2,336-byte
+    sectors; the same bytes."""
     assert cli.main(_str_argv(movie, tmp_path / "plain.str")) == 0
     assert spans.snapshot() == EMPTY
     launches = []
@@ -287,12 +371,16 @@ def test_movie_off_and_on(tmp_path, cpu, monkeypatch, movie):
     snap = spans.snapshot()
     counts = {n: s["count"] for n, s in snap["spans"].items()}
     assert len(launches) >= math.ceil(900 / 128)
-    for k in ("stack", "launch", "collect"):
+    for k in ("stack", "launch", "step", "collect"):
         assert counts[f"bs.{k}"] == len(launches)
-    for k in ("ingest.open", "ingest.demux", "ingest.resample",
-              "ingest.nv21", "ingest.stack", "str.schedule", "str.sectors",
-              "bs.open"):
+    for k in ("ingest.open", "ingest.native", "ingest.demux",
+              "ingest.resample", "ingest.nv21", "ingest.stack",
+              "ingest.finish", "str.schedule", "str.sectors", "bs.open"):
         assert counts[k] == 1, k
+    size = (tmp_path / "traced.str").stat().st_size
+    assert size % 2336 == 0
+    _check_sector_timers(snap, "str.sectors", size // 2336,
+                         ("video", "audio", "checksum", "write", "progress"))
     assert counts["xa.encode"] == counts["xa.assemble"] > 1
     assert sum(counts.values()) <= 200
     _check_times(snap)
@@ -305,7 +393,7 @@ def test_xa_track_off_and_on(tmp_path, cpu, monkeypatch):
     (30 s: 563 sectors, one chunk): nothing recorded untraced; under
     PSXAVENC_PROFILE one ``ingest.resample`` and one ``xa.sectors``, the
     chunk's spans inside ``xa.sectors``, every span in the trace inside
-    its parent; the same bytes."""
+    its parent; the sector steps' sums, ``sectors`` 563; the same bytes."""
     src = tmp_path / "track.wav"
     synth.write_wav(src, synth.rand_pcm(30 * 44100, channels=2, seed=9),
                     44100, channels=2)
@@ -320,11 +408,15 @@ def test_xa_track_off_and_on(tmp_path, cpu, monkeypatch):
     snap = spans.snapshot()
     counts = {n: s["count"] for n, s in snap["spans"].items()}
     assert set(counts) <= set(TRACK_PARENTS)
-    for k in ("ingest.open", "ingest.demux", "ingest.resample",
+    for k in ("ingest.open", "ingest.native", "ingest.probe",
+              "ingest.demux", "ingest.resample", "ingest.finish",
               "xa.sectors", "xa.encode", "xa.assemble"):
         assert counts[k] == 1, k
     sectors = snap["spans"]["xa.sectors"]
     assert sectors["self_ns"] < sectors["total_ns"]
+    assert (tmp_path / "traced.xa").stat().st_size == 563 * 2336
+    _check_sector_timers(snap, "xa.sectors", 563,
+                         ("audio", "checksum", "write", "progress"))
     _check_times(snap)
     (trace,) = (tmp_path / "prof").glob("trace_*.json")
     _check_trace(_annotations(trace), TRACK_PARENTS, snap)
@@ -332,24 +424,35 @@ def test_xa_track_off_and_on(tmp_path, cpu, monkeypatch):
 
 def test_encoder_feed_spans_a_batch(cpu):
     """The encoder fed as the ``str.encoder`` cell feeds it (batches of
-    128 one ahead of fetch): ``bs.open`` once, at most 6 spans a batch."""
+    128 one ahead of fetch): ``bs.open`` once, ``bs.step`` once a batch,
+    at most 6 spans a batch; untraced, no span, no counter and no timing
+    event in the handle (on the CPU there is none traced either)."""
     frames = np.zeros((300, 48 * 32 * 3 // 2), np.uint8)
     frames[:] = np.arange(frames.shape[1]) % 251
     budgets = [2016 * 2] * len(frames)
+    enc = bs_video.BsFrameEncoder(0, 48, 32, "cpu")
+    plain = enc.encode_frames_async(list(frames[:128]), budgets[:128])
+    assert plain[4] is None
+    want = enc.fetch(plain)
+    enc.close()
+    assert spans.snapshot() == EMPTY
     with profile(activities=[ProfilerActivity.CPU]):
         enc = bs_video.BsFrameEncoder(0, 48, 32, "cpu")
         pending = enc.encode_frames_async(list(frames[:128]), budgets[:128])
+        assert pending[4] is None
         nxt = enc.encode_frames_async(list(frames[128:256]),
                                       budgets[128:256])
-        enc.fetch(pending)
+        got = enc.fetch(pending)
         last = enc.encode_frames_async(list(frames[256:]), budgets[256:])
         enc.fetch(nxt)
         enc.fetch(last)
         enc.close()
     counts = {n: s["count"] for n, s in spans.snapshot()["spans"].items()}
     assert counts.pop("bs.open") == 1
-    assert counts["bs.launch"] == counts["bs.collect"] == 3
+    assert counts["bs.launch"] == counts["bs.step"] == \
+        counts["bs.collect"] == 3
     assert sum(counts.values()) <= 6 * 3
+    assert [b.tobytes() for b, _ in got] == [b.tobytes() for b, _ in want]
 
 
 def _calls(name):
@@ -374,11 +477,15 @@ def _calls(name):
 
 def test_every_span_literal_is_catalogued():
     """Every span the package opens is a literal of ``NAMES``, and every
-    name there is opened somewhere; the same for the counters."""
+    name there is opened somewhere; the same for the counters, counted by
+    a literal or, in the sector loops' flush, from ``xa.SECTOR_NS``."""
     opened = set(_calls("span"))
     assert {a for _, a in opened} == spans.NAMES, opened
-    counted = set(_calls("count"))
-    assert {a for _, a in counted} == spans.COUNTERS, counted
+    counted = {a for _, a in _calls("count")}
+    flushed = {a for rel, a in _calls("count")
+               if rel == "containers/xa.py" and a.startswith("Name(")}
+    assert len(flushed) == 1, counted
+    assert (counted - flushed) | set(xa.SECTOR_NS) == spans.COUNTERS, counted
 
 
 @pytest.mark.parametrize("name", ["k1_frames", "k1_global_frames",
@@ -392,14 +499,15 @@ def test_the_kernel_stats_counters_are_listed(name):
 
 
 def test_the_cost_tool_measures_each_call():
-    """``tools/torch_span_cost.py`` times a span off and on, a count off
-    and an ungated record function, and leaves no aggregates behind."""
+    """``tools/torch_span_cost.py`` times a span off and on, a count off,
+    a sector loop's timed step and an ungated record function, and leaves
+    no aggregates behind."""
     spec = importlib.util.spec_from_file_location(
         "torch_span_cost", PKG.parent / "tools" / "torch_span_cost.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     r = tool.measure(n=2000, n_on=200, reps=1)
-    for k in ("span_off_ns", "count_off_ns", "span_on_ns",
+    for k in ("span_off_ns", "count_off_ns", "span_on_ns", "step_sum_ns",
               "record_function_off_ns", "with_noop_ns"):
         assert r[k] > 0, k
     assert spans.snapshot() == EMPTY

@@ -97,7 +97,7 @@ def test_k1_counters_only_under_a_profile(frames, monkeypatch):
     each batch adds its padded frames to ``k1_frames``; the plain K1
     zeroes its rows, so the rest read 0; the three frames' DC bits (v2's
     10 a block) and total bits reach ``dc_bits`` and ``frame_bits``; the
-    bytes are the same."""
+    span ``bs.step`` counts one a batch; the bytes are the same."""
     handle, off = _encode(frames, BUDGETS[0], "device", monkeypatch)
     assert "k1_stats" not in handle[1] and "dc_total" not in handle[1]
     assert spans.snapshot()["counters"] == {}
@@ -107,10 +107,11 @@ def test_k1_counters_only_under_a_profile(frames, monkeypatch):
         handle2, _ = _encode(frames, BUDGETS[1], "device", monkeypatch)
     total = sum(int(h[1]["total_bits"][:3].sum()) for h in (handle,
                                                              handle2))
-    assert spans.snapshot()["counters"] == {
+    snap = spans.snapshot()
+    assert snap["counters"] == {
         "k1_frames": 16, "k1_global_frames": 0, "k1_evaluations": 0,
-        "bs_steps_frames_dropped": 2, "dc_bits": 2 * 3 * 7200 * 10,
-        "frame_bits": total}
+        "dc_bits": 2 * 3 * 7200 * 10, "frame_bits": total}
+    assert snap["spans"]["bs.step"]["count"] == 2
     assert [b.tobytes() for b, _ in on] == [b.tobytes() for b, _ in off]
 
 

@@ -7,6 +7,10 @@ Nanoseconds a call, each the median of ``--reps`` loops of ``--n`` calls
 - ``count_off_ns``: ``spans.count(name, n)`` with no profiler running;
 - ``span_on_ns``: the same span under ``torch.profiler`` (CPU activity,
   and the card's where there is one), record function and aggregates;
+- ``step_sum_ns``: a sector loop's timed step while a profile runs, a
+  clock reading before the step and one after it, added to the loop's
+  dict of sums (``containers/xa.py::sector_sums``); off, the step costs
+  one ``is not None`` check;
 - ``record_function_off_ns``: an ungated ``torch.profiler.record_function``
   with no profiler running, what a span would cost without the switch;
 - ``with_noop_ns``: a with-statement on a shared no-op, the floor.
@@ -56,6 +60,14 @@ def _spans(n):
             pass
 
 
+def _step_sums(n):
+    ns = {"sector_write_ns": 0}
+    clock = time.perf_counter_ns
+    for _ in range(n):
+        t0 = clock()
+        ns["sector_write_ns"] += clock() - t0
+
+
 def _counts(n):
     for _ in range(n):
         spans.count("h2d_pageable_bytes", 4096)
@@ -77,6 +89,7 @@ def measure(n=200_000, n_on=20_000, reps=5):
     """-> dict of the costs (ns a call) and the host's description."""
     out = {"span_off_ns": _per_call(_spans, n, reps),
            "count_off_ns": _per_call(_counts, n, reps),
+           "step_sum_ns": _per_call(_step_sums, n, reps),
            "record_function_off_ns": _per_call(_record_functions, n, reps),
            "with_noop_ns": _per_call(_noops, n, reps)}
     activities = [ProfilerActivity.CPU]
